@@ -1,0 +1,106 @@
+"""FailureDetection — keep-alive pings + vectorized election triggers.
+
+Ref: ``FailureDetection.java:62-79`` — ping period = timeout/2 (default
+node timeout 6s, ``PaxosConfig.java:668``), ``lastHeardFrom`` map, and the
+optimization that *any* traffic counts as heard-from
+(``PaxosInstanceStateMachine.java:884,1002,1167``).  The reference then
+consults ``isNodeUp``/``lastCoordinatorLongDead`` per instance inside
+``checkRunForCoordinator`` (:1962-2072); here that per-group decision is
+one vectorized pass producing the engine's ``want_coord`` mask:
+
+  run for coordinator of group g iff the believed coordinator (ballot
+  coord) is dead AND I am the next-in-line member (round-robin successor,
+  the ``roundRobinCoordinator`` spread rule :2123), OR the coordinator
+  has been dead ~3x the timeout (anyone may run — liveness backstop).
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Dict, Iterable, Optional
+
+import numpy as np
+
+from .ops.ballot import ballot_coord
+from .paxos_config import PC
+from .utils.config import Config
+
+
+class FailureDetector:
+    def __init__(
+        self,
+        my_id: int,
+        node_ids: Iterable[int],
+        timeout_s: Optional[float] = None,
+    ):
+        self.my_id = int(my_id)
+        if timeout_s is None:
+            timeout_s = Config.get_float(PC.FAILURE_DETECTION_TIMEOUT_S)
+        self.timeout_s = timeout_s
+        self.long_dead_factor = Config.get_float(PC.COORDINATOR_LONG_DEAD_FACTOR)
+        # explicit ping period if configured; defaults to timeout/2
+        # (FailureDetection.java:62-79)
+        self._ping_period_s = (
+            Config.get_float(PC.PING_PERIOD_S)
+            if Config.is_set(PC.PING_PERIOD_S) else timeout_s / 2.0
+        )
+        now = time.time()
+        self.last_heard: Dict[int, float] = {int(n): now for n in node_ids}
+
+    @property
+    def ping_period_s(self) -> float:
+        return self._ping_period_s
+
+    def heard_from(self, node_id: int) -> None:
+        self.last_heard[int(node_id)] = time.time()
+
+    def is_node_up(self, node_id: int) -> bool:
+        if node_id == self.my_id:
+            return True
+        t = self.last_heard.get(int(node_id))
+        return t is not None and (time.time() - t) < self.timeout_s
+
+    def dead_for(self, node_id: int) -> float:
+        if node_id == self.my_id:
+            return 0.0
+        t = self.last_heard.get(int(node_id))
+        return float("inf") if t is None else time.time() - t
+
+    # ---- vectorized election trigger ----------------------------------
+    def want_coord(
+        self,
+        bal: np.ndarray,          # [G] promised ballots (packed)
+        member_mask: np.ndarray,  # [G]
+        n_replicas: int,
+    ) -> np.ndarray:
+        """[G] bool: should THIS node start an election for each group."""
+        R = n_replicas
+        up = np.array([self.is_node_up(r) for r in range(R)], bool)
+        long_dead = np.array(
+            [self.dead_for(r) > self.timeout_s * self.long_dead_factor
+             for r in range(R)], bool,
+        )
+        coord = np.asarray(ballot_coord(np.asarray(bal))) % R
+        mask = np.asarray(member_mask)
+        # a coordinator that is alive but NOT a member of the group (left
+        # behind by elastic membership churn / a heal that shrank the
+        # set) will never serve it — treat exactly like a dead one, long-
+        # dead included (any member may run; preemption sorts the race).
+        # Without this the group wedges forever: entries forward every
+        # proposal to a node that no longer hosts the row, and no
+        # election ever fires because the node still answers pings
+        # (chaos-soak find, seed 20260730).
+        coord_member = ((mask >> coord) & 1) == 1
+        coord_down = ~up[coord] | ~coord_member
+        coord_long_dead = long_dead[coord] | ~coord_member
+        # next-in-line: the cyclically-next member id after the dead coord
+        im_member = ((mask >> self.my_id) & 1) == 1
+        next_rr = np.copy(coord)
+        for step in range(1, R + 1):
+            cand = (coord + step) % R
+            is_member = ((mask >> cand) & 1) == 1
+            cand_up = up[cand]
+            pick = (next_rr == coord) & is_member & cand_up
+            next_rr = np.where(pick, cand, next_rr)
+        im_next = next_rr == self.my_id
+        return im_member & coord_down & (im_next | coord_long_dead)

@@ -1,0 +1,259 @@
+"""Engine metrics registry: counters, gauges, histograms.
+
+Extends the EWMA-only :class:`~gigapaxos_tpu_torch.utils.profiler.DelayProfiler`
+(the reference's string-keyed global) with the two things a serving stack
+needs that an EWMA can't give: exact monotonic counters reduced from the
+vectorized engine's per-step outputs (decisions executed, requests
+admitted, preempts, coordinator flips, ...) and latency DISTRIBUTIONS
+(log-spaced histogram buckets — an average engine-step time hides the
+p99 stall that actually wedges a tick loop).
+
+One registry per node (``PaxosManager.metrics``), surfaced three ways:
+
+* the ``stats`` admin op (``server._on_admin``) returns ``snapshot()``
+  alongside the DelayProfiler dump;
+* ``GET /metrics`` on the active-replica HTTP front renders ``render()``
+  (Prometheus-style text lines);
+* the server's periodic INFO stats line logs ``summary_line()``.
+
+Updates are per-STEP aggregates, not per-request — a few numpy
+reductions per tick against an engine step that costs ~1ms, so the
+registry stays on unconditionally (like DelayProfiler); only per-request
+tracing is gated.
+"""
+
+from __future__ import annotations
+
+import gc
+import os
+import threading
+from typing import Dict, List, Optional, Sequence, Tuple
+
+# default bounds suit SECONDS-valued latencies (100us .. 10s, log-ish)
+DEFAULT_BOUNDS = (
+    0.0001, 0.0003, 0.001, 0.003, 0.01, 0.03, 0.1, 0.3, 1.0, 3.0, 10.0,
+)
+
+
+class Histogram:
+    """Fixed-bound bucket histogram with count/sum/min/max.
+
+    Not thread-safe on its own — the owning registry serializes access
+    (observe() under the registry lock)."""
+
+    __slots__ = ("bounds", "buckets", "count", "total", "min", "max")
+
+    def __init__(self, bounds: Optional[Sequence[float]] = None):
+        self.bounds: Tuple[float, ...] = tuple(
+            DEFAULT_BOUNDS if bounds is None else sorted(bounds)
+        )
+        self.buckets: List[int] = [0] * (len(self.bounds) + 1)  # +overflow
+        self.count = 0
+        self.total = 0.0
+        self.min: Optional[float] = None
+        self.max: Optional[float] = None
+
+    def observe(self, x: float) -> None:
+        x = float(x)
+        lo = 0
+        hi = len(self.bounds)
+        while lo < hi:  # bisect: first bound >= x
+            mid = (lo + hi) // 2
+            if x <= self.bounds[mid]:
+                hi = mid
+            else:
+                lo = mid + 1
+        self.buckets[lo] += 1
+        self.count += 1
+        self.total += x
+        self.min = x if self.min is None or x < self.min else self.min
+        self.max = x if self.max is None or x > self.max else self.max
+
+    def snapshot(self) -> Dict:
+        # ALL buckets ship, zeros included: Prometheus histogram_quantile
+        # needs the cumulative le="+Inf" series even (especially) when no
+        # observation overflowed, and a fixed shape keeps scrape diffs
+        # meaningful
+        return {
+            "count": self.count,
+            "sum": self.total,
+            "min": self.min,
+            "max": self.max,
+            "buckets": [
+                [self.bounds[i] if i < len(self.bounds) else "+inf", n]
+                for i, n in enumerate(self.buckets)
+            ],
+        }
+
+
+class MetricsRegistry:
+    """Thread-safe named counters / gauges / histograms for one node."""
+
+    def __init__(self, node: int = -1):
+        self.node = int(node)
+        self._lock = threading.Lock()
+        self._counters: Dict[str, float] = {}
+        self._gauges: Dict[str, float] = {}
+        self._hists: Dict[str, Histogram] = {}
+
+    # ---- update -------------------------------------------------------
+    def count(self, key: str, n: float = 1) -> None:
+        with self._lock:
+            self._counters[key] = self._counters.get(key, 0) + n
+
+    def gauge(self, key: str, value: float) -> None:
+        with self._lock:
+            self._gauges[key] = float(value)
+
+    def observe(self, key: str, x: float,
+                bounds: Optional[Sequence[float]] = None) -> None:
+        """Record one histogram sample.  ``bounds`` is FIRST-WINS: it
+        only shapes the histogram when ``key`` is new; later calls'
+        bounds are ignored (re-bucketing live counts is not meaningful,
+        and raising here would crash a hot path over a stats knob)."""
+        with self._lock:
+            h = self._hists.get(key)
+            if h is None:
+                h = self._hists[key] = Histogram(bounds)
+            h.observe(x)
+
+    def observe_bulk(self, key: str, values,
+                     bounds: Optional[Sequence[float]] = None) -> None:
+        """Fold MANY histogram samples under one lock acquisition — the
+        stats-cadence face of :meth:`observe` for vectorized sources
+        (the ``group_heat`` pull hands over one value per active group;
+        taking the lock per group would make the stats tick O(G) lock
+        traffic).  Bucketing is vectorized via numpy when available;
+        ``bounds`` is first-wins exactly like :meth:`observe`."""
+        vals = list(values) if not hasattr(values, "__len__") else values
+        if len(vals) == 0:
+            return
+        with self._lock:
+            h = self._hists.get(key)
+            if h is None:
+                h = self._hists[key] = Histogram(bounds)
+            try:
+                import numpy as np
+
+                arr = np.asarray(vals, np.float64)
+                idx = np.searchsorted(
+                    np.asarray(h.bounds, np.float64), arr, side="left"
+                )
+                for i, n in zip(*np.unique(idx, return_counts=True)):
+                    h.buckets[int(i)] += int(n)
+                h.count += int(arr.size)
+                h.total += float(arr.sum())
+                lo, hi = float(arr.min()), float(arr.max())
+                h.min = lo if h.min is None or lo < h.min else h.min
+                h.max = hi if h.max is None or hi > h.max else h.max
+            except ImportError:
+                for x in vals:
+                    h.observe(x)
+
+    def remove(self, key: str) -> None:
+        """Retire a metric series (e.g. a per-node gauge of a removed
+        cluster member): a dead label exporting its last value forever
+        reads as a live node, and membership churn would grow the
+        registry without bound."""
+        with self._lock:
+            self._counters.pop(key, None)
+            self._gauges.pop(key, None)
+            self._hists.pop(key, None)
+
+    # ---- read ---------------------------------------------------------
+    def get(self, key: str) -> float:
+        with self._lock:
+            if key in self._counters:
+                return self._counters[key]
+            if key in self._gauges:
+                return self._gauges[key]
+            h = self._hists.get(key)
+            return float(h.count) if h is not None else 0.0
+
+    def snapshot(self) -> Dict:
+        """JSON-safe structured dump (the ``stats`` admin-op body)."""
+        with self._lock:
+            return {
+                "node": self.node,
+                "counters": dict(self._counters),
+                "gauges": dict(self._gauges),
+                "hists": {k: h.snapshot() for k, h in self._hists.items()},
+            }
+
+    def summary_line(self) -> str:
+        """Compact one-line form for the periodic INFO stats log."""
+        with self._lock:
+            parts = [f"{k}:{v:.6g}" for k, v in sorted(self._counters.items())]
+            parts += [f"{k}={v:.4g}" for k, v in sorted(self._gauges.items())]
+            parts += [
+                f"{k}(n={h.count},avg={h.total / h.count:.3g},max={h.max:.3g})"
+                for k, h in sorted(self._hists.items()) if h.count
+            ]
+        return "[" + " ".join(parts) + "]"
+
+    @staticmethod
+    def _num(v: float) -> str:
+        """Full-precision number rendering: %g's 6 significant digits
+        quantize large monotonic counters (decisions at ~84M/s pass 1e10
+        in minutes), flat-lining Prometheus rate() between scrapes."""
+        f = float(v)
+        return str(int(f)) if f.is_integer() else repr(f)
+
+    def render(self) -> str:
+        """Prometheus-style text lines (the HTTP ``/metrics`` body)."""
+        lines: List[str] = []
+        snap = self.snapshot()
+        tag = f'{{node="{self.node}"}}'
+        for k, v in sorted(snap["counters"].items()):
+            lines.append(f"gp_{k}_total{tag} {self._num(v)}")
+        for k, v in sorted(snap["gauges"].items()):
+            lines.append(f"gp_{k}{tag} {self._num(v)}")
+        for k, h in sorted(snap["hists"].items()):
+            cum = 0
+            for le, n in h["buckets"]:
+                cum += n
+                # "+Inf" is the spelling Prometheus requires for the
+                # mandatory terminal bucket
+                le_s = "+Inf" if isinstance(le, str) else f"{le:g}"
+                lines.append(
+                    f'gp_{k}_bucket{{node="{self.node}",le="{le_s}"}} {cum}'
+                )
+            lines.append(f"gp_{k}_count{tag} {h['count']}")
+            lines.append(f"gp_{k}_sum{tag} {self._num(h['sum'])}")
+        return "\n".join(lines) + "\n"
+
+
+def collect_process_gauges(reg: MetricsRegistry) -> None:
+    """Refresh per-PROCESS resource gauges (RSS, open fds, GC
+    collections, thread count) into ``reg``.  Multi-hour soaks and
+    ``SERVING_WORKERS`` parents need per-process drift visible on
+    /metrics — a slow fd or RSS leak is otherwise invisible until the
+    box dies.  Called at the stats-line cadence (server loop), never per
+    request; every probe degrades silently on platforms without /proc."""
+    try:
+        with open("/proc/self/statm") as f:
+            rss_pages = int(f.read().split()[1])
+        reg.gauge("process_rss_bytes",
+                  rss_pages * os.sysconf("SC_PAGE_SIZE"))
+    except (OSError, ValueError, IndexError):
+        try:
+            import resource
+
+            reg.gauge(
+                "process_rss_bytes",
+                resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024,
+            )
+        except (ImportError, OSError, ValueError):
+            pass
+    try:
+        reg.gauge("process_open_fds", len(os.listdir("/proc/self/fd")))
+    except OSError:
+        pass
+    try:
+        reg.gauge(
+            "process_gc_collections",
+            sum(s.get("collections", 0) for s in gc.get_stats()),
+        )
+    except Exception:
+        pass
+    reg.gauge("process_threads", threading.active_count())

@@ -1,0 +1,370 @@
+"""Append-only CRC-framed block journal with rotation and GC.
+
+Plays the role of the reference's journal files
+(``SQLPaxosLogger.Journaler``, ``SQLPaxosLogger.java:685-711``: dir
+``paxos_journal.*``, 64MB rotation, GC below the checkpoint) — but the
+record unit is a *block of packed int32 columns* covering many groups at
+once (one ``np.ndarray.tobytes`` per engine step), not one serialized
+message per paxos instance.
+
+Wire format per block (little-endian):
+    magic:u32  type:u8  n_rows:u32  payload_len:u32  crc32(payload):u32
+    payload bytes
+A torn tail (partial header/payload or CRC mismatch) terminates a scan
+cleanly — everything before it is valid (append-only + single writer).
+"""
+
+from __future__ import annotations
+
+import enum
+import os
+import struct
+import threading
+import zlib
+from typing import Iterator, List, Optional, Tuple
+
+import numpy as np
+
+MAGIC = 0x47504A4C  # "GPJL"
+_HDR = struct.Struct("<IBIII")
+
+FILE_PREFIX = "journal_"
+FILE_SUFFIX = ".bin"
+
+
+class BlockType(enum.IntEnum):
+    ACCEPTS = 1     # cols: group, slot, ballot, vid
+    DECISIONS = 2   # cols: group, slot, vid
+    CREATE = 3      # cols: group, member_mask, version, coord0
+    PAYLOADS = 4    # raw bytes (host arena spill: vid -> request payloads)
+    PAUSE = 5       # raw bytes (packed rows of paused groups)
+    KILL = 6        # cols: group
+    CHECKPOINT = 7  # raw bytes (json marker: snapshot name + journal pos)
+    NAMES = 8       # raw bytes (json [{row, name, version, init}] — the
+    #                 name->row map + initial app state of CREATE blocks;
+    #                 names are host-side strings so they can't ride the
+    #                 packed int32 CREATE columns)
+    PROMISES = 9    # cols: group, ballot — a bare promise (ballot rose with
+    #                 no accompanying accept); ref: handlePrepare's
+    #                 log-before-send of promise-upgrading prepare replies
+    UNPEND = 10     # cols: group — a pending (pre-COMPLETE) row confirmed
+    #                 by the reconfigurator's epoch_commit; clears the
+    #                 propose-refusal gate durably
+
+
+def _file_name(idx: int) -> str:
+    return f"{FILE_PREFIX}{idx:08d}{FILE_SUFFIX}"
+
+
+def _file_idx(name: str) -> Optional[int]:
+    if name.startswith(FILE_PREFIX) and name.endswith(FILE_SUFFIX):
+        try:
+            return int(name[len(FILE_PREFIX):-len(FILE_SUFFIX)])
+        except ValueError:
+            return None
+    return None
+
+
+# payloads at least this large CRC-check through the native library when
+# available (the ctypes call releases the GIL, so segmented replay's
+# scanner threads verify concurrently); small blocks stay on zlib, whose
+# call overhead is lower
+_NATIVE_CRC_MIN = 4096
+
+
+def _crc_fn():
+    """(crc(payload) -> int) using gp_journal.so for large payloads when
+    loaded (GP_NO_NATIVE / no compiler => pure zlib)."""
+    from ..native import journal_lib
+
+    lib = journal_lib()
+    if lib is None:
+        return zlib.crc32
+
+    def crc(payload: bytes) -> int:
+        if len(payload) >= _NATIVE_CRC_MIN:
+            return lib.gpj_crc32(payload, len(payload))
+        return zlib.crc32(payload)
+
+    return crc
+
+
+def read_file_blocks(
+    path: str, from_offset: int = 0
+) -> Tuple[List[Tuple[BlockType, bytes, int, int]], bool]:
+    """Read one journal file's valid blocks from ``from_offset``.
+
+    Returns ``([(type, payload, n_rows, end_offset), ...], clean)`` —
+    ``clean`` is False when the file ends in a torn/corrupt block, in
+    which case everything PAST this file is unreachable (single-writer
+    append order) and the caller must stop the whole scan.  This is the
+    per-segment unit of the recovery plane's parallel replay: framing
+    and CRC verification happen here, concurrently across files, while
+    block APPLICATION stays in journal order."""
+    crc_of = _crc_fn()
+    blocks: List[Tuple[BlockType, bytes, int, int]] = []
+    # an unreadable file raises (loud recovery failure) — only torn
+    # CONTENT truncates the scan; mapping open() errors to clean=False
+    # would silently drop every decision from this file onward
+    with open(path, "rb") as f:
+        if from_offset:
+            f.seek(from_offset)
+        while True:
+            hdr = f.read(_HDR.size)
+            if len(hdr) < _HDR.size:
+                # partial header = benign EOF (scan parity: only payload
+                # tears and magic/CRC mismatches stop the WHOLE scan)
+                return blocks, True
+            magic, btype, n_rows, plen, crc = _HDR.unpack(hdr)
+            if magic != MAGIC:
+                return blocks, False
+            payload = f.read(plen)
+            if len(payload) < plen or crc_of(payload) != crc:
+                return blocks, False
+            blocks.append(
+                (BlockType(btype), payload, n_rows, f.tell())
+            )
+
+
+class Journal:
+    """Single-writer append-only journal over rotating files in a dir."""
+
+    def __init__(
+        self,
+        directory: str,
+        max_file_size: int = 64 * 1024 * 1024,  # MAX_LOG_FILE_SIZE analog
+        sync: bool = False,                      # FLUSH/SYNC flag analog
+    ):
+        self.dir = directory
+        self.max_file_size = max_file_size
+        self.sync = sync
+        # append/position/gc are serialized: the async checkpoint
+        # writer appends its marker and GCs covered files from a
+        # background thread while the tick thread keeps appending
+        self._lock = threading.RLock()
+        os.makedirs(directory, exist_ok=True)
+        existing = self.file_indices()
+        self._cur_idx = existing[-1] if existing else 0
+        path = os.path.join(self.dir, _file_name(self._cur_idx))
+        # A crash can leave a torn block at the tail; appending after it
+        # would orphan every later block (scans stop at the tear), so cut
+        # back to the last valid block boundary before appending.
+        self._truncate_torn_tail(path)
+        self._fh = open(path, "ab")
+        # authoritative write offset: native appends bypass the buffered
+        # object, whose tell() only tracks its own writes (O_APPEND keeps
+        # all writes at EOF either way; Python-path writes flush inline,
+        # so the two never interleave unflushed)
+        self._pos = os.path.getsize(path)
+        from ..native import journal_lib
+
+        self._native = journal_lib()  # None -> pure-Python appends
+
+    @staticmethod
+    def _truncate_torn_tail(path: str) -> None:
+        if not os.path.exists(path):
+            return
+        valid_end = 0
+        with open(path, "rb") as f:
+            while True:
+                hdr = f.read(_HDR.size)
+                if len(hdr) < _HDR.size:
+                    break
+                magic, _btype, _n, plen, crc = _HDR.unpack(hdr)
+                if magic != MAGIC:
+                    break
+                payload = f.read(plen)
+                if len(payload) < plen or zlib.crc32(payload) != crc:
+                    break
+                valid_end = f.tell()
+        if valid_end < os.path.getsize(path):
+            with open(path, "r+b") as f:
+                f.truncate(valid_end)
+
+    # ---- write ---------------------------------------------------------
+    def append(self, btype: BlockType, payload: bytes, n_rows: int = 0) -> Tuple[int, int]:
+        """Append one block; returns (file_idx, end_offset) after the write.
+
+        Uses the native appender (header + CRC + write [+fsync] as one C
+        call, ``native/gp_journal.cc``) when available; the pure-Python
+        path writes the identical bytes."""
+        with self._lock:
+            return self._append_locked(btype, payload, n_rows)
+
+    def _append_locked(self, btype: BlockType, payload: bytes,
+                       n_rows: int = 0) -> Tuple[int, int]:
+        lib = self._native
+        if lib is not None:
+            wrote = lib.gpj_append(
+                self._fh.fileno(), int(btype), n_rows,
+                payload, len(payload), 1 if self.sync else 0,
+            )
+            if wrote >= 0:
+                self._pos += int(wrote)
+                if self._pos >= self.max_file_size:
+                    self._rotate()
+                    return (self._cur_idx, 0)
+                return (self._cur_idx, self._pos)
+            # a failed native write may have landed PARTIAL bytes —
+            # appending after them would tear the stream (scans stop at
+            # the corrupt header).  Cut back to the last good boundary and
+            # retire the native path for this journal (the disk condition
+            # will recur); the Python retry below starts clean.
+            self._repair_to_pos()
+        hdr = _HDR.pack(MAGIC, int(btype), n_rows, len(payload), zlib.crc32(payload))
+        self._fh.write(hdr)
+        self._fh.write(payload)
+        self._fh.flush()
+        self._pos += len(hdr) + len(payload)
+        if self.sync:
+            os.fsync(self._fh.fileno())
+        if self._pos >= self.max_file_size:
+            self._rotate()
+            return (self._cur_idx, 0)
+        return (self._cur_idx, self._pos)
+
+    def _repair_to_pos(self) -> None:
+        """Truncate torn partial bytes back to the last good block
+        boundary (self._pos) and stop using the native appender."""
+        self._native = None
+        try:
+            self._fh.flush()
+            os.ftruncate(self._fh.fileno(), self._pos)
+        except OSError:
+            pass  # truncate failing leaves the tear; scans still stop
+            # cleanly at it and recovery sees everything before _pos
+
+    @staticmethod
+    def pack_columns(cols: List[np.ndarray]) -> Tuple[bytes, int]:
+        """THE packed-column wire encoding (kept in one place: the direct
+        and batched append paths must never diverge from the scanner)."""
+        n = len(cols[0])
+        mat = np.stack([np.asarray(c, np.int32) for c in cols], axis=1)
+        return mat.tobytes(), n
+
+    def append_columns(self, btype: BlockType, cols: List[np.ndarray]) -> Tuple[int, int]:
+        """Append equal-length int32 columns as one packed block."""
+        payload, n = self.pack_columns(cols)
+        return self.append(btype, payload, n_rows=n)
+
+    def append_many(
+        self, blocks: List[Tuple[BlockType, bytes, int]]
+    ) -> Tuple[int, int]:
+        """Group commit: all blocks leave in one writev + at most one
+        fsync (``BatchedLogger`` analog, ``AbstractPaxosLogger.java:656``
+        — the durability cost of a tick is one syscall, not one per
+        block type).  Pure-Python fallback appends sequentially."""
+        with self._lock:
+            return self._append_many_locked(blocks)
+
+    def _append_many_locked(
+        self, blocks: List[Tuple[BlockType, bytes, int]]
+    ) -> Tuple[int, int]:
+        import ctypes
+
+        lib = self._native
+        if lib is None or not blocks:
+            out = self.position
+            for btype, payload, n_rows in blocks:
+                out = self._append_locked(btype, payload, n_rows)
+            return out
+        pos = self.position
+        for start in range(0, len(blocks), 64):  # native batch cap
+            chunk = blocks[start:start + 64]
+            if lib is None or self._native is None:
+                # native path retired mid-batch (repair): finish via Python
+                for btype, payload, n_rows in chunk:
+                    pos = self.append(btype, payload, n_rows)
+                continue
+            n = len(chunk)
+            btypes = (ctypes.c_uint8 * n)(*[int(b) for b, _, _ in chunk])
+            rows = (ctypes.c_uint32 * n)(*[r for _, _, r in chunk])
+            lens = (ctypes.c_uint32 * n)(*[len(p) for _, p, _ in chunk])
+            bufs = (ctypes.c_char_p * n)(*[p for _, p, _ in chunk])
+            wrote = lib.gpj_append_batch(
+                self._fh.fileno(), btypes, rows,
+                ctypes.cast(bufs, ctypes.POINTER(ctypes.c_char_p)),
+                lens, n, 1 if self.sync else 0,
+            )
+            if wrote < 0:
+                # possible torn partial write: cut back to the last good
+                # boundary, then redo this chunk via the Python path
+                self._repair_to_pos()
+                out = self.position
+                for btype, payload, n_rows in chunk:
+                    out = self.append(btype, payload, n_rows)
+                pos = out
+                lib = None  # retired by _repair_to_pos
+                continue
+            self._pos += int(wrote)
+            if self._pos >= self.max_file_size:
+                self._rotate()
+            pos = self.position
+        return pos
+
+    def _rotate(self) -> None:
+        self._fh.close()
+        self._cur_idx += 1
+        path = os.path.join(self.dir, _file_name(self._cur_idx))
+        self._fh = open(path, "ab")
+        self._pos = 0
+
+    @property
+    def position(self) -> Tuple[int, int]:
+        # locked: a concurrent rotation (background checkpoint writer's
+        # marker append) updates _cur_idx and _pos non-atomically — a
+        # torn pair persisted as a snapshot's journal_pos would skip
+        # every post-checkpoint block on recovery
+        with self._lock:
+            return (self._cur_idx, self._pos)
+
+    # ---- read ----------------------------------------------------------
+    def file_indices(self) -> List[int]:
+        idxs = sorted(
+            i for n in os.listdir(self.dir)
+            if (i := _file_idx(n)) is not None
+        )
+        return idxs
+
+    def scan(
+        self, from_file: int = 0, from_offset: int = 0
+    ) -> Iterator[Tuple[BlockType, bytes, int, Tuple[int, int]]]:
+        """Yield (type, payload, n_rows, (file_idx, end_offset)) from the
+        given position; stops cleanly at a torn/corrupt tail."""
+        self._fh.flush()
+        for idx in self.file_indices():
+            if idx < from_file:
+                continue
+            path = os.path.join(self.dir, _file_name(idx))
+            blocks, clean = read_file_blocks(
+                path, from_offset if idx == from_file else 0
+            )
+            for btype, payload, n_rows, end in blocks:
+                yield btype, payload, n_rows, (idx, end)
+            if not clean:
+                return  # torn/corrupt: everything past it is unreachable
+
+    @staticmethod
+    def columns(payload: bytes, n_rows: int, n_cols: int) -> np.ndarray:
+        """Decode a packed column block back to an [n_rows, n_cols] array."""
+        return np.frombuffer(payload, np.int32).reshape(n_rows, n_cols)
+
+    # ---- GC ------------------------------------------------------------
+    def gc_below(self, file_idx: int) -> int:
+        """Delete whole files strictly below file_idx (all their blocks are
+        covered by a checkpoint).  Returns #files removed."""
+        with self._lock:
+            return self._gc_below_locked(file_idx)
+
+    def _gc_below_locked(self, file_idx: int) -> int:
+        removed = 0
+        for idx in self.file_indices():
+            if idx >= file_idx or idx == self._cur_idx:
+                continue
+            os.remove(os.path.join(self.dir, _file_name(idx)))
+            removed += 1
+        return removed
+
+    def close(self) -> None:
+        with self._lock:
+            self._fh.close()

@@ -1,0 +1,488 @@
+"""PaxosLogger — the durability facade: journal + checkpoints + recovery.
+
+API-parity target: ``AbstractPaxosLogger`` (``AbstractPaxosLogger.java:63``
+— log/logBatch, checkpoint, pause/unpause, recovery cursors) re-shaped for
+array state:
+
+* ``log_*`` appends packed column blocks (the log-before-send delta the
+  engine emits per step, ``StepOutputs.acc_new``);
+* ``checkpoint`` snapshots the engine arrays + app states, drops a marker
+  block, and GCs journal files wholly below the snapshot
+  (``SQLPaxosLogger`` journal GC analog);
+* ``recover`` = bulk snapshot load + vectorized rollforward of every
+  block after the snapshot position (vs the reference's per-group cursor
+  walk, ``PaxosManager.initiateRecovery:1832-2035``).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import threading
+import time
+from typing import Any, Dict, Iterator, List, Optional, Tuple
+
+import numpy as np
+
+from .checkpoint import CheckpointView, load_checkpoint_view, save_checkpoint
+from .journal import BlockType, Journal
+
+NULL = -1
+
+
+class RecoveredState:
+    """Result of recovery: engine arrays + host-side maps, ready to be
+    device_put into an EngineState by the manager."""
+
+    def __init__(
+        self,
+        arrays: Optional[Dict[str, np.ndarray]],
+        meta: Dict[str, Any],
+        payloads: Dict[int, str],
+        names: Dict[str, Dict[str, Any]],
+        pending_rows: Optional[set] = None,
+        pause_records: Optional[Dict] = None,
+        decisions: Optional[Dict[int, Dict[int, int]]] = None,
+    ):
+        self.arrays = arrays          # None => fresh start
+        self.meta = meta
+        self.payloads = payloads      # vid -> request string (host arena)
+        # name -> [{row, version, init}, ...] in journal order (a name can
+        # appear once per epoch: reconfiguration re-creates it at a new row)
+        self.names = names
+        # rows still awaiting the reconfigurator's epoch_commit (the
+        # propose-refusal gate survives a restart)
+        self.pending_rows = pending_rows or set()
+        # (name, epoch) -> last pause record (still-paused groups resume
+        # from these; resumed groups fold them under replayed progress)
+        self.pause_records = pause_records or {}
+        # group -> {slot -> vid}: EVERY journaled decision after the
+        # checkpoint.  The [G, W] rings only retain the last W decisions
+        # per group (lane reuse), so a group that decided more than W slots
+        # since its last checkpoint can only roll forward through these.
+        self.decisions = decisions or {}
+        # vid -> (entry_replica, request_id) journaled alongside payloads
+        self.payload_meta: Dict[int, Tuple[int, int]] = {}
+        # the (possibly sharded) checkpoint this recovery loaded, kept
+        # for lazy per-shard app-state hydration; None = no checkpoint
+        # or the caller asked for eager app states
+        self.view: Optional[CheckpointView] = None
+        # replay accounting for the recovery_* metrics / bench surface
+        self.stats: Dict[str, Any] = {}
+
+
+class PaxosLogger:
+    def __init__(
+        self,
+        node_id: Any,
+        directory: str,
+        sync: bool = False,
+        max_file_size: int = 64 * 1024 * 1024,
+    ):
+        self.node_id = node_id
+        self.dir = directory
+        self.journal = Journal(directory, max_file_size=max_file_size, sync=sync)
+        # open group-commit batch (BatchedLogger analog): log_* calls
+        # buffer here and leave in ONE writev/fsync at scope exit
+        self._batch: Optional[List] = None
+        # journal GC runs every Nth checkpoint (JOURNAL_GC_FREQUENCY
+        # analog; default 1 = GC at every checkpoint — raise to amortize
+        # the file scan on checkpoint-heavy deployments)
+        from ..paxos_config import PC
+        from ..utils.config import Config
+
+        self.gc_every = max(1, Config.get_int(PC.JOURNAL_GC_FREQUENCY))
+        self._ckpts_since_gc = 0
+        # recovery plane: checkpoint sharding + segmented-replay width
+        self.ckpt_shards = max(
+            1, Config.get_int(PC.RECOVERY_CHECKPOINT_SHARDS)
+        )
+        self.replay_workers = max(
+            1, Config.get_int(PC.RECOVERY_REPLAY_WORKERS)
+        )
+        # async checkpoint writer (newest pending snapshot wins)
+        self._ck_lock = threading.Lock()
+        self._ck_pending = None
+        self._ck_thread: Optional[threading.Thread] = None
+
+    @contextlib.contextmanager
+    def batch(self):
+        """Group-commit scope: all log_* appends inside leave together
+        (one writev + at most one fsync).  The scope must close before
+        the tick's blob is published (log-before-send)."""
+        if self._batch is not None:
+            yield  # nested scopes share the outer batch
+            return
+        self._batch = []
+        try:
+            yield
+        finally:
+            blocks, self._batch = self._batch, None
+            if blocks:
+                self.journal.append_many(blocks)
+
+    def _append(self, btype: BlockType, payload: bytes, n_rows: int = 0) -> None:
+        if self._batch is not None:
+            self._batch.append((btype, payload, n_rows))
+        else:
+            self.journal.append(btype, payload, n_rows)
+
+    def _append_columns(self, btype: BlockType, cols) -> None:
+        payload, n = Journal.pack_columns(cols)
+        self._append(btype, payload, n_rows=n)
+
+    # ---- log-before-send appends --------------------------------------
+    def log_accepts(self, groups, slots, bals, vids) -> None:
+        if len(groups):
+            self._append_columns(BlockType.ACCEPTS, [groups, slots, bals, vids])
+
+    def log_decisions(self, groups, slots, vids) -> None:
+        if len(groups):
+            self._append_columns(BlockType.DECISIONS, [groups, slots, vids])
+
+    def log_promises(self, groups, bals) -> None:
+        """Bare promise upgrades (ballot rose without an accept) — must be
+        durable before the blob is published, or a restarted acceptor could
+        accept an older-ballot proposal it had promised against."""
+        if len(groups):
+            self._append_columns(BlockType.PROMISES, [groups, bals])
+
+    def log_create(
+        self, groups, masks, versions, coords, names=None, inits=None,
+        pendings=None,
+    ) -> None:
+        if len(groups):
+            self._append_columns(
+                BlockType.CREATE, [groups, masks, versions, coords]
+            )
+            if names is not None:
+                rows = [
+                    {"row": int(g), "name": n, "version": int(v),
+                     "init": (None if inits is None else inits[i]),
+                     "pending": bool(pendings[i]) if pendings else False}
+                    for i, (g, n, v) in enumerate(zip(groups, names, versions))
+                ]
+                self._append(
+                    BlockType.NAMES,
+                    json.dumps(rows, separators=(",", ":")).encode("utf-8"),
+                )
+
+    def log_unpend(self, groups) -> None:
+        """A pending (pre-COMPLETE) row was confirmed — durably clear the
+        propose-refusal gate so recovery doesn't resurrect it."""
+        if len(groups):
+            self._append_columns(BlockType.UNPEND, [groups])
+
+    def log_pause(self, record: Dict[str, Any]) -> None:
+        """Residency pause record: the group's consensus/app snapshot at
+        the moment its row was freed (HotRestoreInfo -> pause table analog,
+        ``PaxosManager.java:2307-2348``).  JSON — the window remnants are a
+        handful of ints and the app state is a string."""
+        self._append(
+            BlockType.PAUSE,
+            json.dumps(record, separators=(",", ":")).encode("utf-8"),
+        )
+
+    def log_kill(self, groups) -> None:
+        if len(groups):
+            self._append_columns(BlockType.KILL, [groups])
+
+    def log_payloads(
+        self, payloads: Dict[int, str], meta: Optional[Dict] = None
+    ) -> None:
+        """Persist request payloads (and their (entry, request_id) meta so
+        exactly-once dedup survives a restart).  Every replica journals
+        payloads it learns — locally admitted AND peer-replicated — or a
+        coordinator-only crash could lose decided-but-unexecuted values."""
+        if payloads:
+            env = {"p": payloads}
+            if meta:
+                env["m"] = {str(k): list(v) for k, v in meta.items()}
+            body = json.dumps(env, separators=(",", ":")).encode("utf-8")
+            self._append(BlockType.PAYLOADS, body)
+
+    # ---- checkpoint ----------------------------------------------------
+    def checkpoint(
+        self,
+        engine_arrays: Dict[str, np.ndarray],
+        app_states: Dict[str, Optional[str]],
+        extra_meta: Optional[Dict[str, Any]] = None,
+    ) -> None:
+        pos, meta = self._checkpoint_prepare(app_states, extra_meta)
+        self._checkpoint_write(engine_arrays, meta, pos)
+
+    def checkpoint_async(
+        self,
+        engine_arrays: Dict[str, np.ndarray],
+        app_states: Dict[str, Optional[str]],
+        extra_meta: Optional[Dict[str, Any]] = None,
+    ) -> None:
+        """Journal-side work NOW (on the caller's thread, under its
+        locks); the slow file serialization on a background writer.
+
+        Serializing a loaded node's snapshot — a 64k-entry dedup cache,
+        the live payload arena, npz + two fsyncs + renames — costs
+        ~0.5s, and paying it inside the tick stalls the whole node (the
+        measured latency spikes that failed the capacity gate).  The
+        writer keeps only the NEWEST pending snapshot (an older one is
+        subsumed); a crash before the write lands just means recovery
+        rolls forward from the previous snapshot through the journal,
+        exactly as if the crash had hit moments before the checkpoint.
+        The caller must pass SNAPSHOTTED containers (no live dicts)."""
+        pos, meta = self._checkpoint_prepare(app_states, extra_meta)
+        with self._ck_lock:
+            self._ck_pending = (engine_arrays, meta, pos)
+            if self._ck_thread is None or not self._ck_thread.is_alive():
+                self._ck_thread = threading.Thread(
+                    target=self._ck_drain, daemon=True,
+                    name="gp-checkpoint-writer",
+                )
+                self._ck_thread.start()
+
+    def _checkpoint_prepare(self, app_states, extra_meta):
+        if self._batch:
+            # the snapshot position must cover every buffered block
+            blocks, self._batch = self._batch, []
+            self.journal.append_many(blocks)
+        pos = self.journal.position
+        meta = dict(extra_meta or {})
+        meta["journal_pos"] = list(pos)
+        meta["app_states"] = app_states
+        return pos, meta
+
+    def _checkpoint_write(self, engine_arrays, meta, pos) -> None:
+        save_checkpoint(self.dir, engine_arrays, meta,
+                        n_shards=self.ckpt_shards)
+        self.journal.append(
+            BlockType.CHECKPOINT,
+            json.dumps({"journal_pos": list(pos)}).encode("utf-8"),
+        )
+        self._ckpts_since_gc += 1
+        if self._ckpts_since_gc >= self.gc_every:
+            self._ckpts_since_gc = 0
+            self.journal.gc_below(pos[0])
+
+    def _ck_drain(self) -> None:
+        while True:
+            with self._ck_lock:
+                item, self._ck_pending = self._ck_pending, None
+                if item is None:
+                    self._ck_thread = None
+                    return
+            try:
+                self._checkpoint_write(*item)
+            except Exception:
+                from ..obs import gplog
+
+                # next cadence point retries; the failure must be visible
+                gplog.node_logger("storage", self.node_id).exception(
+                    "async checkpoint write failed (next cadence retries)"
+                )
+
+    def drain_checkpoints(self, timeout: float = 30.0) -> None:
+        """Block until any pending async snapshot is on disk (close/final
+        checkpoint path)."""
+        with self._ck_lock:
+            t = self._ck_thread
+        if t is not None:
+            t.join(timeout)
+
+    # ---- recovery ------------------------------------------------------
+    def recover(
+        self,
+        window: int,
+        seed_arrays: Optional[Dict[str, np.ndarray]] = None,
+        my_id: Optional[int] = None,
+        defer_app_states: bool = False,
+    ) -> RecoveredState:
+        """Load newest snapshot, then roll every later block forward into
+        the arrays.  ``seed_arrays`` (a fresh init_state as numpy, from the
+        manager) is the base when no checkpoint exists but the journal has
+        blocks; arrays=None means nothing durable at all.
+
+        ``defer_app_states=True`` leaves ``meta["app_states"]`` empty and
+        hands the checkpoint back as ``RecoveredState.view`` instead: the
+        caller hydrates app states per shard (the lazy-hydration path —
+        parsing 256k app-state strings up front is most of a cold
+        restart).  Journal files after the anchor scan on
+        ``RECOVERY_REPLAY_WORKERS`` threads; application stays in order."""
+        from ..recovery.replay import scan_segments
+
+        t_recover = time.monotonic()
+        view = load_checkpoint_view(self.dir)
+        if view is None:
+            arrays: Optional[Dict[str, np.ndarray]] = None
+            meta: Dict[str, Any] = {}
+            from_file, from_off = 0, 0
+        else:
+            # the view's arrays are freshly materialized (npz load /
+            # concatenate) — safe to roll forward in place, no copy
+            arrays = view.arrays
+            meta = dict(view.meta)
+            meta.pop("app_states_unmapped", None)
+            meta["app_states"] = (
+                {} if defer_app_states else view.all_app_states()
+            )
+            from_file, from_off = meta.get("journal_pos", [0, 0])
+        n_blocks = 0
+        files_before = len([
+            i for i in self.journal.file_indices() if i >= from_file
+        ])
+        payloads: Dict[int, str] = {}
+        names: Dict[str, List[Dict[str, Any]]] = {}
+        # chronological pending-row tracking: checkpoint seed, then NAMES
+        # adds (pending creates), UNPEND/KILL clears, in scan order
+        pending: set = set(int(r) for r in meta.get("pending_rows") or [])
+        pause_records: Dict[Any, Dict[str, Any]] = {
+            (str(r["name"]), int(r["epoch"])): r
+            for r in (meta.get("paused") or {}).values()
+        }
+        decisions: Dict[int, Dict[int, int]] = {}
+        payload_meta: Dict[int, Tuple[int, int]] = {}
+        for btype, payload, n_rows, _pos in scan_segments(
+            self.journal, from_file, from_off, workers=self.replay_workers
+        ):
+            n_blocks += 1
+            if btype == BlockType.PAUSE:
+                rec = json.loads(payload.decode("utf-8"))
+                key = (str(rec["name"]), int(rec["epoch"]))
+                if rec.get("dropped"):
+                    pause_records.pop(key, None)  # deleted-while-paused
+                else:
+                    pause_records[key] = rec
+                continue
+            if btype == BlockType.DECISIONS:
+                m = Journal.columns(payload, n_rows, 3)
+                for g_, slot_, vid_ in m:
+                    decisions.setdefault(int(g_), {})[int(slot_)] = int(vid_)
+            elif btype in (BlockType.KILL, BlockType.CREATE):
+                m = Journal.columns(
+                    payload, n_rows, 1 if btype == BlockType.KILL else 4
+                )
+                for g_ in m[:, 0]:
+                    decisions.pop(int(g_), None)  # row reused: old log void
+            if btype == BlockType.PAYLOADS:
+                env = json.loads(payload.decode("utf-8"))
+                # pre-envelope journals stored the flat {vid: payload} map
+                # ("p" can't collide: real keys are numeric strings)
+                flat = env["p"] if "p" in env else env
+                payloads.update({int(k): v for k, v in flat.items()})
+                for k, m_ in (env.get("m") or {}).items():
+                    payload_meta[int(k)] = (int(m_[0]), int(m_[1]))
+                continue
+            if btype == BlockType.NAMES:
+                for ent in json.loads(payload.decode("utf-8")):
+                    names.setdefault(ent["name"], []).append(ent)
+                    if ent.get("pending"):
+                        pending.add(int(ent["row"]))
+                    else:
+                        pending.discard(int(ent["row"]))
+                continue
+            if btype == BlockType.UNPEND:
+                for g in Journal.columns(payload, n_rows, 1)[:, 0]:
+                    pending.discard(int(g))
+                continue
+            if btype == BlockType.CHECKPOINT:
+                continue
+            if btype == BlockType.KILL:
+                for g in Journal.columns(payload, n_rows, 1)[:, 0]:
+                    pending.discard(int(g))
+            if arrays is None:
+                if seed_arrays is None:
+                    raise ValueError(
+                        "journal has blocks but no checkpoint and no seed_arrays"
+                    )
+                arrays = {k: v.copy() for k, v in seed_arrays.items()}
+            self._apply(arrays, btype, payload, n_rows, window, my_id)
+        out = RecoveredState(
+            arrays, meta, payloads, names, pending, pause_records, decisions
+        )
+        out.payload_meta = payload_meta
+        if defer_app_states:
+            out.view = view
+        out.stats = {
+            "segments": files_before,
+            "blocks": n_blocks,
+            "replay_s": time.monotonic() - t_recover,
+            "checkpoint_generation": (
+                view.generation if view is not None else None
+            ),
+            "checkpoint_shards": view.n_shards if view is not None else 0,
+        }
+        return out
+
+    @staticmethod
+    def _apply(
+        arrays: Dict[str, np.ndarray],
+        btype: BlockType,
+        payload: bytes,
+        n_rows: int,
+        window: int,
+        my_id: Optional[int] = None,
+    ) -> None:
+        """Vectorized rollforward of one block into the state arrays.
+
+        The arrays dict must already contain the engine leaves (a fresh
+        node journals CREATE before anything else, and the manager seeds
+        the dict from init_state before calling recover via ``seed``)."""
+        W = window
+        if btype == BlockType.CREATE:
+            m = Journal.columns(payload, n_rows, 4)
+            g, mask, ver, coord0 = m.T
+            arrays["member_mask"][g] = mask
+            arrays["majority"][g] = np.bitwise_count(
+                mask.astype(np.uint32)
+            ).astype(np.int32) // 2 + 1
+            arrays["version"][g] = ver
+            arrays["stopped"][g] = 0
+            arrays["bal"][g] = coord0  # encode_ballot(0, coord) == coord
+            arrays["exec_slot"][g] = 0
+            for name in ("acc_bal", "acc_vid", "acc_slot", "dec_vid", "dec_slot"):
+                arrays[name][g] = NULL
+            arrays["app_hash"][g] = 0
+            arrays["n_execd"][g] = 0
+            # the initial coordinator must resume ACTIVE (create_groups
+            # semantics) — otherwise nobody proposes and the failure
+            # detector never fires (the coordinator is alive, just idle)
+            if my_id is not None and "c_phase" in arrays:
+                im_coord = coord0 == my_id
+                arrays["c_phase"][g] = np.where(im_coord, 2, 0)  # ACTIVE/IDLE
+                arrays["c_bal"][g] = np.where(im_coord, coord0, NULL)
+                arrays["c_next_slot"][g] = 0
+                arrays["c_prop_vid"][g] = NULL
+                arrays["c_prop_slot"][g] = NULL
+        elif btype == BlockType.ACCEPTS:
+            m = Journal.columns(payload, n_rows, 4)
+            g, slot, bal, vid = m.T
+            lane = slot % W
+            # One engine step accepts each (group, lane) at most once, so a
+            # block never carries duplicate (g, lane) pairs and plain fancy
+            # indexing is safe for the window scatter; the ballot fold uses
+            # maximum.at so duplicate groups within a block (several lanes
+            # of one group) still take a running max, not last-write-wins.
+            arrays["acc_bal"][g, lane] = bal
+            arrays["acc_vid"][g, lane] = vid
+            arrays["acc_slot"][g, lane] = slot
+            np.maximum.at(arrays["bal"], g, bal)
+        elif btype == BlockType.PROMISES:
+            m = Journal.columns(payload, n_rows, 2)
+            g, bal = m.T
+            np.maximum.at(arrays["bal"], g, bal)
+        elif btype == BlockType.DECISIONS:
+            m = Journal.columns(payload, n_rows, 3)
+            g, slot, vid = m.T
+            lane = slot % W
+            newer = slot >= arrays["dec_slot"][g, lane]
+            arrays["dec_vid"][g, lane] = np.where(newer, vid, arrays["dec_vid"][g, lane])
+            arrays["dec_slot"][g, lane] = np.where(
+                newer, slot, arrays["dec_slot"][g, lane]
+            )
+        elif btype == BlockType.KILL:
+            m = Journal.columns(payload, n_rows, 1)
+            g = m[:, 0]
+            arrays["member_mask"][g] = 0
+            arrays["bal"][g] = NULL
+
+    def close(self) -> None:
+        self.drain_checkpoints()
+        self.journal.close()

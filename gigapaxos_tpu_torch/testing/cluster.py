@@ -1,0 +1,201 @@
+"""Loopback manager cluster: N full PaxosManagers (engine + logger + app +
+callbacks) in one process, exchanging blobs and host-channel payloads with
+controllable delivery — the manager-level analog of :mod:`.sim` and of the
+reference's N-nodes-in-one-JVM integration mode (``TESTPaxosNode.java:44``,
+``PaxosManager.java:108-111``)."""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+
+from ..manager import PaxosManager
+from ..ops.engine import Blob, EngineConfig, to_host
+
+DELIVER, DROP = 0, 1
+
+
+class ManagerCluster:
+    def __init__(
+        self,
+        cfg: EngineConfig,
+        make_app: Callable[[], object],
+        log_dirs: Optional[List[str]] = None,
+        sync_journal: Optional[bool] = None,
+        checkpoint_every: Optional[int] = None,
+        device=None,
+    ):
+        R = cfg.n_replicas
+        self.device = device
+        self.cfg = cfg
+        self._make_app = make_app
+        self._log_dirs = log_dirs
+        self._sync_journal = sync_journal
+        self._checkpoint_every = checkpoint_every
+        self.managers: List[PaxosManager] = [
+            PaxosManager(
+                rid,
+                make_app(),
+                cfg,
+                log_dir=(log_dirs[rid] if log_dirs else None),
+                sync_journal=sync_journal,
+                checkpoint_every=checkpoint_every,
+                device=device,
+            )
+            for rid in range(R)
+        ]
+        self.blobs: List[Blob] = [m.blob() for m in self.managers]
+        # host-channel inboxes: (kind, body) per receiver
+        self.inboxes: List[List] = [[] for _ in range(R)]
+        # default election drive (the deployed server's FailureDetector)
+        # with an INFINITE timeout: stepped clusters exchange no pings, so
+        # a finite timeout would make every node look dead after a few
+        # wall-clock seconds and storm elections.  With everyone forever
+        # "up", the mask fires ONLY for groups whose ballot coordinator is
+        # not a member (elastic-membership leftovers, the chaos-soak
+        # 20260730 wedge) — explicit want_coord args override.
+        from ..failure_detection import FailureDetector
+
+        self._fds = [
+            FailureDetector(r, range(R), timeout_s=float("inf"))
+            for r in range(R)
+        ]
+        # same reasoning as the infinite FD timeout above: stepped
+        # clusters run on LOGICAL time, but the client-callback GC is
+        # wall-clock — on a loaded box (cold kernel builds, CI
+        # contention) a single tick can outlive the 8s client TTL and
+        # silently reap every callback a test is counting
+        for m in self.managers:
+            m.outstanding.timeout_s = float("inf")
+
+    # ---- lifecycle across the cluster ---------------------------------
+    def create(self, name: str, members: Optional[List[int]] = None,
+               initial_state: Optional[str] = None) -> int:
+        members = list(range(self.cfg.n_replicas)) if members is None else members
+        row = self.managers[members[0]].default_row_for(name)
+        for m in self.managers:
+            m.create_paxos_instance(
+                name, members, initial_state=initial_state, row=row
+            )
+        self.blobs = [m.blob() for m in self.managers]
+        return row
+
+    def restart(self, rid: int, hydrate: bool = True) -> PaxosManager:
+        """Crash-restart member ``rid``: close it and boot a FRESH
+        PaxosManager from the same ``log_dir`` — journal replay +
+        checkpoints are the only state that survives (queued vids,
+        outstanding callbacks, and anything unlogged die with the old
+        process, exactly as a real crash).  Requires ``log_dirs`` (a
+        restart without durability is just amnesia).  ``hydrate=True``
+        drains the lazy-hydration backlog synchronously so the member
+        serves immediately; pass False to exercise the hydration gates
+        themselves."""
+        if not self._log_dirs:
+            raise RuntimeError("restart needs log_dirs (durable members)")
+        self.managers[rid].close()
+        m = PaxosManager(
+            rid,
+            self._make_app(),
+            self.cfg,
+            log_dir=self._log_dirs[rid],
+            sync_journal=self._sync_journal,
+            checkpoint_every=self._checkpoint_every,
+            device=self.device,
+        )
+        m.outstanding.timeout_s = float("inf")
+        self.managers[rid] = m
+        if hydrate:
+            m.hydrate_all()
+        self.blobs[rid] = m.blob()
+        self.inboxes[rid] = []
+        return m
+
+    # ---- client entry ---------------------------------------------------
+    def submit(self, name: str, value: str, entry: int = 0,
+               callback=None, stop: bool = False) -> Optional[int]:
+        return self.managers[entry].propose(
+            name, value, callback=callback, stop=stop
+        )
+
+    # ---- the cluster tick ----------------------------------------------
+    def step_all(self, delivery: Optional[np.ndarray] = None,
+                 want_coord: Optional[Dict[int, np.ndarray]] = None) -> None:
+        R = self.cfg.n_replicas
+        if delivery is None:
+            delivery = np.full((R, R), DELIVER)
+        want_coord = want_coord or {}
+
+        # deliver host-channel messages that arrived last round
+        for i in range(R):
+            inbox, self.inboxes[i] = self.inboxes[i], []
+            for kind, body in inbox:
+                self.managers[i].on_host_message(kind, body)
+
+        new_blobs: List[Blob] = list(self.blobs)
+        deltas = []
+        for i in range(R):
+            heard = np.zeros(R, bool)
+            rows = []
+            for j in range(R):
+                live = i == j or delivery[i, j] == DELIVER
+                heard[j] = live
+                rows.append(self.blobs[j] if live else self.blobs[i])
+            # host-side stack (rows mix the managers' device blobs and
+            # the numpy views their ticks return); the manager uploads
+            # the packed [R, NB] matrix in one transfer
+            gathered = Blob(*(
+                np.stack([to_host(x) for x in leaves])
+                for leaves in zip(*rows)
+            ))
+            want = want_coord.get(i)
+            if want is None:
+                m = self.managers[i]
+                want = self._fds[i].want_coord(
+                    m._np("bal"), m._np("member_mask"), R
+                )
+            blob, delta = self.managers[i].tick(gathered, heard, want)
+            new_blobs[i] = blob
+            deltas.append(delta)
+        self.blobs = new_blobs
+
+        # route host-channel traffic over live links for NEXT round
+        for i in range(R):
+            delta = deltas[i]
+            ae = delta.get("app_exec")
+            if delta["arena"] or (ae and ae[1]):
+                # cursor-only deltas matter too (the deployed server
+                # forwards them the same way): the periodic app-cursor
+                # baseline refresh is how a resumed member's frontier
+                # becomes visible to stranded peers' stall detectors
+                for j in range(R):
+                    if j != i and delivery[j, i] == DELIVER:
+                        self.inboxes[j].append(("payloads", delta))
+            mgr = self.managers[i]
+            fwd = mgr.drain_forward_out()
+            for dst, kind, body in fwd:
+                if dst == i:
+                    mgr.on_host_message(kind, body)
+                elif dst == -1:  # broadcast (e.g. payload pulls)
+                    for j in range(R):
+                        if j != i and delivery[j, i] == DELIVER:
+                            self.inboxes[j].append((kind, body))
+                elif 0 <= dst < R and delivery[dst, i] == DELIVER:
+                    self.inboxes[dst].append((kind, body))
+
+    def run(self, n_steps: int, **kw) -> None:
+        for _ in range(n_steps):
+            self.step_all(**kw)
+
+    # ---- inspection -----------------------------------------------------
+    def frontiers(self) -> np.ndarray:
+        return np.stack(
+            [to_host(m.state.exec_slot) for m in self.managers]
+        )
+
+    def app_exec(self) -> np.ndarray:
+        return np.stack([m.app_exec_slot for m in self.managers])
+
+    def close(self) -> None:
+        for m in self.managers:
+            m.close()
