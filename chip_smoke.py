@@ -21,6 +21,9 @@ Phases (any failure exits nonzero):
              this width beside the kernel, bit for bit; the RSM invariant
              on the kernel's states; committed decisions/s, ms per
              replica-step against the bandwidth bound, peak memory.
+   server shape — the manager's dispatch step and gp_make_blob at the
+             server's shape against the plain version, bit for bit, for
+             every replica id; then their times.
 4. server  — 3 PaxosServers on loopback sockets in this process, on the
              card at G=65,536, W=16, K=8, R=3, with StatefulAdderApp and
              PaxosClientAsync: a few dozen names, a few hundred requests;
@@ -84,6 +87,15 @@ def step_bytes(G: int, W: int, K: int, R: int) -> int:
     want byte per group and R heard bytes."""
     words = 2 * (12 + 7 * W) + R * (4 + 4 * W) + K + (6 + 3 * W) + (4 + 4 * W)
     return G * (4 * words + 1) + R
+
+
+def stacked_step_bytes(G: int, W: int, K: int, R: int) -> int:
+    """Bytes one stacked launch (all R replicas) must move, per replica:
+    as :func:`step_bytes`, except that the [R, NB] blob matrix every
+    replica gathers from is read once per launch, not once per replica."""
+    words = 2 * (12 + 7 * W) + K + (6 + 3 * W) + (4 + 4 * W)
+    per_launch = R * G * (4 * words + 1) + R * G * 4 * (4 + 4 * W) + R * R
+    return per_launch // R
 
 
 def blob_bytes(G: int, W: int) -> int:
@@ -251,7 +263,7 @@ def phase_parity(diff: Diff, device) -> None:
                 fn = make_step(cfg, None, N, donate=donate, io="packed_host",
                                heat=True, device=device)
                 p = fn.plain(states[0], gvec, heard, ring, want, 0, heat)
-                # two dispatches in a row exercise the donation ping-pong
+                # a second dispatch on the first one's output
                 st0 = te.EngineState(*(x.clone() for x in states[0]))
                 k = fn(st0, gvec, heard, ring, want, 0, heat.clone())
                 tag = f"packed.W{W}R{R}.N{N}.d{int(donate)}"
@@ -389,15 +401,23 @@ def phase_headline(diff: Diff, device, bw: float) -> dict:
     ms_step = cuda_ms(lambda: gp_kernels.step_stacked(
         states, blobs, hm, req, no_want, cfg, out_states=out_st,
         out_mat=out_mat, out_blobs=out_bl), TIMING_ITERS) / R
+    # the same launch with the wrapper allocating the new states (what
+    # make_step does): the caching allocator's cost per step
+    ms_fresh = cuda_ms(lambda: gp_kernels.step_stacked(
+        states, blobs, hm, req, no_want, cfg,
+        out_mat=out_mat, out_blobs=out_bl), TIMING_ITERS) / R
     ms_blob = cuda_ms(lambda: gp_kernels.make_blob_rows(states, R),
                       TIMING_ITERS) / R
     plain_ms = cuda_ms(lambda: step_fn.plain(states, req, no_want), 2) / R
-    bound = step_bytes(G, W, K, R) / bw * 1e3
-    log(f"headline gp_step: {ms_step:.6g} ms per replica-step, bound "
-        f"{bound:.6g} ms ({step_bytes(G, W, K, R)} B at {bw:.3g} B/s), "
+    nbytes = stacked_step_bytes(G, W, K, R)
+    bound = nbytes / bw * 1e3
+    log(f"headline gp_step: {ms_step:.6g} ms per replica-step into "
+        f"preallocated states, {ms_fresh:.6g} ms into fresh ones; bound "
+        f"{bound:.6g} ms ({nbytes} B per replica-step at {bw:.3g} B/s), "
         f"plain {plain_ms:.6g} ms; peak device memory {peak} B")
     return {
-        "arms": arms, "ms_per_replica_step": ms_step, "bound_ms": bound,
+        "arms": arms, "ms_per_replica_step": ms_step,
+        "ms_per_replica_step_fresh": ms_fresh, "bound_ms": bound,
         "plain_ms": plain_ms, "make_blob_ms": ms_blob,
         "make_blob_bound_ms": blob_bytes(G, W) / bw * 1e3,
         "peak_bytes": peak, "shape": HEADLINE,
@@ -528,9 +548,13 @@ def phase_server(device) -> dict:
             s.stop()
 
 
-def time_server_shape(device, bw: float) -> dict:
-    """gp_step / gp_make_blob / plain times at the server's shape (one
-    replica's packed step, the deployed path's launch)."""
+def phase_server_shape(diff: Diff, device, bw: float) -> dict:
+    """The server path's launches at its shape, held against the plain
+    version: the manager's dispatch step (packed face, N=1, heat updated
+    in place) for every replica id, and gp_make_blob of every replica's
+    state, on kernel-loaded states and on fuzzed seeded states.  Then the
+    times of gp_step, gp_make_blob and the plain versions there."""
+    import numpy as np
     import torch
 
     from gigapaxos_tpu_torch.ops import engine as te
@@ -546,6 +570,40 @@ def time_server_shape(device, bw: float) -> dict:
     states = build_replica_states(cfg, device=device)
     for _ in range(10):
         states, _ = fn(states, req, want)
+
+    t0 = time.perf_counter()
+    dispatch = make_step(cfg, None, 1, donate=True, io="packed_host",
+                         heat=True, device=device)
+    rng = np.random.default_rng(300)
+    dev = lambda a, dt: torch.as_tensor(a, dtype=dt, device=device)
+    cases = {
+        "loaded": [te.EngineState(*(x[r].contiguous() for x in states))
+                   for r in range(R)],
+        "fuzzed": seeded_states(cfg, 301, device),
+    }
+    for name, sts in cases.items():
+        gvec = torch.stack([te.pack_blob(te.make_blob_plain(s)) for s in sts])
+        for r, s in enumerate(sts):
+            diff.eq("gp_make_blob", f"server.{name}.r{r}.blob",
+                    gp_kernels.make_blob_vec(s), gvec[r])
+        for my_id in range(R):
+            heard = dev(rng.random(R) < 0.85, torch.bool)
+            ring = rng.integers(1, 10 ** 6, size=(1, G, K))
+            ring = np.where(rng.random((1, G, K)) < 0.3, -1, ring)
+            ring = dev(ring.astype(np.int32), torch.int32)
+            want1 = dev(rng.random(G) < 0.05, torch.bool)
+            heat = dev(rng.integers(0, 100, G).astype(np.int32), torch.int32)
+            p = dispatch.plain(sts[my_id], gvec, heard, ring, want1, my_id,
+                               heat)
+            k = dispatch(sts[my_id], gvec, heard, ring, want1, my_id,
+                         heat.clone())
+            tag = f"server.{name}.r{my_id}"
+            diff.tree("gp_step", tag + ".state", k[0], p[0])
+            for j, what in ((1, "out"), (2, "blob"), (3, "heat")):
+                diff.eq("gp_step", f"{tag}.{what}", k[j], p[j])
+    torch.cuda.synchronize()
+    log(f"server shape parity: bit-equal ({time.perf_counter() - t0:.1f} s)")
+
     st = te.EngineState(*(x[0].contiguous() for x in states))
     gvec = gp_kernels.make_blob_rows(states, R)
     heard = torch.ones(R, dtype=torch.bool, device=device)
@@ -554,6 +612,11 @@ def time_server_shape(device, bw: float) -> dict:
     ms = cuda_ms(lambda: gp_kernels.step(
         st, gvec, heard, req[0], want[0], 0, cfg, with_blob=True,
         out_state=out_st, heat=heat, heat_out=heat), TIMING_ITERS)
+    # the same launch with the wrapper allocating the new state (what
+    # make_step does): the caching allocator's cost per step
+    ms_fresh = cuda_ms(lambda: gp_kernels.step(
+        st, gvec, heard, req[0], want[0], 0, cfg, with_blob=True,
+        heat=heat, heat_out=heat), TIMING_ITERS)
     g = te.unpack_gathered(gvec, cfg)
 
     def plain():
@@ -565,12 +628,13 @@ def time_server_shape(device, bw: float) -> dict:
     blob_ms = cuda_ms(lambda: gp_kernels.make_blob_vec(st), TIMING_ITERS)
     blob_plain_ms = cuda_ms(lambda: te.pack_blob(te.make_blob_plain(st)), 5)
     res = {
-        "ms": ms, "plain_ms": plain_ms,
+        "ms": ms, "ms_fresh": ms_fresh, "plain_ms": plain_ms,
         "bound_ms": step_bytes(G, W, K, R) / bw * 1e3,
         "make_blob_ms": blob_ms, "make_blob_plain_ms": blob_plain_ms,
         "make_blob_bound_ms": blob_bytes(G, W) / bw * 1e3,
     }
-    log(f"server shape gp_step: {ms:.6g} ms (bound {res['bound_ms']:.6g} ms, "
+    log(f"server shape gp_step: {ms:.6g} ms into a preallocated state, "
+        f"{ms_fresh:.6g} ms into a fresh one (bound {res['bound_ms']:.6g} ms, "
         f"plain {plain_ms:.6g} ms); gp_make_blob {blob_ms:.6g} ms (bound "
         f"{res['make_blob_bound_ms']:.6g} ms, plain {blob_plain_ms:.6g} ms)")
     return res
@@ -624,9 +688,10 @@ def main() -> int:
     phase_parity(diff, device)
     stamp("headline")
     head = phase_headline(diff, device, bw)
-    # timings at the server's shape first: they do not count launches
-    stamp("server-shape timing")
-    srv_t = time_server_shape(device, bw)
+    # parity and timings at the server's shape first: they do not count
+    # launches
+    stamp("server-shape parity and timing")
+    srv_t = phase_server_shape(diff, device, bw)
     stamp("server")
     srv = phase_server(device)
     stamp("report")
@@ -641,12 +706,14 @@ def main() -> int:
             "max_abs_err": diff.max_abs["gp_step"],
             "ms": srv_t["ms"], "plain_ms": srv_t["plain_ms"],
             "bound_ms": srv_t["bound_ms"], "bound_by": "bytes",
-            "library_ms": None,
+            "library_ms": None, "ms_fresh_state": srv_t["ms_fresh"],
             "shape": SERVER, "comparisons": diff.checked["gp_step"],
             "headline": {
                 "launches_steady": head["arms"]["steady"]["launches"]["gp_step"],
                 "launches_failover": head["arms"]["failover"]["launches"]["gp_step"],
                 "ms_per_replica_step": head["ms_per_replica_step"],
+                "ms_per_replica_step_fresh_state":
+                    head["ms_per_replica_step_fresh"],
                 "bound_ms": head["bound_ms"], "plain_ms": head["plain_ms"],
             },
         },

@@ -78,8 +78,9 @@ from .utils.profiler import DelayProfiler
 # Every tick flavor steps through the ONE unified factory
 # (parallel/spmd.py:make_step, io="packed_host").  The dispatch path
 # donates the state: the manager owns it exclusively (every external view
-# is an identity check or a host-side numpy copy), so the step may write a
-# LATER tick's state into the old buffers.  The Blob-exchange tick
+# is an identity check or a host-side numpy copy), so the step may reuse
+# its buffers (today it writes each state to new tensors and updates only
+# the heat accumulator in place).  The Blob-exchange tick
 # (_tick_locked, the test-cluster harness) uses a donate=False instance:
 # that harness caches blob views aliasing the live state across ticks.
 

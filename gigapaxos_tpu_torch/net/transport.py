@@ -210,19 +210,22 @@ class MessageTransport:
         would otherwise queue stale multi-MB frames, and every receiver
         would read through the backlog before reaching a fresh one.  A
         replaced frame is a dropped frame, which the state-exchange
-        protocol tolerates by design.  With a link-delay emulator set,
-        frames are not coalesced."""
-        if node_id not in self.node_config:
-            return False
-        if self.delay_fn is not None:
-            return self.send_to_id(node_id, payload)
-        if self._stopped:
+        protocol tolerates by design.  A link-delay emulator delays the
+        frame before it reaches the queue, as for :meth:`send_to_address`."""
+        if node_id not in self.node_config or self._stopped:
             return False
         addr = self.node_config.get_node_address(node_id)
         addr = (addr[0], int(addr[1]))
-        self._loop.call_soon_threadsafe(
-            self._enqueue_latest, addr, key, payload
-        )
+        delay = self.delay_fn(addr) if self.delay_fn is not None else 0.0
+        if delay > 0:
+            self._loop.call_soon_threadsafe(
+                self._loop.call_later, delay, self._enqueue_latest, addr, key,
+                payload,
+            )
+        else:
+            self._loop.call_soon_threadsafe(
+                self._enqueue_latest, addr, key, payload
+            )
         return True
 
     def _enqueue_latest(self, addr: Tuple[str, int], key: str,

@@ -25,12 +25,10 @@ ONE factory — :func:`make_step` — builds both execution faces of
 ``steps_per_dispatch`` (N >= 1) runs N consensus rounds per host call.
 
 State is never updated in place.  Every call returns a NEW
-:class:`EngineState` object whose tensors are not referenced by anything
-the caller still holds: ``donate=False`` allocates fresh tensors;
-``donate=True`` (the caller gives up its input state, as JAX donation)
-ping-pongs between two buffer sets, writing into the buffers the same
-thread's previous call consumed — unless those share storage with the
-current input, in which case it allocates fresh.
+:class:`EngineState` object in freshly allocated tensors, so nothing the
+caller still holds is overwritten (PyTorch's caching allocator hands back
+the blocks of states the caller has dropped).  ``donate=True`` only lets
+the packed face update the heat accumulator in place.
 
 Multi-device meshes are not part of this port yet (ROADMAP item A10):
 a non-``None`` mesh raises :class:`NotImplementedError`.
@@ -39,8 +37,7 @@ a non-``None`` mesh raises :class:`NotImplementedError`.
 from __future__ import annotations
 
 import functools
-import threading
-from typing import List, Optional
+from typing import List
 
 import numpy as np
 import torch
@@ -91,39 +88,6 @@ def _as(x, dtype, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(x), dtype=dtype, device=device).contiguous()
 
 
-def _ptrs(state: EngineState) -> set:
-    return {x.untyped_storage().data_ptr() for x in state}
-
-
-class _Buffers:
-    """The donate=True ping-pong: the spare buffer set is the state the
-    same thread's previous call consumed.  ``take(inp)`` returns buffers
-    for the output (or None = allocate fresh) and records ``inp`` as the
-    next spare.
-
-    Spares are per thread: instances are shared by every manager of one
-    shape, each on its own tick thread, and a state another thread has
-    just donated may still be read by that thread's step.  A thread's own
-    previous input is dead, and every kernel that read it was issued
-    before on the same stream."""
-
-    def __init__(self):
-        self._local = threading.local()
-
-    def take(self, inp: EngineState) -> Optional[EngineState]:
-        spare = getattr(self._local, "spare", None)
-        self._local.spare = inp
-        if spare is None or _ptrs(spare) & _ptrs(inp):
-            return None
-        if any(a.shape != b.shape or a.device != b.device
-               for a, b in zip(spare, inp)):
-            return None
-        # no two leaves of the spare may share storage either
-        if len(_ptrs(spare)) != len(spare):
-            return None
-        return spare
-
-
 def _heard_matrix(heard, R: int, device) -> torch.Tensor:
     # a replica always hears itself — the diagonal is forced (ref fault
     # model: testing/TESTPaxosConfig.java:563-580)
@@ -134,11 +98,8 @@ def _heard_matrix(heard, R: int, device) -> torch.Tensor:
 
 
 class _StackedStep:
-    def __init__(self, cfg: EngineConfig, n_steps: int, donate: bool,
-                 device: torch.device):
-        self.cfg, self.n_steps, self.donate = cfg, n_steps, donate
-        self.device = device
-        self._bufs = _Buffers()
+    def __init__(self, cfg: EngineConfig, n_steps: int, device: torch.device):
+        self.cfg, self.n_steps, self.device = cfg, n_steps, device
 
     def _outs(self, mat: torch.Tensor) -> StepOutputs:
         """[..., R, M] out matrix -> StepOutputs of [..., R, ...] leaves."""
@@ -206,7 +167,6 @@ class _StackedStep:
         for i in range(N):
             st, _, _ = gp_kernels.step_stacked(
                 st, blobs, h, req[i], want if i == 0 else no_want, cfg,
-                out_states=self._bufs.take(st) if self.donate else None,
                 out_mat=mat[i],
                 out_blobs=blobs_next if i < N - 1 else None,
             )
@@ -220,7 +180,6 @@ class _PackedStep:
                  heat: bool, device: torch.device):
         self.cfg, self.n_steps, self.donate = cfg, n_steps, donate
         self.heat, self.device = heat, device
-        self._bufs = _Buffers()
 
     def _prep(self, state, gvec, heard, req_ring, want_coord, my_id,
               heat_acc):
@@ -270,7 +229,6 @@ class _PackedStep:
             st, _, blob, _ = gp_kernels.step(
                 st, g, heard, req_ring[i], want if i == 0 else no_want,
                 my_id, cfg, with_blob=True,
-                out_state=self._bufs.take(st) if self.donate else None,
                 heat=(heat_acc if i == 0 else heat_out) if self.heat else None,
                 heat_out=heat_out, out_vec=out_rings[i],
                 launch_log=launch_log,
@@ -330,7 +288,7 @@ def _make_step_cached(cfg, steps_per_dispatch, donate, io, heat, device):
                 "heat accumulation is a packed_host feature (the "
                 "stacked face reads StepOutputs directly)"
             )
-        fn = _StackedStep(cfg, steps_per_dispatch, donate, device)
+        fn = _StackedStep(cfg, steps_per_dispatch, device)
     elif io == "packed_host":
         fn = _PackedStep(cfg, steps_per_dispatch, donate, heat, device)
     else:
@@ -355,9 +313,9 @@ def make_step(cfg: EngineConfig, mesh=None, steps_per_dispatch: int = 1, *,
         item A10 and raise :class:`NotImplementedError`.
     steps_per_dispatch : N >= 1 consensus rounds per host call
         (``ENGINE_STEPS_PER_DISPATCH``).
-    donate : the caller gives up its input state (and heat accumulator);
-        the step may then write the NEXT call's output into those
-        buffers.  ``False`` keeps every input valid.
+    donate : the caller gives up its heat accumulator, which the packed
+        face then updates in place.  The state is always written to new
+        tensors; ``False`` keeps every input valid.
     io : ``"stacked"`` ([R, ...] bench face) or ``"packed_host"`` (one
         replica + packed [R, NB] gathered vectors — the deployed
         runtime's face).

@@ -119,6 +119,16 @@ def test_latest_wins_blob_sends_coalesce():
     most one queued frame per (peer, key); a burst of snapshots reaches
     the receiver in order, ending with the newest, possibly skipping
     superseded ones — while ordinary sends are never coalesced."""
+    _check_latest_wins(None)
+
+
+def test_latest_wins_blob_sends_coalesce_under_link_delay():
+    """With a link-delay emulator set, latest-wins frames take the same
+    coalescing queue after the delay."""
+    _check_latest_wins(lambda addr: 0.02)
+
+
+def _check_latest_wins(delay_fn):
     import threading
 
     from gigapaxos_tpu_torch.net.transport import MessageTransport
@@ -135,6 +145,7 @@ def test_latest_wins_blob_sends_coalesce():
 
     rx = MessageTransport(1, nc, handler)
     tx = MessageTransport(0, nc, lambda *a: None)
+    tx.delay_fn = delay_fn
     rx.start()
     tx.start()
     try:

@@ -6,7 +6,7 @@ N in {1, 4} substeps, including the packed face's frozen-peer semantics
 ``tests/test_unified_step.py`` pins them for the reference.  Inputs come
 from numpy with a fixed seed; tolerance is zero.
 
-The kernel path's orchestration (donation ping-pong, preallocated
+The kernel path's orchestration (heat updated in place, preallocated
 out-ring rows, the row refresh between substeps, the stacked face's
 double-buffered blob matrices) cannot launch its CUDA kernel here, so
 one test runs it with the kernel wrappers replaced by a plain-PyTorch
@@ -150,7 +150,8 @@ def _emulate_kernels(monkeypatch):
              with_blob=True, out_state=None, heat=None, heat_out=None,
              out_vec=None, blob=None, launch_log=None):
         if out_state is not None:
-            assert not tspmd._ptrs(out_state) & tspmd._ptrs(state)
+            ptrs = lambda st: {x.untyped_storage().data_ptr() for x in st}
+            assert not ptrs(out_state) & ptrs(state)
         p_st, p_out = te.step_plain(state, te.unpack_gathered(gvec, cfg),
                                     heard, req_vid, want_coord, my_id, cfg)
         new = _fill_state(out_state, p_st)
