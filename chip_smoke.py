@@ -7,32 +7,54 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
 Phases (any failure exits nonzero):
 
-1. build   — compile ``gigapaxos_tpu_torch/csrc/gp_step.cu`` for sm_90a
-             with nvcc; print the build time, ptxas' resource report and
+1. build   — compile ``gigapaxos_tpu_torch/csrc/gp_step.cu`` and
+             ``csrc/gp_lifecycle.cu`` for sm_90a, one nvcc each, in
+             parallel; print the build time, ptxas' resource report and
              the card's name and power limit.
 2. parity  — each kernel against its plain PyTorch version on the card,
              bit for bit, on seeded states (simulator steps plus lane fuzz
              with wrap +-15 and ballot-delta saturation) for W in {8, 16,
              32}, R in {3, 5}, K <= W, both make_step faces with N in
              {1, 4} (heat on the packed face, donation on and off).
+   lifecycle — every lifecycle kernel (create, kill, jump, restore_paused,
+             restore_rows, extract_rows) against its plain version, bit
+             for bit, on seeded random states (NULL and negative words,
+             full 32-bit masks) at the server shape (G=65,536, W=16; N in
+             {1, 7, 4,096, 16,384}) and the headline shape (G=1,048,576, W=32;
+             N=4,096); the input state unchanged, untouched leaves the
+             input's own tensors, bad row batches refused; then each op's
+             launch time, full call time, plain and index_copy times.
 3. headline — the stacked face at G=1,048,576, W=32, K=16, R=3 under the
              bench's synthetic load, a steady arm and a failover arm
              (leadership rotation); a few steps of the plain version at
              this width beside the kernel, bit for bit; the RSM invariant
              on the kernel's states; committed decisions/s, ms per
              replica-step against the bandwidth bound, peak memory.
-   server shape — the manager's dispatch step and gp_make_blob at the
-             server's shape against the plain version, bit for bit, for
-             every replica id; then their times.
-4. server  — 3 PaxosServers on loopback sockets in this process, on the
+   step shapes — the manager's dispatch step (heat in place and fresh)
+             and gp_make_blob against the plain version, bit for bit, for
+             every replica id, at the server's shape (G=65,536, W=16, K=8,
+             R=3) and the density path's (G=65,536, W=16, K=4, R=1); then
+             their times.
+4. density — testing/density.py on the card: 1,048,576 names on 65,536
+             rows (W=16, K=4, one replica, packed spill in a temporary
+             directory): boot by batched create + hibernate, the per-name
+             against the batched wake of 4,096 names, 20 rounds of Zipfian
+             churn; every request answered, every name accounted for.
+5. state transfer — 3 managers (ManagerCluster) at the server shape,
+             batching off: replica 2 dies, the others run more than 5W
+             slots ahead, replica 2 restarts from its journal and adopts a
+             donor's frontier (gp_jump_rows); all three agree.
+6. server  — 3 PaxosServers on loopback sockets in this process, on the
              card at G=65,536, W=16, K=8, R=3, with StatefulAdderApp and
              PaxosClientAsync: a few dozen names, a few hundred requests;
              every response is the expected running total, all replicas
              agree, every manager launched gp_step; requests/s, p50/p99.
-5. report  — the kernels line, then the device line (last).
+             Then the admin plane hibernates 8 names on every server and
+             restores them, and 64 more requests continue the totals.
+7. report  — the kernels line, then the device line (last).
 
 Kernel launch counts are reset to 0 just before each main-path run
-(phases 3 and 4) and read just after; parity and timing launches do not
+(phases 3 to 6) and read just after; parity and timing launches do not
 count.  Imports nothing of JAX or of the JAX package.
 """
 
@@ -43,6 +65,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -59,8 +82,35 @@ SERVER = dict(G=65_536, W=16, K=8, R=3)
 SERVER_NAMES, SERVER_REQS_PER_NAME = 32, 10
 TIMING_ITERS = 30
 WATCHDOG_S = 1140.0
+# lifecycle parity and timing: (G, W, batch sizes)
+# (16,384 is the density path's boot chunk)
+LIFE_SHAPES = {"server": (65_536, 16, (1, 7, 4096, 16_384)),
+               "headline": (1_048_576, 32, (4096,))}
+LIFE_TIMING_N = 4096
+DENSITY = dict(names=1_048_576, rows=65_536, window=16, req_lanes=4,
+               boot_chunk=16_384, burst=4096, per_name_burst=None,
+               hot_pct=1.0, rounds=20, round_requests=512, zipf_a=1.2,
+               seed=0)
+# the step's shapes on the server and the density paths (the density
+# manager runs one replica)
+STEP_SHAPES = {"server": SERVER,
+               "density": dict(G=DENSITY["rows"], W=DENSITY["window"],
+                               K=DENSITY["req_lanes"], R=1)}
+ST_BATCHES, ST_BATCH_REQS = 10, 10   # slots driven past the straggler
+SERVER_HIBERNATE, SERVER_POST_REQS_PER_NAME = 8, 2
 
-
+# the lifecycle kernels: name, function of ops/lifecycle.py, the JAX
+# function it replaces, and the path whose launches count ("parity" for
+# the row ops only tests use, as in the reference)
+LIFE_KERNELS = [
+    ("gp_create_groups", "create_groups", "gigapaxos_tpu/ops/lifecycle.py:46", "density"),
+    ("gp_kill_groups", "kill_groups", "gigapaxos_tpu/ops/lifecycle.py:95", "density"),
+    ("gp_jump_rows", "jump_rows", "gigapaxos_tpu/ops/lifecycle.py:112", "state_transfer"),
+    ("gp_restore_paused_rows", "restore_paused_rows",
+     "gigapaxos_tpu/ops/lifecycle.py:163", "density"),
+    ("gp_restore_rows", "restore_rows", "gigapaxos_tpu/ops/lifecycle.py:207", "parity"),
+    ("gp_extract_rows", "extract_rows", "gigapaxos_tpu/ops/lifecycle.py:201", "parity"),
+]
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
@@ -103,6 +153,35 @@ def blob_bytes(G: int, W: int) -> int:
     return G * 4 * ((5 + 7 * W) + (4 + 4 * W))
 
 
+def lifecycle_bytes(name: str, G: int, W: int, N: int) -> int:
+    """Bytes one lifecycle op must move: every leaf it touches read once
+    and its fresh copy written once, the N row indices and its batch
+    inputs read once (all int32; the leaves from gp_kernels.TOUCHED and
+    INPUTS).  extract_rows reads N whole rows (12 + 7W words) and writes
+    them."""
+    from gigapaxos_tpu_torch.ops.gp_kernels import GW_LEAVES, INPUTS, TOUCHED
+
+    words = lambda leaves: sum(W if f in GW_LEAVES else 1 for f in leaves)
+    if name == "gp_extract_rows":
+        return 4 * (N + 2 * N * (12 + 7 * W))
+    return 4 * (2 * G * words(TOUCHED[name]) + N * (1 + words(INPUTS[name])))
+
+
+def host_ms(fn, iters: int) -> float:
+    """Mean wall time of ``fn`` in ms on the host's clock, the card
+    synchronized before and after the loop (for calls whose time is
+    mostly host work)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
 def cuda_ms(fn, iters: int) -> float:
     import torch
 
@@ -124,6 +203,15 @@ class Diff:
     def __init__(self):
         self.max_abs = {"gp_step": 0, "gp_make_blob": 0}
         self.checked = {"gp_step": 0, "gp_make_blob": 0}
+        for name, *_ in LIFE_KERNELS:
+            self.max_abs[name] = 0
+            self.checked[name] = 0
+
+    def same(self, kernel: str, what: str, ok: bool) -> None:
+        """A check that is not a word comparison (identity, a refusal)."""
+        self.checked[kernel] += 1
+        if not ok:
+            fail(f"{kernel} {what}")
 
     def eq(self, kernel: str, what: str, a, b) -> None:
         import torch
@@ -291,6 +379,297 @@ def phase_parity(diff: Diff, device) -> None:
     torch.cuda.synchronize()
     log(f"parity: {diff.checked} comparisons bit-equal "
         f"({time.perf_counter() - t0:.1f} s)")
+
+
+# ---------------------------------------------------------------------------
+# phase 2b: the lifecycle kernels
+# ---------------------------------------------------------------------------
+
+
+def random_state(G: int, W: int, seed: int, device):
+    """A seeded random EngineState: window words in [-1, 400) (NULL = -1
+    included), full-range 32-bit app hashes and member masks."""
+    import numpy as np
+    import torch
+
+    from gigapaxos_tpu_torch.ops import engine as te
+    from gigapaxos_tpu_torch.ops.gp_kernels import GW_LEAVES
+
+    rng = np.random.default_rng(seed)
+    d = {}
+    for f in te.EngineState._fields:
+        shape = (G, W) if f in GW_LEAVES else (G,)
+        d[f] = rng.integers(-1, 400, size=shape, dtype=np.int32)
+    for f in ("app_hash", "member_mask"):
+        d[f] = rng.integers(-2 ** 31, 2 ** 31 - 1, size=G, dtype=np.int32)
+    return te.EngineState(**{k: torch.as_tensor(v, device=device)
+                             for k, v in d.items()})
+
+
+def life_args(name: str, rng, G: int, W: int, N: int, other, host_rows=False):
+    """Seeded arguments of one lifecycle op (after the state): N unique
+    rows and the op's batch inputs, on the host as the manager passes
+    them; restore_rows' rows are gathered from ``other`` on the card
+    (``host_rows``: copied to the host)."""
+    import numpy as np
+
+    from gigapaxos_tpu_torch.ops import lifecycle as tl
+
+    idx = rng.choice(G, size=N, replace=False)
+    n = lambda lo, hi: rng.integers(lo, hi, size=N)
+    if name == "gp_create_groups":
+        masks = rng.integers(-2 ** 31, 2 ** 31 - 1, size=N)
+        masks[::2] = rng.integers(1, 8, size=masks[::2].shape)
+        coord0 = tl.initial_coordinator(idx, masks & 7)
+        return (idx, masks, coord0), dict(my_id=1, version=n(0, 4), tag=n(1, 1 << 30))
+    if name == "gp_jump_rows":
+        return (idx, n(-1, 500), n(-1, 500), n(-2 ** 31, 2 ** 31 - 1),
+                n(0, 9), n(0, 2)), {}
+    if name == "gp_restore_paused_rows":
+        return (idx, n(-1, 500), n(-1, 500), n(-2 ** 31, 2 ** 31 - 1),
+                n(0, 9)) + tuple(rng.integers(-1, 500, size=(N, W))
+                                 for _ in range(5)), {}
+    if name == "gp_restore_rows":
+        rows = tl.extract_rows_plain(other, rng.choice(G, size=N, replace=False))
+        if host_rows:
+            rows = tuple(r.cpu().numpy() for r in rows)
+        return (idx, rows), {}
+    return (idx,), {}   # kill, extract
+
+
+def library_fn(name: str, state, want, idx_t):
+    """One PyTorch call per leaf computing the same function (timed as
+    the yardstick, used nowhere in the port): ``index_copy`` of the
+    result rows into every touched leaf, ``index_select`` for the
+    gather."""
+    from gigapaxos_tpu_torch.ops.gp_kernels import TOUCHED
+
+    if name == "gp_extract_rows":
+        return lambda: [leaf.index_select(0, idx_t) for leaf in state]
+    rows = [(getattr(state, f), getattr(want, f)[idx_t]) for f in TOUCHED[name]]
+    return lambda: [leaf.index_copy(0, idx_t, v) for leaf, v in rows]
+
+
+def phase_lifecycle(diff: Diff, device, bw: float) -> dict:
+    """Every lifecycle kernel against its plain version on the card at
+    both shapes (module docstring), then its times at N=4,096."""
+    import numpy as np
+    import torch
+
+    from gigapaxos_tpu_torch.ops import engine as te
+    from gigapaxos_tpu_torch.ops import gp_kernels
+    from gigapaxos_tpu_torch.ops import lifecycle as tl
+
+    fields = te.EngineState._fields
+    t0 = time.perf_counter()
+    times = {name: {"parity_launches": 0} for name, *_ in LIFE_KERNELS}
+    for si, (shape, (G, W, Ns)) in enumerate(LIFE_SHAPES.items()):
+        te.reset_launch_counts()
+        state = random_state(G, W, 400 + si, device)
+        other = random_state(G, W, 500 + si, device)
+        keep = [x.clone() for x in state]
+        rng = np.random.default_rng(600 + si)
+        for N in Ns:
+            for name, fn, _ref, _path in LIFE_KERNELS:
+                variants = [False, True] if name == "gp_restore_rows" and N == 7 else [False]
+                for host_rows in variants:
+                    args, kw = life_args(name, rng, G, W, N, other, host_rows)
+                    got = getattr(tl, fn)(state, *args, **kw)
+                    want = getattr(tl, fn + "_plain")(state, *args, **kw)
+                    tag = f"{shape}.N{N}" + (".host_rows" if host_rows else "")
+                    if name == "gp_extract_rows":
+                        for f, a, b in zip(fields, got, want):
+                            diff.eq(name, f"{tag}.{f}", a, b)
+                    else:
+                        diff.tree(name, tag, got, want)
+                        ptrs = {x.data_ptr() for x in state}
+                        for f in fields:
+                            new, old = getattr(got, f), getattr(state, f)
+                            if f in gp_kernels.TOUCHED[name]:
+                                diff.same(name, f"{tag}.{f}: not a fresh tensor",
+                                          new is not old and new.data_ptr() not in ptrs)
+                            else:
+                                diff.same(name, f"{tag}.{f}: untouched leaf replaced",
+                                          new is old)
+                    for f, a, b in zip(fields, state, keep):
+                        diff.eq(name, f"{tag}.input.{f}", a, b)
+                    del got, want
+        # a bad row batch is refused before any launch; kill, which
+        # writes constants only, takes a repeated row as the plain version
+        # does
+        for name, fn, _ref, _path in LIFE_KERNELS:
+            args, kw = life_args(name, rng, G, W, 4, other)
+            for bad in ([1, 2, 1, 3], [0, 1, 2, G]):
+                call = lambda f: f(state, np.array(bad), *args[1:], **kw)
+                if name == "gp_kill_groups" and bad[-1] < G:
+                    diff.tree(name, f"{shape}.repeated_rows", call(tl.kill_groups),
+                              call(tl.kill_groups_plain))
+                    continue
+                try:
+                    call(getattr(tl, fn))
+                    refused = False
+                except ValueError:
+                    refused = True
+                diff.same(name, f"{shape}: bad rows {bad} not refused", refused)
+        torch.cuda.synchronize()
+        for name, *_ in LIFE_KERNELS:
+            times[name]["parity_launches"] += te.LAUNCHES[name]
+        # times at N=4,096: the staged launch alone (copy + row pass, or
+        # the gather), the full call (checks, staging upload, outputs,
+        # launch), the plain version and the per-leaf library calls
+        N = LIFE_TIMING_N
+        for name, fn, _ref, _path in LIFE_KERNELS:
+            args, kw = life_args(name, rng, G, W, N, other)
+            staged = gp_kernels.stage(name, state, *args, **kw)
+            ms = cuda_ms(staged.launch, TIMING_ITERS)
+            # the call's host side alone (checks, staging upload, outputs)
+            # and the whole call, on the host's clock
+            ms_stage = host_ms(lambda: gp_kernels.stage(name, state, *args, **kw),
+                               TIMING_ITERS)
+            ms_call = host_ms(lambda: getattr(tl, fn)(state, *args, **kw), TIMING_ITERS)
+            plain = getattr(tl, fn + "_plain")
+            want = plain(state, *args, **kw)
+            plain_ms = cuda_ms(lambda: plain(state, *args, **kw), 5)
+            idx_t = torch.as_tensor(args[0], dtype=torch.long, device=device)
+            library_ms = cuda_ms(library_fn(name, state, want, idx_t), TIMING_ITERS)
+            nbytes = lifecycle_bytes(name, G, W, N)
+            times[name][shape] = {
+                "G": G, "W": W, "N": N, "ms": ms, "ms_call": ms_call,
+                "ms_stage": ms_stage,
+                "plain_ms": plain_ms, "library_ms": library_ms,
+                "bytes": nbytes, "bound_ms": nbytes / bw * 1e3,
+            }
+            log(f"lifecycle {shape} {name}: {ms:.6g} ms launch (bound "
+                f"{nbytes / bw * 1e3:.6g} ms, {nbytes} B); on the host's clock "
+                f"{ms_call:.6g} ms a call, {ms_stage:.6g} ms its staging; plain "
+                f"{plain_ms:.6g} ms, index_copy {library_ms:.6g} ms")
+            del staged, want
+        del state, other, keep
+        torch.cuda.empty_cache()
+    log(f"lifecycle parity: "
+        f"{ {k: diff.checked[k] for k, *_ in LIFE_KERNELS} } checks bit-equal "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return times
+
+
+# ---------------------------------------------------------------------------
+# phase 4: group density; phase 5: state transfer
+# ---------------------------------------------------------------------------
+
+
+def phase_density(device) -> dict:
+    from gigapaxos_tpu_torch.ops import engine as te
+    from gigapaxos_tpu_torch.testing.density import DensityCheckFailed, run_density
+
+    with tempfile.TemporaryDirectory(prefix="gp_density_") as d:
+        te.reset_launch_counts()
+        try:
+            res = run_density(**DENSITY, device=device, log_dir=d,
+                              progress=lambda m: log(f"density: {m}"))
+        except DensityCheckFailed as e:
+            fail(f"density: {e}")
+        launches = dict(te.LAUNCHES)
+    for name in ("gp_create_groups", "gp_kill_groups", "gp_restore_paused_rows",
+                 "gp_step", "gp_make_blob"):
+        if launches[name] <= 0:
+            fail(f"density: {name} never launched: {launches}")
+    res["launches_total"] = launches
+    ab, ch, bo = res["ablation"], res["churn"], res["boot"]
+    log(f"density: {res['names']} names on {res['rows']} rows: boot "
+        f"{bo['names_per_s']:.6g} names/s, host {res['bytes_per_name']['host_rss']:.6g} "
+        f"B/name; wake per-name {ab['per_name_us']:.6g} us/name vs batched "
+        f"{ab['batched_us_per_name']:.6g} us/name ({ab['speedup_per_name']:.6g}x); "
+        f"churn {ch['replies']}/{ch['requests']} answered, {ch['req_per_s']:.6g} "
+        f"req/s, wake p50 {ch['wake_p50_s']} s p99 {ch['wake_p99_s']} s; "
+        f"residency {res['residency_end']}; launches {res['launches']}")
+    return res
+
+
+def phase_state_transfer(device) -> dict:
+    import numpy as np
+
+    from gigapaxos_tpu_torch.manager import PaxosManager
+    from gigapaxos_tpu_torch.models.apps import HashChainApp
+    from gigapaxos_tpu_torch.ops import engine as te
+    from gigapaxos_tpu_torch.testing.cluster import DELIVER, DROP, ManagerCluster
+    from gigapaxos_tpu_torch.utils.config import Config
+
+    G, W, K, R = (SERVER[k] for k in ("G", "W", "K", "R"))
+    cfg = te.EngineConfig(G, W, K, R)
+
+    def until_executed(c, vals, entry, delivery=None, max_steps=60):
+        done = {}
+        for v in vals:
+            c.managers[entry].propose(
+                name, v, callback=lambda r, resp: done.setdefault(r, resp))
+        for _ in range(max_steps):
+            if len(done) == len(vals):
+                return
+            c.step_all(delivery=delivery)
+        fail(f"state transfer: {len(done)}/{len(vals)} executed")
+
+    # this scenario drives the frontier by slot COUNT: coalescing would
+    # pack each burst into about two slots
+    Config.set("BATCHING_ENABLED", "false")
+    c = None
+    t0 = time.perf_counter()
+    try:
+        with tempfile.TemporaryDirectory(prefix="gp_state_transfer_") as d:
+            dirs = [os.path.join(d, f"n{i}") for i in range(R)]
+            te.reset_launch_counts()
+            c = ManagerCluster(cfg, HashChainApp, log_dirs=dirs, device=device)
+            # a stepped cluster's failure detector never fires, so the
+            # replica that dies must not coordinate the name: take the
+            # first name whose row's initial coordinator is replica 0
+            name = next(nm for nm in (f"svc{i}" for i in range(64))
+                        if c.managers[0].default_row_for(nm) % R == 0)
+            c.create(name, members=list(range(R)))
+            row = c.managers[0].names[name]
+            until_executed(c, [f"a{i}" for i in range(4)], 0)
+            c.managers[2].close()
+            dead = np.full((R, R), DELIVER)
+            dead[2, :] = DROP
+            dead[:, 2] = DROP
+            for b in range(ST_BATCHES):
+                until_executed(c, [f"b{b}-{i}" for i in range(ST_BATCH_REQS)], 0,
+                               delivery=dead)
+            live = int(c.managers[0]._np("exec_slot")[row])
+            behind = int(c.managers[2]._np("exec_slot")[row])
+            if live - behind <= 5 * W:
+                fail(f"state transfer: straggler only {live - behind} slots behind")
+            c.managers[2] = PaxosManager(2, HashChainApp(), cfg, log_dir=dirs[2],
+                                         device=device)
+            c.blobs[2] = c.managers[2].blob()
+            steps = 0
+            for steps in range(1, 81):
+                c.step_all()
+                if int(c.managers[2]._np("exec_slot")[row]) >= live:
+                    break
+            until_executed(c, ["post-1", "post-2"], 2)
+            for _ in range(5):   # let every replica execute them
+                c.step_all()
+            launches = dict(te.LAUNCHES)
+            hashes = [int(m._np("app_hash")[row]) for m in c.managers]
+            states = [m.app.state.get(name) for m in c.managers]
+            n_exec = [m.app.n_executed.get(name) for m in c.managers]
+            for m in c.managers:
+                m.close()
+            c = None
+    finally:
+        Config._cli.pop("BATCHING_ENABLED", None)
+        if c is not None:
+            for m in c.managers:
+                m.close()
+    if launches["gp_jump_rows"] < 1:
+        fail(f"state transfer: gp_jump_rows never launched: {launches}")
+    if len(set(hashes)) != 1 or len(set(states)) != 1 or len(set(n_exec)) != 1:
+        fail(f"state transfer: replicas disagree: hashes {hashes}, executed {n_exec}")
+    res = {"gap_slots": live - behind, "rejoin_steps": steps, "launches": launches,
+           "executed": n_exec[0], "seconds": time.perf_counter() - t0}
+    log(f"state transfer: straggler {live - behind} slots behind rejoined in "
+        f"{steps} steps; {n_exec[0]} executed on all 3, equal hash chains; "
+        f"launches {launches} ({res['seconds']:.1f} s)")
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -476,11 +855,12 @@ def phase_server(device) -> dict:
         t_create = time.perf_counter() - t_create
         lat, errors = [], []
         lock = threading.Lock()
+        expected: dict = {nm: 0 for nm in names}
 
-        def chain(nm: str, seed: int) -> None:
+        def chain(nm: str, seed: int, n_reqs: int) -> None:
             rng = np.random.default_rng(seed)
-            total = 0
-            for _ in range(SERVER_REQS_PER_NAME):
+            total = expected[nm]
+            for _ in range(n_reqs):
                 v = int(rng.integers(1, 100))
                 t0 = time.perf_counter()
                 resp = client.send_request_sync(nm, str(v), timeout=60)
@@ -493,45 +873,75 @@ def phase_server(device) -> dict:
             with lock:
                 expected[nm] = total
 
-        expected: dict = {}
-        threads = [threading.Thread(target=chain, args=(nm, i))
-                   for i, nm in enumerate(names)]
-        t0 = time.perf_counter()
-        for th in threads:
-            th.start()
-        for th in threads:
-            th.join()
-        wall = time.perf_counter() - t0
-        if errors:
-            fail(f"server: {len(errors)} wrong responses, first {errors[0]}; "
-                 f"{server_diag(servers)}")
-        deadline = time.time() + 60
-        while time.time() < deadline:
-            if all(s.manager.app.totals.get(nm) == expected[nm]
-                   for s in servers for nm in names):
-                break
-            time.sleep(0.1)
-        else:
+        def run_chains(n_reqs: int, seed0: int) -> float:
+            threads = [threading.Thread(target=chain, args=(nm, seed0 + i, n_reqs))
+                       for i, nm in enumerate(names)]
+            t0 = time.perf_counter()
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join()
+            wall = time.perf_counter() - t0
+            if errors:
+                fail(f"server: {len(errors)} wrong responses, first {errors[0]}; "
+                     f"{server_diag(servers)}")
+            return wall
+
+        def converge(what: str) -> None:
+            deadline = time.time() + 60
+            while time.time() < deadline:
+                if all(s.manager.app.totals.get(nm) == expected[nm]
+                       for s in servers for nm in names):
+                    return
+                time.sleep(0.1)
             bad = {nm: [s.manager.app.totals.get(nm) for s in servers]
                    for nm in names
                    if any(s.manager.app.totals.get(nm) != expected[nm]
                           for s in servers)}
-            fail(f"server: replicas' app totals disagree with the "
+            fail(f"server: {what}: replicas' app totals disagree with the "
                  f"responses: {dict(list(bad.items())[:4])} expected "
                  f"{ {nm: expected[nm] for nm in list(bad)[:4]} }; "
                  f"{server_diag(servers)}")
+
+        wall = run_chains(SERVER_REQS_PER_NAME, 0)
+        converge("after the first requests")
+        n = len(lat)
+        lat_ms = np.sort(np.asarray(lat)) * 1e3
+        # the admin plane: hibernate some names on every server (a forced
+        # pause and a kill, gp_kill_groups), then restore them (a create
+        # and a record install, gp_create_groups + gp_restore_paused_rows)
+        t_hib = time.perf_counter()
+        for op in ("hibernate", "restore"):
+            for i in range(R):
+                for nm in names[:SERVER_HIBERNATE]:
+                    r = client.admin_sync(i, {"op": op, "name": nm}, timeout=60)
+                    if not r or not r.get("ok"):
+                        fail(f"server: admin {op} {nm} on server {i}: {r}")
+        for i, s in enumerate(servers):
+            for nm in names[:SERVER_HIBERNATE]:
+                if s.manager.app.totals.get(nm) != expected[nm]:
+                    fail(f"server: {nm} restored on server {i} with total "
+                         f"{s.manager.app.totals.get(nm)}, expected {expected[nm]}")
+        t_hib = time.perf_counter() - t_hib
+        lat.clear()
+        wall_post = run_chains(SERVER_POST_REQS_PER_NAME, 1000)
+        converge("after hibernate and restore")
+        n_post = len(lat)
         per_mgr = [dict(s.manager.kernel_launches) for s in servers]
         if any(m.get("gp_step", 0) <= 0 for m in per_mgr):
             fail(f"server: a manager never launched gp_step: {per_mgr}")
         launches = dict(te.LAUNCHES)
-        n = len(lat)
-        lat_ms = np.sort(np.asarray(lat)) * 1e3
+        for k in ("gp_create_groups", "gp_kill_groups", "gp_restore_paused_rows"):
+            if launches[k] <= 0:
+                fail(f"server: {k} never launched: {launches}")
         res = {
             "requests": n, "names": len(names), "seconds": wall,
             "req_per_s": n / wall,
             "p50_ms": float(np.percentile(lat_ms, 50)),
             "p99_ms": float(np.percentile(lat_ms, 99)),
             "create_seconds": t_create,
+            "hibernated": SERVER_HIBERNATE, "hibernate_restore_seconds": t_hib,
+            "post_restore_requests": n_post, "post_restore_seconds": wall_post,
             "launches": launches, "per_manager_launches": per_mgr,
             "shape": SERVER,
         }
@@ -539,6 +949,9 @@ def phase_server(device) -> dict:
         log(f"server: {n} requests over {len(names)} names answered "
             f"correctly in {wall:.4f} s: {res['req_per_s']:.6g} req/s, "
             f"p50 {res['p50_ms']:.6g} ms, p99 {res['p99_ms']:.6g} ms; "
+            f"{SERVER_HIBERNATE} names hibernated and restored on all "
+            f"{R} servers in {t_hib:.4f} s, then {n_post} more requests "
+            f"correct in {wall_post:.4f} s; "
             f"launches {launches}, per manager {per_mgr}")
         return res
     finally:
@@ -548,12 +961,14 @@ def phase_server(device) -> dict:
             s.stop()
 
 
-def phase_server_shape(diff: Diff, device, bw: float) -> dict:
-    """The server path's launches at its shape, held against the plain
-    version: the manager's dispatch step (packed face, N=1, heat updated
-    in place) for every replica id, and gp_make_blob of every replica's
-    state, on kernel-loaded states and on fuzzed seeded states.  Then the
-    times of gp_step, gp_make_blob and the plain versions there."""
+def phase_step_shapes(diff: Diff, device, bw: float) -> dict:
+    """The step launches of the server and density paths at their shapes
+    (``STEP_SHAPES``), held against the plain version: the manager's
+    dispatch step (packed face, N=1; heat updated in place, as the
+    dispatch does, and into a fresh vector, as the tick does) for every
+    replica id, and gp_make_blob of every replica's state, on
+    kernel-loaded states and on fuzzed seeded states.  Then the times of
+    gp_step, gp_make_blob and the plain versions at each shape."""
     import numpy as np
     import torch
 
@@ -561,86 +976,178 @@ def phase_server_shape(diff: Diff, device, bw: float) -> dict:
     from gigapaxos_tpu_torch.ops import gp_kernels
     from gigapaxos_tpu_torch.parallel.spmd import build_replica_states, make_step
 
-    G, W, K, R = (SERVER[k] for k in ("G", "W", "K", "R"))
-    cfg = te.EngineConfig(G, W, K, R)
-    fn = make_step(cfg, None, 1, donate=False, io="stacked", device=device)
-    req = torch.arange(1, K + 1, dtype=torch.int32, device=device)
-    req = req[None, None, :].expand(R, G, K).contiguous()
-    want = torch.zeros((R, G), dtype=torch.bool, device=device)
-    states = build_replica_states(cfg, device=device)
-    for _ in range(10):
-        states, _ = fn(states, req, want)
+    res = {}
+    for si, (shape, dims) in enumerate(STEP_SHAPES.items()):
+        G, W, K, R = (dims[k] for k in ("G", "W", "K", "R"))
+        cfg = te.EngineConfig(G, W, K, R)
+        fn = make_step(cfg, None, 1, donate=False, io="stacked", device=device)
+        req = torch.arange(1, K + 1, dtype=torch.int32, device=device)
+        req = req[None, None, :].expand(R, G, K).contiguous()
+        want = torch.zeros((R, G), dtype=torch.bool, device=device)
+        states = build_replica_states(cfg, device=device)
+        for _ in range(10):
+            states, _ = fn(states, req, want)
 
-    t0 = time.perf_counter()
-    dispatch = make_step(cfg, None, 1, donate=True, io="packed_host",
-                         heat=True, device=device)
-    rng = np.random.default_rng(300)
-    dev = lambda a, dt: torch.as_tensor(a, dtype=dt, device=device)
-    cases = {
-        "loaded": [te.EngineState(*(x[r].contiguous() for x in states))
-                   for r in range(R)],
-        "fuzzed": seeded_states(cfg, 301, device),
-    }
-    for name, sts in cases.items():
-        gvec = torch.stack([te.pack_blob(te.make_blob_plain(s)) for s in sts])
-        for r, s in enumerate(sts):
-            diff.eq("gp_make_blob", f"server.{name}.r{r}.blob",
-                    gp_kernels.make_blob_vec(s), gvec[r])
-        for my_id in range(R):
-            heard = dev(rng.random(R) < 0.85, torch.bool)
-            ring = rng.integers(1, 10 ** 6, size=(1, G, K))
-            ring = np.where(rng.random((1, G, K)) < 0.3, -1, ring)
-            ring = dev(ring.astype(np.int32), torch.int32)
-            want1 = dev(rng.random(G) < 0.05, torch.bool)
-            heat = dev(rng.integers(0, 100, G).astype(np.int32), torch.int32)
-            p = dispatch.plain(sts[my_id], gvec, heard, ring, want1, my_id,
-                               heat)
-            k = dispatch(sts[my_id], gvec, heard, ring, want1, my_id,
-                         heat.clone())
-            tag = f"server.{name}.r{my_id}"
-            diff.tree("gp_step", tag + ".state", k[0], p[0])
-            for j, what in ((1, "out"), (2, "blob"), (3, "heat")):
-                diff.eq("gp_step", f"{tag}.{what}", k[j], p[j])
-    torch.cuda.synchronize()
-    log(f"server shape parity: bit-equal ({time.perf_counter() - t0:.1f} s)")
+        t0 = time.perf_counter()
+        rng = np.random.default_rng(300 + 10 * si)
+        dev = lambda a, dt: torch.as_tensor(a, dtype=dt, device=device)
+        cases = {
+            "loaded": [te.EngineState(*(x[r].contiguous() for x in states))
+                       for r in range(R)],
+            "fuzzed": seeded_states(cfg, 301 + 10 * si, device),
+        }
+        for donate in (True, False):
+            dispatch = make_step(cfg, None, 1, donate=donate, io="packed_host",
+                                 heat=True, device=device)
+            for name, sts in cases.items():
+                gvec = torch.stack([te.pack_blob(te.make_blob_plain(s)) for s in sts])
+                if donate:
+                    for r, s in enumerate(sts):
+                        diff.eq("gp_make_blob", f"{shape}.{name}.r{r}.blob",
+                                gp_kernels.make_blob_vec(s), gvec[r])
+                for my_id in range(R):
+                    heard = dev(rng.random(R) < 0.85, torch.bool)
+                    ring = rng.integers(1, 10 ** 6, size=(1, G, K))
+                    ring = np.where(rng.random((1, G, K)) < 0.3, -1, ring)
+                    ring = dev(ring.astype(np.int32), torch.int32)
+                    want1 = dev(rng.random(G) < 0.05, torch.bool)
+                    heat = dev(rng.integers(0, 100, G).astype(np.int32), torch.int32)
+                    # my_id as the manager passes it (np.int32): the step's
+                    # retrace sentinel, shared with the managers of the
+                    # later phases, then sees their signature here first
+                    p = dispatch.plain(sts[my_id], gvec, heard, ring, want1,
+                                       np.int32(my_id), heat)
+                    k = dispatch(sts[my_id], gvec, heard, ring, want1,
+                                 np.int32(my_id), heat.clone())
+                    tag = f"{shape}.{name}.d{int(donate)}.r{my_id}"
+                    diff.tree("gp_step", tag + ".state", k[0], p[0])
+                    for j, what in ((1, "out"), (2, "blob"), (3, "heat")):
+                        diff.eq("gp_step", f"{tag}.{what}", k[j], p[j])
+        torch.cuda.synchronize()
+        log(f"{shape} shape parity (G={G}, W={W}, K={K}, R={R}): bit-equal "
+            f"({time.perf_counter() - t0:.1f} s)")
 
-    st = te.EngineState(*(x[0].contiguous() for x in states))
-    gvec = gp_kernels.make_blob_rows(states, R)
-    heard = torch.ones(R, dtype=torch.bool, device=device)
-    out_st = te.EngineState(*(torch.empty_like(x) for x in st))
-    heat = torch.zeros(G, dtype=torch.int32, device=device)
-    ms = cuda_ms(lambda: gp_kernels.step(
-        st, gvec, heard, req[0], want[0], 0, cfg, with_blob=True,
-        out_state=out_st, heat=heat, heat_out=heat), TIMING_ITERS)
-    # the same launch with the wrapper allocating the new state (what
-    # make_step does): the caching allocator's cost per step
-    ms_fresh = cuda_ms(lambda: gp_kernels.step(
-        st, gvec, heard, req[0], want[0], 0, cfg, with_blob=True,
-        heat=heat, heat_out=heat), TIMING_ITERS)
-    g = te.unpack_gathered(gvec, cfg)
+        st = te.EngineState(*(x[0].contiguous() for x in states))
+        gvec = gp_kernels.make_blob_rows(states, R)
+        heard = torch.ones(R, dtype=torch.bool, device=device)
+        out_st = te.EngineState(*(torch.empty_like(x) for x in st))
+        heat = torch.zeros(G, dtype=torch.int32, device=device)
+        ms = cuda_ms(lambda: gp_kernels.step(
+            st, gvec, heard, req[0], want[0], 0, cfg, with_blob=True,
+            out_state=out_st, heat=heat, heat_out=heat), TIMING_ITERS)
+        # the same launch with the wrapper allocating the new state (what
+        # make_step does): the caching allocator's cost per step
+        ms_fresh = cuda_ms(lambda: gp_kernels.step(
+            st, gvec, heard, req[0], want[0], 0, cfg, with_blob=True,
+            heat=heat, heat_out=heat), TIMING_ITERS)
+        g = te.unpack_gathered(gvec, cfg)
 
-    def plain():
-        p_st, p_o = te.step_plain(st, g, heard, req[0], want[0], 0, cfg)
-        te.pack_out(p_o)
-        te.pack_blob(te.make_blob_plain(p_st))
+        def plain():
+            p_st, p_o = te.step_plain(st, g, heard, req[0], want[0], 0, cfg)
+            te.pack_out(p_o)
+            te.pack_blob(te.make_blob_plain(p_st))
 
-    plain_ms = cuda_ms(plain, 3)
-    blob_ms = cuda_ms(lambda: gp_kernels.make_blob_vec(st), TIMING_ITERS)
-    blob_plain_ms = cuda_ms(lambda: te.pack_blob(te.make_blob_plain(st)), 5)
-    res = {
-        "ms": ms, "ms_fresh": ms_fresh, "plain_ms": plain_ms,
-        "bound_ms": step_bytes(G, W, K, R) / bw * 1e3,
-        "make_blob_ms": blob_ms, "make_blob_plain_ms": blob_plain_ms,
-        "make_blob_bound_ms": blob_bytes(G, W) / bw * 1e3,
-    }
-    log(f"server shape gp_step: {ms:.6g} ms into a preallocated state, "
-        f"{ms_fresh:.6g} ms into a fresh one (bound {res['bound_ms']:.6g} ms, "
-        f"plain {plain_ms:.6g} ms); gp_make_blob {blob_ms:.6g} ms (bound "
-        f"{res['make_blob_bound_ms']:.6g} ms, plain {blob_plain_ms:.6g} ms)")
+        plain_ms = cuda_ms(plain, 3)
+        blob_ms = cuda_ms(lambda: gp_kernels.make_blob_vec(st), TIMING_ITERS)
+        blob_plain_ms = cuda_ms(lambda: te.pack_blob(te.make_blob_plain(st)), 5)
+        res[shape] = {
+            "shape": dims, "ms": ms, "ms_fresh": ms_fresh, "plain_ms": plain_ms,
+            "bound_ms": step_bytes(G, W, K, R) / bw * 1e3,
+            "make_blob_ms": blob_ms, "make_blob_plain_ms": blob_plain_ms,
+            "make_blob_bound_ms": blob_bytes(G, W) / bw * 1e3,
+        }
+        r = res[shape]
+        log(f"{shape} shape gp_step: {ms:.6g} ms into a preallocated state, "
+            f"{ms_fresh:.6g} ms into a fresh one (bound {r['bound_ms']:.6g} ms, "
+            f"plain {plain_ms:.6g} ms); gp_make_blob {blob_ms:.6g} ms (bound "
+            f"{r['make_blob_bound_ms']:.6g} ms, plain {blob_plain_ms:.6g} ms)")
+        del states, cases, st, gvec, out_st, g
+        torch.cuda.empty_cache()
     return res
 
 
 # ---------------------------------------------------------------------------
+
+
+def kernels_line(diff: Diff, head: dict, step_t: dict, life: dict, dens: dict,
+                 xfer: dict, srv: dict) -> list:
+    """The kernels line's entries, from the phases' results."""
+    srv_t, den_t = step_t["server"], step_t["density"]
+    kernels = [
+        {
+            "name": "gp_step", "route": "cuda",
+            "source": "gigapaxos_tpu_torch/csrc/gp_step.cu",
+            "replaces": "gigapaxos_tpu/ops/engine.py:380",
+            "launches": srv["launches"]["gp_step"],
+            "max_abs_err": diff.max_abs["gp_step"],
+            "ms": srv_t["ms"], "plain_ms": srv_t["plain_ms"],
+            "bound_ms": srv_t["bound_ms"], "bound_by": "bytes",
+            "library_ms": None, "ms_fresh_state": srv_t["ms_fresh"],
+            "shape": SERVER, "comparisons": diff.checked["gp_step"],
+            "headline": {
+                "launches_steady": head["arms"]["steady"]["launches"]["gp_step"],
+                "launches_failover": head["arms"]["failover"]["launches"]["gp_step"],
+                "ms_per_replica_step": head["ms_per_replica_step"],
+                "ms_per_replica_step_fresh_state":
+                    head["ms_per_replica_step_fresh"],
+                "bound_ms": head["bound_ms"], "plain_ms": head["plain_ms"],
+            },
+            "density_shape": {
+                "shape": den_t["shape"],
+                "launches": dens["launches_total"]["gp_step"],
+                **{k: den_t[k] for k in ("ms", "ms_fresh", "bound_ms", "plain_ms")},
+            },
+        },
+        {
+            "name": "gp_make_blob", "route": "cuda",
+            "source": "gigapaxos_tpu_torch/csrc/gp_step.cu",
+            "replaces": "gigapaxos_tpu/ops/engine.py:277",
+            "launches": srv["launches"]["gp_make_blob"],
+            "max_abs_err": diff.max_abs["gp_make_blob"],
+            "ms": srv_t["make_blob_ms"], "plain_ms": srv_t["make_blob_plain_ms"],
+            "bound_ms": srv_t["make_blob_bound_ms"], "bound_by": "bytes",
+            "library_ms": None,
+            "shape": SERVER, "comparisons": diff.checked["gp_make_blob"],
+            "headline": {
+                "launches_steady": head["arms"]["steady"]["launches"]["gp_make_blob"],
+                "launches_failover": head["arms"]["failover"]["launches"]["gp_make_blob"],
+                "ms_per_replica": head["make_blob_ms"],
+                "bound_ms": head["make_blob_bound_ms"],
+            },
+            "density_shape": {
+                "shape": den_t["shape"],
+                "launches": dens["launches_total"]["gp_make_blob"],
+                "ms": den_t["make_blob_ms"], "plain_ms": den_t["make_blob_plain_ms"],
+                "bound_ms": den_t["make_blob_bound_ms"],
+            },
+        },
+    ]
+    per_path = {"density": dens["launches_total"], "state_transfer": xfer["launches"],
+                "server": srv["launches"]}
+    for name, _fn, ref, path in LIFE_KERNELS:
+        t_srv, t_head = life[name]["server"], life[name]["headline"]
+        on_paths = {p: per_path[p][name] for p in per_path}
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "gigapaxos_tpu_torch/csrc/gp_lifecycle.cu",
+            "replaces": ref,
+            # the count of the path this kernel is checked on; the row ops
+            # only tests use count their launches in the parity phase
+            "launches": life[name]["parity_launches"] if path == "parity"
+            else per_path[path][name],
+            "launches_from": path, "launches_by_path": on_paths,
+            "max_abs_err": diff.max_abs[name],
+            "ms": t_srv["ms"], "plain_ms": t_srv["plain_ms"],
+            "bound_ms": t_srv["bound_ms"], "bound_by": "bytes",
+            "library_ms": t_srv["library_ms"], "ms_call": t_srv["ms_call"],
+            "ms_stage": t_srv["ms_stage"],
+            "shape": {"G": t_srv["G"], "W": t_srv["W"], "N": t_srv["N"]},
+            "comparisons": diff.checked[name],
+            "headline": {k: t_head[k] for k in
+                         ("G", "W", "N", "ms", "ms_call", "ms_stage", "plain_ms",
+                          "library_ms", "bound_ms")},
+        })
+    return kernels
 
 
 def main() -> int:
@@ -671,13 +1178,14 @@ def main() -> int:
 
     # 1. build
     t0 = time.perf_counter()
-    gp_kernels.build(force=True)
+    libs = gp_kernels.build(force=True)
     gp_kernels.lib()
-    log(f"build: gp_step.cu -> {gp_kernels.BUILD_INFO.get('so')} in "
-        f"{time.perf_counter() - t0:.2f} s")
-    for line in gp_kernels.BUILD_INFO.get("ptxas", "").splitlines():
-        if "registers" in line or "Compiling entry" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    log(f"build: {', '.join(os.path.basename(p) for p in libs.values())} in "
+        f"{time.perf_counter() - t0:.2f} s (nvcc in parallel)")
+    for src, text in gp_kernels.BUILD_INFO.get("ptxas", {}).items():
+        for line in text.splitlines():
+            if "registers" in line or "Compiling entry" in line or "spill" in line:
+                log(f"  ptxas {src}: {line.strip()}")
 
     diff = Diff()
     t_start = time.perf_counter()
@@ -686,62 +1194,37 @@ def main() -> int:
     )
     stamp("parity")
     phase_parity(diff, device)
+    stamp("lifecycle parity and timing")
+    life = phase_lifecycle(diff, device, bw)
     stamp("headline")
     head = phase_headline(diff, device, bw)
-    # parity and timings at the server's shape first: they do not count
-    # launches
-    stamp("server-shape parity and timing")
-    srv_t = phase_server_shape(diff, device, bw)
+    # parity and timings at the server's and the density path's shapes
+    # first: they do not count launches
+    stamp("step-shape parity and timing")
+    step_t = phase_step_shapes(diff, device, bw)
+    stamp("density")
+    dens = phase_density(device)
+    stamp("state transfer")
+    xfer = phase_state_transfer(device)
     stamp("server")
     srv = phase_server(device)
     stamp("report")
 
-    # 5. report
-    kernels = [
-        {
-            "name": "gp_step", "route": "cuda",
-            "source": "gigapaxos_tpu_torch/csrc/gp_step.cu",
-            "replaces": "gigapaxos_tpu/ops/engine.py:380",
-            "launches": srv["launches"]["gp_step"],
-            "max_abs_err": diff.max_abs["gp_step"],
-            "ms": srv_t["ms"], "plain_ms": srv_t["plain_ms"],
-            "bound_ms": srv_t["bound_ms"], "bound_by": "bytes",
-            "library_ms": None, "ms_fresh_state": srv_t["ms_fresh"],
-            "shape": SERVER, "comparisons": diff.checked["gp_step"],
-            "headline": {
-                "launches_steady": head["arms"]["steady"]["launches"]["gp_step"],
-                "launches_failover": head["arms"]["failover"]["launches"]["gp_step"],
-                "ms_per_replica_step": head["ms_per_replica_step"],
-                "ms_per_replica_step_fresh_state":
-                    head["ms_per_replica_step_fresh"],
-                "bound_ms": head["bound_ms"], "plain_ms": head["plain_ms"],
-            },
-        },
-        {
-            "name": "gp_make_blob", "route": "cuda",
-            "source": "gigapaxos_tpu_torch/csrc/gp_step.cu",
-            "replaces": "gigapaxos_tpu/ops/engine.py:277",
-            "launches": srv["launches"]["gp_make_blob"],
-            "max_abs_err": diff.max_abs["gp_make_blob"],
-            "ms": srv_t["make_blob_ms"], "plain_ms": srv_t["make_blob_plain_ms"],
-            "bound_ms": srv_t["make_blob_bound_ms"], "bound_by": "bytes",
-            "library_ms": None,
-            "shape": SERVER, "comparisons": diff.checked["gp_make_blob"],
-            "headline": {
-                "launches_steady": head["arms"]["steady"]["launches"]["gp_make_blob"],
-                "launches_failover": head["arms"]["failover"]["launches"]["gp_make_blob"],
-                "ms_per_replica": head["make_blob_ms"],
-                "bound_ms": head["make_blob_bound_ms"],
-            },
-        },
-    ]
+    # 7. report
+    kernels = kernels_line(diff, head, step_t, life, dens, xfer, srv)
     for k in kernels:
         if k["launches"] <= 0:
-            fail(f"{k['name']}: no launch on the server path")
+            fail(f"{k['name']}: no launch on the "
+                 f"{k.get('launches_from', 'server')} path")
+    ab, ch = dens["ablation"], dens["churn"]
     log(f"summary: headline steady {head['arms']['steady']['dec_per_s']:.6g} "
         f"dec/s, failover {head['arms']['failover']['dec_per_s']:.6g} dec/s; "
         f"server {srv['req_per_s']:.6g} req/s p50 {srv['p50_ms']:.6g} ms "
-        f"p99 {srv['p99_ms']:.6g} ms; on {smi_line}")
+        f"p99 {srv['p99_ms']:.6g} ms; density {dens['names']} names: boot "
+        f"{dens['boot']['names_per_s']:.6g} names/s, wake {ab['per_name_us']:.6g} "
+        f"us/name per-name vs {ab['batched_us_per_name']:.6g} batched, churn "
+        f"{ch['req_per_s']:.6g} req/s; state transfer jumped "
+        f"{xfer['gap_slots']} slots; on {smi_line}")
     print(smi_line, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -108,7 +108,12 @@ _INT32_MIN = -(2 ** 31)
 
 # kernel launches per entry point since the last reset (plain integers;
 # a wrapper adds one exactly where it launches its kernel)
-LAUNCHES = {"gp_step": 0, "gp_make_blob": 0}
+LAUNCHES = {
+    "gp_step": 0, "gp_make_blob": 0,
+    # group lifecycle (csrc/gp_lifecycle.cu, ops/lifecycle.py)
+    "gp_create_groups": 0, "gp_kill_groups": 0, "gp_jump_rows": 0,
+    "gp_restore_paused_rows": 0, "gp_restore_rows": 0, "gp_extract_rows": 0,
+}
 
 
 def reset_launch_counts() -> None:

@@ -11,7 +11,18 @@ row scatters / gathers on :class:`~gigapaxos_tpu_torch.ops.engine.EngineState`.
 Every op is out of place: it returns a NEW state whose touched leaves are
 fresh tensors (untouched leaves are shared with the input), so a caller
 holding the old state (the manager's host cache keys on state identity)
-never sees it change.  Plain PyTorch indexing on any device.
+never sees it change.
+
+Two implementations of every op live here, as in :mod:`.engine`:
+
+* the **plain** version (``*_plain``): PyTorch indexing, the CPU path and
+  the yardstick the kernel is held against;
+* the **kernel** (``csrc/gp_lifecycle.cu``, bound in :mod:`.gp_kernels`):
+  a copy pass over the touched leaves and a row pass over the batch.
+
+The public functions dispatch: CPU tensors take the plain version, CUDA
+tensors launch the kernel or raise.  On the kernel path the row batch
+must be unique and in range (the manager never passes anything else).
 """
 
 from __future__ import annotations
@@ -22,6 +33,7 @@ import numpy as np
 import torch
 
 from .ballot import NULL, encode_ballot
+from . import engine as _engine
 from .engine import ACTIVE, IDLE, EngineState
 
 _I32 = torch.int32
@@ -70,7 +82,7 @@ def _set(leaf: torch.Tensor, idx: torch.Tensor, val) -> torch.Tensor:
     return out
 
 
-def create_groups(
+def create_groups_plain(
     state: EngineState,
     idx,                 # [N] group indices to (re)create
     member_mask,         # [N] replica-id bitmasks
@@ -122,7 +134,7 @@ def create_groups(
     )
 
 
-def kill_groups(state: EngineState, idx) -> EngineState:
+def kill_groups_plain(state: EngineState, idx) -> EngineState:
     """Batched kill: rows become inert (the Cremator analog,
     ``PaxosManager.java:2142-2205``)."""
     idx = _idx(idx, state.bal)
@@ -137,7 +149,7 @@ def kill_groups(state: EngineState, idx) -> EngineState:
     )
 
 
-def jump_rows(
+def jump_rows_plain(
     state: EngineState,
     idx,        # [N] rows to jump
     exec_slot,  # [N] donor's executed frontier
@@ -183,7 +195,7 @@ def jump_rows(
     )
 
 
-def restore_paused_rows(
+def restore_paused_rows_plain(
     state: EngineState,
     idx,        # [N] rows JUST created by create_groups
     exec_slot,  # [N] record frontier
@@ -217,15 +229,84 @@ def restore_paused_rows(
     )
 
 
-def extract_rows(state: EngineState, idx) -> Tuple:
+def extract_rows_plain(state: EngineState, idx) -> Tuple:
     """Gather full rows for pause-to-disk (HotRestoreInfo analog)."""
     idx = _idx(idx, state.bal)
     return tuple(leaf[idx] for leaf in state)
 
 
-def restore_rows(state: EngineState, idx, rows: Tuple) -> EngineState:
+def restore_rows_plain(state: EngineState, idx, rows: Tuple) -> EngineState:
     """Scatter previously extracted rows back (unpause)."""
     idx = _idx(idx, state.bal)
     return EngineState(*(
         _set(leaf, idx, _t(row, leaf)) for leaf, row in zip(state, rows)
     ))
+
+
+# ---------------------------------------------------------------------------
+# dispatching entry points: plain version on CPU tensors, kernel on CUDA
+# ---------------------------------------------------------------------------
+
+
+def create_groups(state: EngineState, idx, member_mask, coord0, my_id: int,
+                  version=0, tag=0) -> EngineState:
+    """Batched group creation (see :func:`create_groups_plain`)."""
+    if not _engine.on_card(state.bal):
+        return create_groups_plain(state, idx, member_mask, coord0, my_id,
+                                   version, tag)
+    from . import gp_kernels
+
+    return gp_kernels.create_groups(state, idx, member_mask, coord0, my_id,
+                                    version, tag)
+
+
+def kill_groups(state: EngineState, idx) -> EngineState:
+    """Batched kill (see :func:`kill_groups_plain`)."""
+    if not _engine.on_card(state.bal):
+        return kill_groups_plain(state, idx)
+    from . import gp_kernels
+
+    return gp_kernels.kill_groups(state, idx)
+
+
+def jump_rows(state: EngineState, idx, exec_slot, bal, app_hash, n_execd,
+              stopped) -> EngineState:
+    """Checkpoint-transfer jump (see :func:`jump_rows_plain`)."""
+    if not _engine.on_card(state.bal):
+        return jump_rows_plain(state, idx, exec_slot, bal, app_hash, n_execd,
+                               stopped)
+    from . import gp_kernels
+
+    return gp_kernels.jump_rows(state, idx, exec_slot, bal, app_hash, n_execd,
+                                stopped)
+
+
+def restore_paused_rows(state: EngineState, idx, exec_slot, bal, app_hash,
+                        n_execd, acc_bal, acc_vid, acc_slot, dec_vid,
+                        dec_slot) -> EngineState:
+    """Batched unpause install (see :func:`restore_paused_rows_plain`)."""
+    args = (idx, exec_slot, bal, app_hash, n_execd, acc_bal, acc_vid,
+            acc_slot, dec_vid, dec_slot)
+    if not _engine.on_card(state.bal):
+        return restore_paused_rows_plain(state, *args)
+    from . import gp_kernels
+
+    return gp_kernels.restore_paused_rows(state, *args)
+
+
+def extract_rows(state: EngineState, idx) -> Tuple:
+    """Gather full rows (see :func:`extract_rows_plain`)."""
+    if not _engine.on_card(state.bal):
+        return extract_rows_plain(state, idx)
+    from . import gp_kernels
+
+    return gp_kernels.extract_rows(state, idx)
+
+
+def restore_rows(state: EngineState, idx, rows: Tuple) -> EngineState:
+    """Scatter extracted rows back (see :func:`restore_rows_plain`)."""
+    if not _engine.on_card(state.bal):
+        return restore_rows_plain(state, idx, rows)
+    from . import gp_kernels
+
+    return gp_kernels.restore_rows(state, idx, rows)
