@@ -7,10 +7,10 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
 Phases (any failure exits nonzero):
 
-1. build   — compile ``gigapaxos_tpu_torch/csrc/gp_step.cu`` and
-             ``csrc/gp_lifecycle.cu`` for sm_90a, one nvcc each, in
-             parallel; print the build time, ptxas' resource report and
-             the card's name and power limit.
+1. build   — compile ``gigapaxos_tpu_torch/csrc/gp_step.cu``,
+             ``csrc/gp_lifecycle.cu`` and ``csrc/gp_pack_rows.cu`` for
+             sm_90a, one nvcc each, in parallel; print the build time,
+             ptxas' resource report and the card's name and power limit.
 2. parity  — each kernel against its plain PyTorch version on the card,
              bit for bit, on seeded states (simulator steps plus lane fuzz
              with wrap +-15 and ballot-delta saturation) for W in {8, 16,
@@ -21,9 +21,17 @@ Phases (any failure exits nonzero):
              for bit, on seeded random states (NULL and negative words,
              full 32-bit masks) at the server shape (G=65,536, W=16; N in
              {1, 7, 4,096, 16,384}) and the headline shape (G=1,048,576, W=32;
-             N=4,096); the input state unchanged, untouched leaves the
-             input's own tensors, bad row batches refused; then each op's
-             launch time, full call time, plain and index_copy times.
+             N=4,096) and the reconfigurators' shape (G=64, W=16; N=1);
+             the input state unchanged, untouched leaves the input's own
+             tensors, bad row batches refused; then each op's launch time
+             (on the device: a CUDA graph of launches; and by events
+             around a loop), full call time, plain and index_copy times.
+   pack_rows — gp_pack_rows against pack_rows_plain, bit for bit, at
+             (G=65,536, W=16, R=3), (65,536, 16, 4) and (64, 16, 3) on
+             seeded and fuzzed blobs with numpy, card and CPU leaves
+             mixed; then its launch time (device and events), the full
+             call and its staging on the host's clock, the plain version
+             and torch.cat of card-resident leaves, beside its bound.
 3. headline — the stacked face at G=1,048,576, W=32, K=16, R=3 under the
              bench's synthetic load, a steady arm and a failover arm
              (leadership rotation); a few steps of the plain version at
@@ -33,8 +41,9 @@ Phases (any failure exits nonzero):
    step shapes — the manager's dispatch step (heat in place and fresh)
              and gp_make_blob against the plain version, bit for bit, for
              every replica id, at the server's shape (G=65,536, W=16, K=8,
-             R=3) and the density path's (G=65,536, W=16, K=4, R=1); then
-             their times.
+             R=3), the density path's (G=65,536, W=16, K=4, R=1), the
+             actives' (G=65,536, W=16, K=8, R=4) and the reconfigurators'
+             (G=64, W=16, K=8, R=3); then their times (device and events).
 4. density — testing/density.py on the card: 1,048,576 names on 65,536
              rows (W=16, K=4, one replica, packed spill in a temporary
              directory): boot by batched create + hibernate, the per-name
@@ -51,11 +60,29 @@ Phases (any failure exits nonzero):
              agree, every manager launched gp_step; requests/s, p50/p99.
              Then the admin plane hibernates 8 names on every server and
              restores them, and 64 more requests continue the totals.
-7. report  — the kernels line, then the device line (last).
+7. rc_stepped — ReconfigurableCluster on the card (actives G=65,536,
+             W=16, K=8, R=4; reconfigurators G=64, R=3; HashChainApp):
+             create -> request -> migrate -> delete -> re-create, then a
+             migration under a seeded 30% loss of reconfiguration-plane
+             messages; every manager tick launches gp_pack_rows.
+8. reconfiguration — ReconfigurableNode AR0..AR3 and RC0..RC2 on loopback
+             ports in this process, configured by properties alone (the
+             nodes' own engine defaults, the card as their default
+             device), HashChainApp, ReconfigurableAppClient: 256 batched
+             creates (cut from 1,024), 16 single ones, 8 requests on each
+             of 64 names (every response the next link of the name's hash
+             chain, every member's state equal), 16 migrations onto a set
+             with an outside active plus a stale-cache request each, 16
+             deletes (rows freed on every former member, records purged
+             on every reconfigurator); creates/s, latencies, req/s,
+             launches.
+9. report  — the kernels line, then the device line (last).
 
 Kernel launch counts are reset to 0 just before each main-path run
-(phases 3 to 6) and read just after; parity and timing launches do not
-count.  Imports nothing of JAX or of the JAX package.
+(phases 3 to 8) and read just after; parity and timing launches do not
+count.  ``--phases a,b`` runs a subset and prints no report (for
+iterating); the contract run takes no arguments.  Imports nothing of JAX
+or of the JAX package.
 """
 
 from __future__ import annotations
@@ -79,23 +106,39 @@ PARITY_SHAPES = [          # (W, R, K)
 HEADLINE = dict(G=1_048_576, W=32, K=16, R=3)
 HEADLINE_WARM, HEADLINE_STEPS, HEADLINE_PLAIN_STEPS = 20, 50, 3
 SERVER = dict(G=65_536, W=16, K=8, R=3)
+# the reconfiguration paths' engines: the actives' (ReconfigurableNode's
+# defaults with 4 actives: ENGINE_ROWS, SLOT_WINDOW, K=8) and the
+# reconfigurators' record engine (64 rows, 3 reconfigurators)
+AR = dict(G=65_536, W=16, K=8, R=4)
+RC = dict(G=64, W=16, K=8, R=3)
 SERVER_NAMES, SERVER_REQS_PER_NAME = 32, 10
 TIMING_ITERS = 30
 WATCHDOG_S = 1140.0
 # lifecycle parity and timing: (G, W, batch sizes)
 # (16,384 is the density path's boot chunk)
 LIFE_SHAPES = {"server": (65_536, 16, (1, 7, 4096, 16_384)),
-               "headline": (1_048_576, 32, (4096,))}
+               "headline": (1_048_576, 32, (4096,)),
+               "rc": (RC["G"], RC["W"], (1,))}
 LIFE_TIMING_N = 4096
 DENSITY = dict(names=1_048_576, rows=65_536, window=16, req_lanes=4,
                boot_chunk=16_384, burst=4096, per_name_burst=None,
                hot_pct=1.0, rounds=20, round_requests=512, zipf_a=1.2,
                seed=0)
-# the step's shapes on the server and the density paths (the density
-# manager runs one replica)
+# the step's shapes on the server, density and reconfiguration paths (the
+# density manager runs one replica)
 STEP_SHAPES = {"server": SERVER,
                "density": dict(G=DENSITY["rows"], W=DENSITY["window"],
-                               K=DENSITY["req_lanes"], R=1)}
+                               K=DENSITY["req_lanes"], R=1),
+               "ar": AR, "rc": RC}
+# gp_pack_rows parity and timing: (G, W, R) of every tick that packs
+PACK_SHAPES = {"ar3": (65_536, 16, 3), "ar4": (65_536, 16, 4), "rc": (64, 16, 3)}
+# the socket deployment: names created in one batch (1,024 cut to 256:
+# on an H100 host the batch alone took 941 s for 1,024 names), then one
+# by one; names that take requests and requests each; names migrated;
+# deleted
+RC_BATCH_NAMES, RC_SINGLE_NAMES = 256, 16
+RC_REQ_NAMES, RC_REQS_PER_NAME = 64, 8
+RC_MOVES, RC_DELETES = 16, 16
 ST_BATCHES, ST_BATCH_REQS = 10, 10   # slots driven past the straggler
 SERVER_HIBERNATE, SERVER_POST_REQS_PER_NAME = 8, 2
 
@@ -182,6 +225,45 @@ def host_ms(fn, iters: int) -> float:
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
+def graph_ms(fn, calls: int = 20, reps: int = 10) -> float:
+    """A launch's time on the device: ``calls`` calls of ``fn`` (launches
+    only: no host synchronisation, no host-to-device copy) captured in one
+    CUDA graph, the graph replayed ``reps`` times between CUDA events; ms
+    per call.  The replay re-issues the captured kernels with no Python
+    in between, so below about 0.2 ms this reads the kernel and not the
+    wrapper (:func:`cuda_ms` times a loop of wrapper calls)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()   # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, capture_error_mode="thread_local"):
+        for _ in range(calls):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        g.replay()
+    e1.record()
+    torch.cuda.synchronize()
+    ms = e0.elapsed_time(e1) / (calls * reps)
+    del g
+    return ms
+
+
+def pack_bytes(G: int, W: int, R: int) -> int:
+    """Bytes gp_pack_rows must move: the R packed rows' words read once
+    from the leaves and written once."""
+    return 2 * R * G * (4 + 4 * W) * 4
+
+
 def cuda_ms(fn, iters: int) -> float:
     import torch
 
@@ -201,8 +283,8 @@ class Diff:
     """Bit-exact comparison bookkeeping across phases."""
 
     def __init__(self):
-        self.max_abs = {"gp_step": 0, "gp_make_blob": 0}
-        self.checked = {"gp_step": 0, "gp_make_blob": 0}
+        self.max_abs = {"gp_step": 0, "gp_make_blob": 0, "gp_pack_rows": 0}
+        self.checked = {"gp_step": 0, "gp_make_blob": 0, "gp_pack_rows": 0}
         for name, *_ in LIFE_KERNELS:
             self.max_abs[name] = 0
             self.checked[name] = 0
@@ -514,14 +596,18 @@ def phase_lifecycle(diff: Diff, device, bw: float) -> dict:
         torch.cuda.synchronize()
         for name, *_ in LIFE_KERNELS:
             times[name]["parity_launches"] += te.LAUNCHES[name]
-        # times at N=4,096: the staged launch alone (copy + row pass, or
-        # the gather), the full call (checks, staging upload, outputs,
-        # launch), the plain version and the per-leaf library calls
-        N = LIFE_TIMING_N
+        # times at N=4,096 (the shape's largest batch if smaller): the
+        # staged launch alone (copy + row pass, or the gather) on the
+        # device (a CUDA graph of launches) and by the events around a
+        # loop of launches, the full call (checks, staging upload,
+        # outputs, launch), the plain version and the per-leaf library
+        # calls
+        N = min(LIFE_TIMING_N, max(Ns))
         for name, fn, _ref, _path in LIFE_KERNELS:
             args, kw = life_args(name, rng, G, W, N, other)
             staged = gp_kernels.stage(name, state, *args, **kw)
-            ms = cuda_ms(staged.launch, TIMING_ITERS)
+            ms = graph_ms(staged.launch)
+            ms_events = cuda_ms(staged.launch, TIMING_ITERS)
             # the call's host side alone (checks, staging upload, outputs)
             # and the whole call, on the host's clock
             ms_stage = host_ms(lambda: gp_kernels.stage(name, state, *args, **kw),
@@ -531,15 +617,17 @@ def phase_lifecycle(diff: Diff, device, bw: float) -> dict:
             want = plain(state, *args, **kw)
             plain_ms = cuda_ms(lambda: plain(state, *args, **kw), 5)
             idx_t = torch.as_tensor(args[0], dtype=torch.long, device=device)
-            library_ms = cuda_ms(library_fn(name, state, want, idx_t), TIMING_ITERS)
+            library_ms = graph_ms(library_fn(name, state, want, idx_t))
             nbytes = lifecycle_bytes(name, G, W, N)
             times[name][shape] = {
-                "G": G, "W": W, "N": N, "ms": ms, "ms_call": ms_call,
+                "G": G, "W": W, "N": N, "ms": ms, "ms_events": ms_events,
+                "ms_call": ms_call,
                 "ms_stage": ms_stage,
                 "plain_ms": plain_ms, "library_ms": library_ms,
                 "bytes": nbytes, "bound_ms": nbytes / bw * 1e3,
             }
-            log(f"lifecycle {shape} {name}: {ms:.6g} ms launch (bound "
+            log(f"lifecycle {shape} {name}: {ms:.6g} ms launch on the device "
+                f"({ms_events:.6g} ms by events around a loop; bound "
                 f"{nbytes / bw * 1e3:.6g} ms, {nbytes} B); on the host's clock "
                 f"{ms_call:.6g} ms a call, {ms_stage:.6g} ms its staging; plain "
                 f"{plain_ms:.6g} ms, index_copy {library_ms:.6g} ms")
@@ -550,6 +638,98 @@ def phase_lifecycle(diff: Diff, device, bw: float) -> dict:
         f"{ {k: diff.checked[k] for k, *_ in LIFE_KERNELS} } checks bit-equal "
         f"({time.perf_counter() - t0:.1f} s)")
     return times
+
+
+# ---------------------------------------------------------------------------
+# phase 2c: the gathered blobs' row pack
+# ---------------------------------------------------------------------------
+
+
+def pack_blobs(G: int, W: int, R: int, seed: int, device, fuzzed: bool):
+    """R replicas' blobs as numpy leaves ``[R, ...]``: ``gp_make_blob`` of
+    seeded random states (the words the cluster exchanges) or, fuzzed,
+    random words over the full int32 range."""
+    import numpy as np
+
+    from gigapaxos_tpu_torch.ops import engine as te
+    from gigapaxos_tpu_torch.ops import gp_kernels
+
+    rng = np.random.default_rng(seed)
+    if fuzzed:
+        gw = {"acc_vid", "dec_vid", "prop_vid", "lane_meta"}
+        return te.Blob(**{
+            f: rng.integers(-2 ** 31, 2 ** 31 - 1, size=(R, G, W) if f in gw else (R, G),
+                            dtype=np.int64).astype(np.int32)
+            for f in te.Blob._fields
+        })
+    rows = [te.split_blob_vec(te.to_host(gp_kernels.make_blob_vec(
+        random_state(G, W, seed + r, device))), te.EngineConfig(G, W, 1, 1))
+        for r in range(R)]
+    return te.Blob(*(np.stack(leaves) for leaves in zip(*rows)))
+
+
+def mixed_leaves(blob, device, pattern: str):
+    """The same words with leaves on the card, in numpy or on the CPU,
+    by ``pattern`` (one letter a leaf: d, n, c)."""
+    import torch
+
+    put = {"d": lambda v: torch.as_tensor(v, device=device),
+           "n": lambda v: v, "c": lambda v: torch.as_tensor(v)}
+    return type(blob)(*(put[k](v) for k, v in zip(pattern, blob)))
+
+
+def phase_pack_rows(diff: Diff, device, bw: float) -> dict:
+    """gp_pack_rows against pack_rows_plain, bit for bit, at every
+    ``PACK_SHAPES`` shape on seeded and fuzzed blobs with the leaves in
+    numpy (as the stepped cluster passes them), on the card and mixed;
+    then its times: the launch alone on the device (a CUDA graph) and by
+    events, the full call and its staging on the host's clock, the plain
+    version (upload per leaf + ``torch.cat``) and ``torch.cat`` of leaves
+    already on the card (the library call)."""
+    import torch
+
+    from gigapaxos_tpu_torch.ops import engine as te
+    from gigapaxos_tpu_torch.ops import gp_kernels
+
+    t0 = time.perf_counter()
+    res = {}
+    for si, (shape, (G, W, R)) in enumerate(PACK_SHAPES.items()):
+        for fuzzed in (False, True):
+            blob = pack_blobs(G, W, R, 700 + 10 * si, device, fuzzed)
+            want = te.pack_rows_plain(blob, device)
+            for pattern in ("nnnnnnnn", "dddddddd", "ndcndcnd", "cdndcdnc"):
+                got = gp_kernels.pack_rows(mixed_leaves(blob, device, pattern), device)
+                diff.eq("gp_pack_rows", f"{shape}.{'fuzzed' if fuzzed else 'seeded'}."
+                        f"{pattern}", got, want)
+            for r in range(R):   # each row is pack_blob of that replica
+                one = te.Blob(*(torch.as_tensor(x[r], device=device) for x in blob))
+                diff.eq("gp_pack_rows", f"{shape}.row{r}", want[r], te.pack_blob(one))
+        on_card = mixed_leaves(blob, device, "dddddddd")
+        staged = gp_kernels.StagedPack(blob, device)
+        ms = graph_ms(staged.launch)
+        ms_events = cuda_ms(staged.launch, TIMING_ITERS)
+        ms_call = host_ms(lambda: gp_kernels.pack_rows(blob, device), TIMING_ITERS)
+        ms_stage = host_ms(lambda: gp_kernels.StagedPack(blob, device), TIMING_ITERS)
+        plain_ms = host_ms(lambda: te.pack_rows_plain(blob, device), TIMING_ITERS)
+        cat = lambda: torch.cat([x.reshape(R, -1) for x in on_card], dim=1)
+        library_ms = graph_ms(cat)
+        nbytes = pack_bytes(G, W, R)
+        res[shape] = {
+            "G": G, "W": W, "R": R, "ms": ms, "ms_events": ms_events,
+            "ms_call": ms_call, "ms_stage": ms_stage, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bytes": nbytes,
+            "bound_ms": nbytes / bw * 1e3,
+        }
+        log(f"pack_rows {shape} (G={G}, W={W}, R={R}): {ms:.6g} ms launch on the "
+            f"device ({ms_events:.6g} ms by events; bound {nbytes / bw * 1e3:.6g} ms, "
+            f"{nbytes} B); on the host's clock {ms_call:.6g} ms a call, "
+            f"{ms_stage:.6g} ms its staging; plain {plain_ms:.6g} ms, torch.cat "
+            f"of card-resident leaves {library_ms:.6g} ms")
+        del staged, blob, want, on_card
+        torch.cuda.empty_cache()
+    log(f"pack_rows parity: {diff.checked['gp_pack_rows']} checks bit-equal "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -670,6 +850,447 @@ def phase_state_transfer(device) -> dict:
         f"{steps} steps; {n_exec[0]} executed on all 3, equal hash chains; "
         f"launches {launches} ({res['seconds']:.1f} s)")
     return res
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the stepped reconfiguration harness; phase 8: the socket
+# deployment of the reconfiguration layer
+# ---------------------------------------------------------------------------
+
+
+def rc_run_requests(c, name, values, entry) -> dict:
+    """Propose ``values`` at active ``entry`` and step until all executed."""
+    done = {}
+    mgr = c.ars.managers[entry]
+    for v in values:
+        mgr.propose(name, v, callback=lambda rid, resp: done.setdefault(rid, resp))
+    for _ in range(40):
+        if len(done) == len(values):
+            return done
+        c.step()
+    fail(f"rc_stepped: only {len(done)}/{len(values)} of {name}'s requests executed")
+
+
+def phase_rc_stepped(device) -> dict:
+    """``ReconfigurableCluster`` on the card at the actives' and the
+    reconfigurators' shapes (``AR``, ``RC``): the create -> request ->
+    migrate -> delete -> re-create script of the JAX package's
+    ``tests/test_reconfiguration.py:80``, then its migration under a
+    seeded 30% loss of reconfiguration-plane messages (``:237``).  Every
+    manager's tick packs its gathered blobs with ``gp_pack_rows``."""
+    import numpy as np
+
+    from gigapaxos_tpu_torch.models.apps import HashChainApp
+    from gigapaxos_tpu_torch.ops import engine as te
+    from gigapaxos_tpu_torch.reconfiguration import active_replica as ar_mod
+    from gigapaxos_tpu_torch.reconfiguration import reconfigurator as rc_mod
+    from gigapaxos_tpu_torch.testing.rc_cluster import ReconfigurableCluster
+
+    ar_cfg = te.EngineConfig(*(AR[k] for k in ("G", "W", "K", "R")))
+    rc_cfg = te.EngineConfig(*(RC[k] for k in ("G", "W", "K", "R")))
+
+    def ack_of(c, kind, what, max_steps=120):
+        ack = c.wait_for(kind, max_steps=max_steps)
+        if not ack or not ack.get("ok"):
+            fail(f"rc_stepped: {what}: {ack}")
+        return ack
+
+    te.reset_launch_counts()
+    t0 = time.perf_counter()
+    c = ReconfigurableCluster(ar_cfg, rc_cfg, HashChainApp, device=device)
+    # each cluster step ticks every manager once
+    ticks = lambda c: sum(m._tick_no for m in c.ars.managers + c.rcs.managers)
+    try:
+        c.client_request("create_service", {"name": "svc", "actives": [0, 1, 2]}, rc=0)
+        ack = ack_of(c, "create_ack", "create")
+        if sorted(ack["actives"]) != [0, 1, 2] or ack["epoch"] != 0:
+            fail(f"rc_stepped: create acked {ack}")
+        c.client_request("request_actives", {"name": "svc"}, rc=1)
+        if sorted(ack_of(c, "actives_response", "request_actives")["actives"]) != [0, 1, 2]:
+            fail("rc_stepped: request_actives")
+        rc_run_requests(c, "svc", [f"r{i}" for i in range(5)], 0)
+        apps = [m.app for m in c.ars.managers]
+        if not apps[0].state["svc"] == apps[1].state["svc"] == apps[2].state["svc"] \
+                or "svc" in apps[3].state:
+            fail("rc_stepped: epoch 0 states disagree")
+        c.client_request("reconfigure", {"name": "svc", "new_actives": [1, 2, 3]})
+        ack = ack_of(c, "reconfigure_ack", "reconfigure")
+        if sorted(ack["actives"]) != [1, 2, 3] or ack["epoch"] != 1:
+            fail(f"rc_stepped: reconfigure acked {ack}")
+        c.run(30)
+        n1 = apps[1].n_executed["svc"]
+        if not apps[3].state["svc"] == apps[1].state["svc"] == apps[2].state["svc"]:
+            fail("rc_stepped: the new epoch did not resume from the final state")
+        if c.ars.managers[0].names.get("svc") is not None or c.ars.managers[1].old_epochs:
+            fail("rc_stepped: the old epoch was not dropped")
+        rc_run_requests(c, "svc", [f"s{i}" for i in range(4)], 1)
+        if apps[1].n_executed["svc"] != n1 + 4 or apps[3].state["svc"] != apps[1].state["svc"]:
+            fail("rc_stepped: epoch 1 requests")
+        c.client_request("delete_service", {"name": "svc"})
+        ack_of(c, "delete_ack", "delete")
+        c.run(5)
+        if any(c.ars.managers[i].names.get("svc") is not None for i in (1, 2, 3)) \
+                or any(r.rc_app.get_record("svc") is not None for r in c.reconfigurators):
+            fail("rc_stepped: delete left a row or a record")
+        c.client_request("create_service", {"name": "svc", "actives": [0, 2, 3]})
+        if sorted(ack_of(c, "create_ack", "re-create")["actives"]) != [0, 2, 3]:
+            fail("rc_stepped: re-create")
+        steps_script, ticks_script = c.ars.managers[0]._tick_no, ticks(c)
+    finally:
+        c.close()
+    t_script = time.perf_counter() - t0
+
+    # the migration under a lossy reconfiguration plane, with fast
+    # retransmits (as the reference test sets them)
+    classes = (rc_mod.StartEpochTask, rc_mod.StopEpochTask, rc_mod.DropEpochTask,
+               rc_mod.EpochCommitTask, rc_mod.LateStartTask, ar_mod.WaitEpochFinalState)
+    saved = [cls.__dict__.get("restart_period_s") for cls in classes]
+    for cls in classes:
+        cls.restart_period_s = 0.02
+    t1 = time.perf_counter()
+    c = ReconfigurableCluster(ar_cfg, rc_cfg, HashChainApp, device=device)
+    try:
+        for rc in c.reconfigurators:
+            rc.echo_probe_period_s = 0.0
+        rng = np.random.RandomState(7)
+        c.msg_filter = lambda dst, kind, body: rng.rand() > 0.3
+
+        def request_with_retry(kind, body, ack_kind, max_steps=60):
+            for _ in range(8):
+                c.client_request(kind, dict(body))
+                ack = c.wait_for(ack_kind, max_steps=max_steps)
+                if ack is not None:
+                    return ack
+            return None
+
+        ack = request_with_retry("create_service", {"name": "lossy", "actives": [0, 1, 2]},
+                                 "create_ack")
+        if not ack or not ack["ok"]:
+            fail(f"rc_stepped: lossy create: {ack}")
+        rc_run_requests(c, "lossy", ["a", "b", "c"], 1)
+        ack = request_with_retry("reconfigure", {"name": "lossy", "new_actives": [1, 2, 3]},
+                                 "reconfigure_ack", max_steps=100)
+        if not ack or not ack["ok"]:
+            fail(f"rc_stepped: lossy reconfigure: {ack}")
+        c.run(20)
+        apps = [m.app for m in c.ars.managers]
+        if apps[3].state["lossy"] != apps[1].state["lossy"]:
+            fail("rc_stepped: lossy migration diverged")
+        steps_lossy, ticks_lossy = c.ars.managers[0]._tick_no, ticks(c)
+    finally:
+        c.close()
+        for cls, v in zip(classes, saved):
+            if v is None:
+                del cls.restart_period_s
+            else:
+                cls.restart_period_s = v
+    launches = dict(te.LAUNCHES)
+    for k in ("gp_pack_rows", "gp_step", "gp_create_groups", "gp_kill_groups"):
+        if launches[k] <= 0:
+            fail(f"rc_stepped: {k} never launched: {launches}")
+    if launches["gp_pack_rows"] != ticks_script + ticks_lossy:
+        fail(f"rc_stepped: {launches['gp_pack_rows']} gp_pack_rows launches in "
+             f"{ticks_script + ticks_lossy} manager ticks")
+    res = {"steps_script": steps_script, "seconds_script": t_script,
+           "steps_lossy": steps_lossy,
+           "seconds_lossy": time.perf_counter() - t1, "launches": launches,
+           "ar": AR, "rc": RC}
+    log(f"rc_stepped: create/request/migrate/delete/re-create in "
+        f"{steps_script} steps ({t_script:.4f} s, "
+        f"{t_script / max(steps_script, 1) * 1e3:.6g} ms a step), lossy "
+        f"migration in {res['steps_lossy']} steps ({res['seconds_lossy']:.4f} s); "
+        f"launches {launches}")
+    return res
+
+
+def pct(xs, q: float) -> float:
+    import numpy as np
+
+    return float(np.percentile(np.asarray(xs) * 1e3, q)) if len(xs) else float("nan")
+
+
+def phase_reconfiguration(device) -> dict:
+    """The socket deployment: ``ReconfigurableNode`` AR0..AR3 and
+    RC0..RC2 in this process on loopback ports, configured by properties
+    alone (their own defaults: the actives' engine ENGINE_ROWS x
+    SLOT_WINDOW with K=8 and R=4, the reconfigurators' 64 rows; the card
+    is the default device), ``HashChainApp``, and
+    ``ReconfigurableAppClient.from_properties()``: batched and single
+    creates, requests, migrations with a stale-cache request each, and
+    deletes, each checked."""
+    import hashlib
+
+    import numpy as np
+
+    from gigapaxos_tpu_torch.clients.reconfigurable_client import ReconfigurableAppClient
+    from gigapaxos_tpu_torch.models.apps import HashChainApp
+    from gigapaxos_tpu_torch.ops import engine as te
+    from gigapaxos_tpu_torch.paxos_config import PC
+    from gigapaxos_tpu_torch.reconfigurable_node import ReconfigurableNode
+    from gigapaxos_tpu_torch.testing.ports import free_ports
+    from gigapaxos_tpu_torch.utils.config import Config
+    from gigapaxos_tpu_torch.utils.profiler import DelayProfiler
+
+    n_ar, n_rc = AR["R"], RC["R"]
+    ports = free_ports(n_ar + n_rc)
+    for i in range(n_ar):
+        Config.set(f"active.AR{i}", f"127.0.0.1:{ports[i]}")
+    for i in range(n_rc):
+        Config.set(f"reconfigurator.RC{i}", f"127.0.0.1:{ports[n_ar + i]}")
+    te.reset_launch_counts()
+    DelayProfiler.clear()
+    nodes = ([ReconfigurableNode(f"AR{i}", HashChainApp) for i in range(n_ar)]
+             + [ReconfigurableNode(f"RC{i}", HashChainApp) for i in range(n_rc)])
+    ars = [n.servers[0] for n in nodes[:n_ar]]
+    rcs = [n.servers[0] for n in nodes[n_ar:]]
+    shapes = {"ar": tuple(ars[0].cfg), "rc": tuple(rcs[0].cfg)}
+    if shapes != {"ar": tuple(AR[k] for k in "GWKR"), "rc": tuple(RC[k] for k in "GWKR")} \
+            or ars[0].manager.device.type != "cuda":
+        fail(f"reconfiguration: the nodes' defaults gave {shapes} on "
+             f"{ars[0].manager.device}")
+    client = None
+    t_phase = time.perf_counter()
+    step_log = lambda what: log(f"reconfiguration: [{time.perf_counter() - t_phase:.1f} s] "
+                                f"{what}")
+    try:
+        for n in nodes:
+            n.start()
+        client = ReconfigurableAppClient.from_properties()
+
+        # 1. a batch of creates, split per reconfigurator group
+        batch = [f"rcn{i}" for i in range(RC_BATCH_NAMES)]
+        t0 = time.perf_counter()
+        results = client.create_names(batch, timeout=240)
+        t_batch = time.perf_counter() - t0
+        step_log(f"{len(batch)} batched creates in {t_batch:.4f} s")
+        bad = [n for n in batch if not (results.get(n) or {}).get("ok")]
+        if bad:
+            fail(f"reconfiguration: {len(bad)} of {len(batch)} batched creates "
+                 f"failed, first {bad[0]}: {results.get(bad[0])}")
+        # 2. single creates, one at a time
+        lat_create = []
+        for i in range(RC_SINGLE_NAMES):
+            t0 = time.perf_counter()
+            ack = client.create_name(f"one{i}", timeout=60)
+            if ack and not ack.get("ok") and ack.get("reason") == "exists":
+                # the client's own retransmit found its first attempt's
+                # record still in flight (the client confirms by resolving
+                # the name, which is not yet possible): success once the
+                # name resolves
+                deadline = time.time() + 60
+                while time.time() < deadline:
+                    acts = client.request_actives(f"one{i}", timeout=10, force=True)
+                    if acts:
+                        ack = {"name": f"one{i}", "ok": True, "actives": acts,
+                               "existed": True}
+                        break
+                    time.sleep(0.25)
+            lat_create.append(time.perf_counter() - t0)
+            if not ack or not ack.get("ok"):
+                fail(f"reconfiguration: create one{i}: {ack}")
+        step_log(f"{RC_SINGLE_NAMES} single creates")
+        # 3. requests: RC_REQS_PER_NAME in sequence on each of RC_REQ_NAMES
+        # names, the names in parallel; every response is the next link of
+        # the name's hash chain
+        req_names = batch[:RC_REQ_NAMES]
+        chains = {nm: "" for nm in req_names}
+        lat_req, errors = [], []
+        lock = threading.Lock()
+
+        def chain(nm: str, tag: str, n: int) -> None:
+            h = chains[nm]
+            for k in range(n):
+                v = f"{tag}{k}"
+                t0 = time.perf_counter()
+                resp = client.send_request_sync(nm, v, timeout=120)
+                dt = time.perf_counter() - t0
+                h = hashlib.sha256((h + v).encode("utf-8")).hexdigest()
+                with lock:
+                    lat_req.append(dt)
+                    if resp != h[:16]:
+                        errors.append((nm, v, resp, h[:16]))
+            chains[nm] = h
+
+        def run_threads(target, items, *args) -> float:
+            threads = [threading.Thread(target=target, args=(it, *args)) for it in items]
+            t0 = time.perf_counter()
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join()
+            return time.perf_counter() - t0
+
+        wall_req = run_threads(chain, req_names, "q", RC_REQS_PER_NAME)
+        lat_main = list(lat_req)   # the stale-cache requests below are apart
+        step_log(f"{len(lat_main)} requests in {wall_req:.4f} s")
+        if errors:
+            fail(f"reconfiguration: {len(errors)} wrong responses, first {errors[0]}")
+        actives = {}
+        for nm in req_names:
+            acts = client.request_actives(nm, timeout=30, force=True)
+            if not acts:
+                fail(f"reconfiguration: {nm} did not resolve")
+            actives[nm] = sorted(acts)
+
+        def converged(names, what):
+            deadline = time.time() + 60
+            while time.time() < deadline:
+                if all(ars[a].manager.app.state.get(nm) == chains[nm]
+                       for nm in names for a in actives[nm]):
+                    return
+                time.sleep(0.1)
+            bad = [(nm, a) for nm in names for a in actives[nm]
+                   if ars[a].manager.app.state.get(nm) != chains[nm]]
+            fail(f"reconfiguration: {what}: {len(bad)} members' states differ, "
+                 f"first {bad[0]}")
+
+        converged(req_names, "after the requests")
+        step_log("members converged")
+        # 4. migrations onto a set with an active outside the current one
+        moved = req_names[:RC_MOVES]
+        lat_move, move_errors = [], []
+
+        def move(nm: str) -> None:
+            old = actives[nm]
+            outside = [a for a in range(n_ar) if a not in old][0]
+            new = sorted(old[1:] + [outside])
+            t0 = time.perf_counter()
+            ack = client.reconfigure(nm, new, timeout=240)
+            dt = time.perf_counter() - t0
+            with lock:
+                lat_move.append(dt)
+                if not ack or not ack.get("ok") or sorted(ack["actives"]) != new:
+                    move_errors.append((nm, new, ack))
+            actives[nm + "/departed"] = [old[0]]
+            actives[nm] = new
+            if ack and ack.get("ok"):
+                # the old epoch's final stop request executes on the app
+                # too: the chain carries its value
+                stop = json.dumps({"__stop__": int(ack["epoch"]) - 1})
+                chains[nm] = hashlib.sha256((chains[nm] + stop).encode("utf-8")).hexdigest()
+
+        wall_move = run_threads(move, moved)
+        step_log(f"{len(moved)} migrations in {wall_move:.4f} s")
+        if move_errors:
+            fail(f"reconfiguration: {len(move_errors)} migrations failed, first "
+                 f"{move_errors[0]}")
+        for nm in moved:   # the departed active forgets the name
+            gone = actives[nm + "/departed"][0]
+            deadline = time.time() + 60
+            while ars[gone].manager.names.get(nm) is not None and time.time() < deadline:
+                time.sleep(0.1)
+            if ars[gone].manager.names.get(nm) is not None:
+                fail(f"reconfiguration: AR{gone} still hosts {nm} after the migration")
+        # a request per name from a stale actives cache (the departed
+        # active): unknown name -> re-resolve -> the new epoch answers
+        for nm in moved:
+            with client._lock:
+                client._actives_cache[nm] = (time.time() + 60, actives[nm + "/departed"])
+        run_threads(chain, moved, "m", 1)
+        if errors:
+            fail(f"reconfiguration: a stale-cache request was answered wrong: {errors[0]}")
+        converged(moved, "after the migrations")
+        step_log("stale-cache requests answered, members converged")
+        # 5. deletes
+        lat_delete, del_errors = [], []
+
+        def delete(nm: str) -> None:
+            t0 = time.perf_counter()
+            ack = client.delete_name(nm, timeout=240)
+            with lock:
+                lat_delete.append(time.perf_counter() - t0)
+                if not ack or not ack.get("ok"):
+                    del_errors.append((nm, ack))
+
+        deleted = moved[:RC_DELETES]
+        wall_delete = run_threads(delete, deleted)
+        step_log(f"{len(deleted)} deletes in {wall_delete:.4f} s")
+        if del_errors:
+            fail(f"reconfiguration: {len(del_errors)} deletes failed, first {del_errors[0]}")
+        def hosted():
+            out = [(nm, f"AR{i}") for nm in deleted for i in range(n_ar)
+                   if ars[i].manager.names.get(nm) is not None]
+            return out + [(nm, f"RC{j}") for nm in deleted for j in range(n_rc)
+                          if rcs[j].rc_app.get_record(nm) is not None]
+
+        def where(nm, at):
+            if at.startswith("RC"):
+                return (nm, at, rcs[int(at[2:])].rc_app.get_record(nm).to_json())
+            m = ars[int(at[2:])].manager
+            row = m.names.get(nm)
+            return (nm, at, row, m.current_epoch(nm), m.is_stopped(nm),
+                    row in m.pending_rows, int(m._np("exec_slot")[row]),
+                    int(m._np("member_mask")[row]),
+                    [int(a.manager._np("exec_slot")[row]) for a in ars])
+
+        # a member that had not executed the epoch's stop when its peers
+        # dropped the group is freed by the active replica's stranded-row
+        # probe, which runs once a deactivation period
+        patience = 3 * Config.get_float(PC.DEACTIVATION_PERIOD_S)
+        t_del = time.perf_counter()
+        left, shown = hosted(), 0.0
+        while left and time.perf_counter() - t_del < patience:
+            if time.perf_counter() - t_del >= shown:
+                step_log(f"{len(left)} (name, node) still hosting a deleted name: "
+                         f"{[where(nm, at) for nm, at in left[:3]]}")
+                shown += 20.0
+            time.sleep(0.5)
+            left = hosted()
+        if left:
+            fail(f"reconfiguration: deleted names still hosted after {patience} s: "
+                 f"{[where(nm, at) for nm, at in left[:4]]}")
+        t_freed = time.perf_counter() - t_del
+        step_log(f"every deleted name freed on every member {t_freed:.4f} s after "
+                 f"the last delete ack")
+        launches = dict(te.LAUNCHES)
+        for k in ("gp_step", "gp_make_blob", "gp_create_groups", "gp_kill_groups"):
+            if launches[k] <= 0:
+                fail(f"reconfiguration: {k} never launched: {launches}")
+        roles = {}
+        for role, servers in (("active", ars), ("reconfigurator", rcs)):
+            roles[role] = [
+                {"ticks": s._tick, "sent": s.transport.n_sent,
+                 "rcvd": s.transport.n_rcvd, "dropped": s.transport.n_dropped,
+                 "engine_step_s": s.manager.last_engine_step_s,
+                 "launches": dict(s.manager.kernel_launches)}
+                for s in servers
+            ]
+        n_req = len(lat_main)
+        res = {
+            "names_batch": len(batch), "batch_seconds": t_batch,
+            "creates_per_s": len(batch) / t_batch,
+            "create_p50_ms": pct(lat_create, 50), "create_p99_ms": pct(lat_create, 99),
+            "requests": n_req, "req_per_s": RC_REQ_NAMES * RC_REQS_PER_NAME / wall_req,
+            "req_p50_ms": pct(lat_main, 50), "req_p99_ms": pct(lat_main, 99),
+            "moves": len(moved), "move_p50_ms": pct(lat_move, 50),
+            "move_p99_ms": pct(lat_move, 99), "move_wall_s": wall_move,
+            "deletes": len(deleted), "delete_p50_ms": pct(lat_delete, 50),
+            "delete_p99_ms": pct(lat_delete, 99), "delete_wall_s": wall_delete,
+            "freed_after_delete_s": t_freed,
+            "launches": launches, "roles": roles, "ar": AR, "rc": RC,
+            "seconds": time.perf_counter() - t_phase,
+        }
+        for role, per in roles.items():
+            log(f"reconfiguration {role}s: {per}")
+        log(f"reconfiguration: DelayProfiler (this process, every role) "
+            f"{DelayProfiler.get_stats()}")
+        log(f"reconfiguration: {len(batch)} batched creates in {t_batch:.4f} s "
+            f"({res['creates_per_s']:.6g} creates/s); {RC_SINGLE_NAMES} single creates "
+            f"p50 {res['create_p50_ms']:.6g} ms p99 {res['create_p99_ms']:.6g} ms; "
+            f"{n_req} requests (+{len(moved)} stale-cache) over {RC_REQ_NAMES} names "
+            f"correct, {res['req_per_s']:.6g} req/s, p50 {res['req_p50_ms']:.6g} ms "
+            f"p99 {res['req_p99_ms']:.6g} ms; {len(moved)} migrations in parallel "
+            f"p50 {res['move_p50_ms']:.6g} ms p99 {res['move_p99_ms']:.6g} ms; "
+            f"{len(deleted)} deletes p50 {res['delete_p50_ms']:.6g} ms p99 "
+            f"{res['delete_p99_ms']:.6g} ms; launches {launches} "
+            f"({res['seconds']:.1f} s)")
+        return res
+    finally:
+        if client is not None:
+            client.close()
+        for n in nodes:
+            n.stop()
+        Config.clear()
 
 
 # ---------------------------------------------------------------------------
@@ -1032,10 +1653,15 @@ def phase_step_shapes(diff: Diff, device, bw: float) -> dict:
         heard = torch.ones(R, dtype=torch.bool, device=device)
         out_st = te.EngineState(*(torch.empty_like(x) for x in st))
         heat = torch.zeros(G, dtype=torch.int32, device=device)
-        ms = cuda_ms(lambda: gp_kernels.step(
+        launch = lambda: gp_kernels.step(
             st, gvec, heard, req[0], want[0], 0, cfg, with_blob=True,
-            out_state=out_st, heat=heat, heat_out=heat), TIMING_ITERS)
-        # the same launch with the wrapper allocating the new state (what
+            out_state=out_st, heat=heat, heat_out=heat)
+        # the launch on the device (a CUDA graph of launches), and by the
+        # events around a loop of wrapper calls (which reads the wrapper's
+        # host work at small shapes)
+        ms = graph_ms(launch)
+        ms_events = cuda_ms(launch, TIMING_ITERS)
+        # the same loop with the wrapper allocating the new state (what
         # make_step does): the caching allocator's cost per step
         ms_fresh = cuda_ms(lambda: gp_kernels.step(
             st, gvec, heard, req[0], want[0], 0, cfg, with_blob=True,
@@ -1048,18 +1674,22 @@ def phase_step_shapes(diff: Diff, device, bw: float) -> dict:
             te.pack_blob(te.make_blob_plain(p_st))
 
         plain_ms = cuda_ms(plain, 3)
-        blob_ms = cuda_ms(lambda: gp_kernels.make_blob_vec(st), TIMING_ITERS)
+        blob_ms = graph_ms(lambda: gp_kernels.make_blob_vec(st))
+        blob_ms_events = cuda_ms(lambda: gp_kernels.make_blob_vec(st), TIMING_ITERS)
         blob_plain_ms = cuda_ms(lambda: te.pack_blob(te.make_blob_plain(st)), 5)
         res[shape] = {
-            "shape": dims, "ms": ms, "ms_fresh": ms_fresh, "plain_ms": plain_ms,
+            "shape": dims, "ms": ms, "ms_events": ms_events, "ms_fresh": ms_fresh,
+            "plain_ms": plain_ms, "make_blob_ms_events": blob_ms_events,
             "bound_ms": step_bytes(G, W, K, R) / bw * 1e3,
             "make_blob_ms": blob_ms, "make_blob_plain_ms": blob_plain_ms,
             "make_blob_bound_ms": blob_bytes(G, W) / bw * 1e3,
         }
         r = res[shape]
-        log(f"{shape} shape gp_step: {ms:.6g} ms into a preallocated state, "
-            f"{ms_fresh:.6g} ms into a fresh one (bound {r['bound_ms']:.6g} ms, "
-            f"plain {plain_ms:.6g} ms); gp_make_blob {blob_ms:.6g} ms (bound "
+        log(f"{shape} shape gp_step: {ms:.6g} ms on the device into a "
+            f"preallocated state ({ms_events:.6g} ms by events around a loop, "
+            f"{ms_fresh:.6g} ms into a fresh one; bound {r['bound_ms']:.6g} ms, "
+            f"plain {plain_ms:.6g} ms); gp_make_blob {blob_ms:.6g} ms on the "
+            f"device ({blob_ms_events:.6g} ms by events; bound "
             f"{r['make_blob_bound_ms']:.6g} ms, plain {blob_plain_ms:.6g} ms)")
         del states, cases, st, gvec, out_st, g
         torch.cuda.empty_cache()
@@ -1070,9 +1700,14 @@ def phase_step_shapes(diff: Diff, device, bw: float) -> dict:
 
 
 def kernels_line(diff: Diff, head: dict, step_t: dict, life: dict, dens: dict,
-                 xfer: dict, srv: dict) -> list:
+                 xfer: dict, srv: dict, pack: dict, rcs: dict, rcn: dict) -> list:
     """The kernels line's entries, from the phases' results."""
     srv_t, den_t = step_t["server"], step_t["density"]
+    per_path = {"density": dens["launches_total"], "state_transfer": xfer["launches"],
+                "server": srv["launches"], "rc_stepped": rcs["launches"],
+                "reconfiguration": rcn["launches"]}
+    on_paths = lambda name: {p: per_path[p][name] for p in per_path}
+    at_shape = lambda t, *keys: {k: t[k] for k in ("shape",) + keys}
     kernels = [
         {
             "name": "gp_step", "route": "cuda",
@@ -1080,9 +1715,11 @@ def kernels_line(diff: Diff, head: dict, step_t: dict, life: dict, dens: dict,
             "replaces": "gigapaxos_tpu/ops/engine.py:380",
             "launches": srv["launches"]["gp_step"],
             "max_abs_err": diff.max_abs["gp_step"],
+            "launches_by_path": on_paths("gp_step"),
             "ms": srv_t["ms"], "plain_ms": srv_t["plain_ms"],
             "bound_ms": srv_t["bound_ms"], "bound_by": "bytes",
-            "library_ms": None, "ms_fresh_state": srv_t["ms_fresh"],
+            "library_ms": None, "ms_events": srv_t["ms_events"],
+            "ms_fresh_state": srv_t["ms_fresh"],
             "shape": SERVER, "comparisons": diff.checked["gp_step"],
             "headline": {
                 "launches_steady": head["arms"]["steady"]["launches"]["gp_step"],
@@ -1095,14 +1732,18 @@ def kernels_line(diff: Diff, head: dict, step_t: dict, life: dict, dens: dict,
             "density_shape": {
                 "shape": den_t["shape"],
                 "launches": dens["launches_total"]["gp_step"],
-                **{k: den_t[k] for k in ("ms", "ms_fresh", "bound_ms", "plain_ms")},
+                **{k: den_t[k] for k in ("ms", "ms_events", "ms_fresh", "bound_ms",
+                                         "plain_ms")},
             },
+            **{f"{p}_shape": at_shape(step_t[p], "ms", "ms_events", "ms_fresh",
+                                      "bound_ms", "plain_ms") for p in ("ar", "rc")},
         },
         {
             "name": "gp_make_blob", "route": "cuda",
             "source": "gigapaxos_tpu_torch/csrc/gp_step.cu",
             "replaces": "gigapaxos_tpu/ops/engine.py:277",
             "launches": srv["launches"]["gp_make_blob"],
+            "launches_by_path": on_paths("gp_make_blob"),
             "max_abs_err": diff.max_abs["gp_make_blob"],
             "ms": srv_t["make_blob_ms"], "plain_ms": srv_t["make_blob_plain_ms"],
             "bound_ms": srv_t["make_blob_bound_ms"], "bound_by": "bytes",
@@ -1120,13 +1761,13 @@ def kernels_line(diff: Diff, head: dict, step_t: dict, life: dict, dens: dict,
                 "ms": den_t["make_blob_ms"], "plain_ms": den_t["make_blob_plain_ms"],
                 "bound_ms": den_t["make_blob_bound_ms"],
             },
+            **{f"{p}_shape": at_shape(step_t[p], "make_blob_ms", "make_blob_ms_events",
+                                      "make_blob_plain_ms", "make_blob_bound_ms")
+               for p in ("ar", "rc")},
         },
     ]
-    per_path = {"density": dens["launches_total"], "state_transfer": xfer["launches"],
-                "server": srv["launches"]}
     for name, _fn, ref, path in LIFE_KERNELS:
         t_srv, t_head = life[name]["server"], life[name]["headline"]
-        on_paths = {p: per_path[p][name] for p in per_path}
         kernels.append({
             "name": name, "route": "cuda",
             "source": "gigapaxos_tpu_torch/csrc/gp_lifecycle.cu",
@@ -1135,22 +1776,45 @@ def kernels_line(diff: Diff, head: dict, step_t: dict, life: dict, dens: dict,
             # only tests use count their launches in the parity phase
             "launches": life[name]["parity_launches"] if path == "parity"
             else per_path[path][name],
-            "launches_from": path, "launches_by_path": on_paths,
+            "launches_from": path, "launches_by_path": on_paths(name),
             "max_abs_err": diff.max_abs[name],
             "ms": t_srv["ms"], "plain_ms": t_srv["plain_ms"],
             "bound_ms": t_srv["bound_ms"], "bound_by": "bytes",
-            "library_ms": t_srv["library_ms"], "ms_call": t_srv["ms_call"],
-            "ms_stage": t_srv["ms_stage"],
+            "library_ms": t_srv["library_ms"], "ms_events": t_srv["ms_events"],
+            "ms_call": t_srv["ms_call"], "ms_stage": t_srv["ms_stage"],
             "shape": {"G": t_srv["G"], "W": t_srv["W"], "N": t_srv["N"]},
             "comparisons": diff.checked[name],
-            "headline": {k: t_head[k] for k in
-                         ("G", "W", "N", "ms", "ms_call", "ms_stage", "plain_ms",
-                          "library_ms", "bound_ms")},
+            **{p: {k: life[name][p][k] for k in
+                   ("G", "W", "N", "ms", "ms_events", "ms_call", "ms_stage",
+                    "plain_ms", "library_ms", "bound_ms")}
+               for p in ("headline", "rc")},
         })
+    t_pack = pack["ar4"]
+    kernels.append({
+        "name": "gp_pack_rows", "route": "cuda",
+        "source": "gigapaxos_tpu_torch/csrc/gp_pack_rows.cu",
+        "replaces": "gigapaxos_tpu/manager.py:88",
+        "launches": rcs["launches"]["gp_pack_rows"], "launches_from": "rc_stepped",
+        "launches_by_path": on_paths("gp_pack_rows"),
+        "max_abs_err": diff.max_abs["gp_pack_rows"],
+        "ms": t_pack["ms"], "plain_ms": t_pack["plain_ms"],
+        "bound_ms": t_pack["bound_ms"], "bound_by": "bytes",
+        "library_ms": t_pack["library_ms"], "ms_events": t_pack["ms_events"],
+        "ms_call": t_pack["ms_call"], "ms_stage": t_pack["ms_stage"],
+        "shape": {k: t_pack[k] for k in ("G", "W", "R")},
+        "comparisons": diff.checked["gp_pack_rows"],
+        **{p: pack[p] for p in ("ar3", "rc")},
+    })
     return kernels
 
 
 def main() -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="the port's chip smoke (one card)")
+    ap.add_argument("--phases", help="comma-separated subset of phases to run "
+                    "(no kernels or device line is printed); default: all")
+    args = ap.parse_args()
     try:
         import torch
     except ImportError:
@@ -1192,30 +1856,46 @@ def main() -> int:
     stamp = lambda name: log(
         f"[{time.perf_counter() - t_start:.1f} s] phase {name}"
     )
-    stamp("parity")
-    phase_parity(diff, device)
-    stamp("lifecycle parity and timing")
-    life = phase_lifecycle(diff, device, bw)
-    stamp("headline")
-    head = phase_headline(diff, device, bw)
-    # parity and timings at the server's and the density path's shapes
-    # first: they do not count launches
-    stamp("step-shape parity and timing")
-    step_t = phase_step_shapes(diff, device, bw)
-    stamp("density")
-    dens = phase_density(device)
-    stamp("state transfer")
-    xfer = phase_state_transfer(device)
-    stamp("server")
-    srv = phase_server(device)
+    # parity and timings first: they do not count launches; then every
+    # main path, each with the counts set to 0 just before it
+    phases = [
+        ("parity", lambda: phase_parity(diff, device)),
+        ("lifecycle", lambda: phase_lifecycle(diff, device, bw)),
+        ("pack_rows", lambda: phase_pack_rows(diff, device, bw)),
+        ("headline", lambda: phase_headline(diff, device, bw)),
+        ("step_shapes", lambda: phase_step_shapes(diff, device, bw)),
+        ("density", lambda: phase_density(device)),
+        ("state_transfer", lambda: phase_state_transfer(device)),
+        ("server", lambda: phase_server(device)),
+        ("rc_stepped", lambda: phase_rc_stepped(device)),
+        ("reconfiguration", lambda: phase_reconfiguration(device)),
+    ]
+    only = [p for p in (args.phases or "").split(",") if p]
+    unknown = set(only) - {name for name, _ in phases}
+    if unknown:
+        fail(f"unknown phases {sorted(unknown)}")
+    out = {}
+    for name, run in phases:
+        if only and name not in only:
+            continue
+        stamp(name)
+        out[name] = run()
     stamp("report")
+    if only:
+        # a partial run (for iterating on some phases) reports nothing
+        log(f"partial run of {only} done; no kernels or device line")
+        return 0
 
-    # 7. report
-    kernels = kernels_line(diff, head, step_t, life, dens, xfer, srv)
+    # report
+    kernels = kernels_line(diff, out["headline"], out["step_shapes"], out["lifecycle"],
+                           out["density"], out["state_transfer"], out["server"],
+                           out["pack_rows"], out["rc_stepped"], out["reconfiguration"])
     for k in kernels:
         if k["launches"] <= 0:
             fail(f"{k['name']}: no launch on the "
                  f"{k.get('launches_from', 'server')} path")
+    head, srv, dens, xfer = out["headline"], out["server"], out["density"], out["state_transfer"]
+    rcs, rcn, pack = out["rc_stepped"], out["reconfiguration"], out["pack_rows"]["ar4"]
     ab, ch = dens["ablation"], dens["churn"]
     log(f"summary: headline steady {head['arms']['steady']['dec_per_s']:.6g} "
         f"dec/s, failover {head['arms']['failover']['dec_per_s']:.6g} dec/s; "
@@ -1224,7 +1904,11 @@ def main() -> int:
         f"{dens['boot']['names_per_s']:.6g} names/s, wake {ab['per_name_us']:.6g} "
         f"us/name per-name vs {ab['batched_us_per_name']:.6g} batched, churn "
         f"{ch['req_per_s']:.6g} req/s; state transfer jumped "
-        f"{xfer['gap_slots']} slots; on {smi_line}")
+        f"{xfer['gap_slots']} slots; reconfiguration {rcn['creates_per_s']:.6g} "
+        f"creates/s, {rcn['req_per_s']:.6g} req/s, migrate p50 "
+        f"{rcn['move_p50_ms']:.6g} ms; rc_stepped {rcs['steps_script']} + "
+        f"{rcs['steps_lossy']} steps; gp_pack_rows {pack['ms']:.6g} ms vs bound "
+        f"{pack['bound_ms']:.6g} ms; on {smi_line}")
     print(smi_line, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

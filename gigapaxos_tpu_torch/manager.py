@@ -85,19 +85,6 @@ from .utils.profiler import DelayProfiler
 # that harness caches blob views aliasing the live state across ticks.
 
 
-def _pack_rows(gathered: Blob, device) -> torch.Tensor:
-    """Blob of [R, ...] leaves (tensors or numpy) -> [R, NB] packed rows on
-    ``device`` (Blob._fields order, C ravel per leaf — each row identical
-    to the packed blob of that replica): the Blob-exchange tick packs its
-    gathered blobs through this to reach the unified packed step."""
-    return pack_rows(Blob(*(
-        torch.as_tensor(x, dtype=torch.int32, device=device)
-        if not isinstance(x, torch.Tensor)
-        else x.to(device=device, dtype=torch.int32)
-        for x in gathered
-    )))
-
-
 def _dev(x, dtype, device) -> torch.Tensor:
     """A host array (or tensor) -> a tensor on the manager's device."""
     if isinstance(x, torch.Tensor):
@@ -1338,10 +1325,14 @@ class PaxosManager:
         self.pending_exec.pop(row, None)
         return True
 
-    def kill_epoch(self, name: str, epoch: int) -> bool:
+    def kill_epoch(self, name: str, epoch: int, final: bool = False) -> bool:
         """Free a stopped prior epoch's row (DropEpochFinalState analog:
         the reconfigurator garbage-collects the old epoch once the new one
-        is running)."""
+        is running).  ``final``: the caller knows a majority executed the
+        epoch's stop (a reconfigurator's drop), so this member's current
+        row is freed even if it has not executed the stop itself — once
+        its peers drop their rows it never could (the JAX package's
+        manager refuses, and such a laggard keeps its row forever)."""
         with self._state_lock:
             self._await_step_locked()
             # a paused group being deleted has no row — drop the record
@@ -1367,7 +1358,7 @@ class PaxosManager:
                     return False
                 if int(self._np("version")[cur]) != epoch:
                     return False
-                if not int(self._np("stopped")[cur]):
+                if not int(self._np("stopped")[cur]) and not final:
                     return False  # never kill a live, unstopped group
                 return self._kill_locked(name)
             del self.row_name[row]
@@ -3154,7 +3145,7 @@ class PaxosManager:
         # donate=False — the test-cluster harness caches blob views that
         # alias the live state across ticks
         dev = self.device
-        gvec = _pack_rows(gathered, dev)
+        gvec = pack_rows(gathered, dev, launch_log=self.kernel_launches)
         t0 = time.monotonic()
         new_state, out_vec, blob_vec, new_heat = self._tick_step(
             self.state, gvec, _dev(heard, torch.bool, dev),

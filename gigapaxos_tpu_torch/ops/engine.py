@@ -113,6 +113,8 @@ LAUNCHES = {
     # group lifecycle (csrc/gp_lifecycle.cu, ops/lifecycle.py)
     "gp_create_groups": 0, "gp_kill_groups": 0, "gp_jump_rows": 0,
     "gp_restore_paused_rows": 0, "gp_restore_rows": 0, "gp_extract_rows": 0,
+    # the Blob-exchange tick's row pack (csrc/gp_pack_rows.cu)
+    "gp_pack_rows": 0,
 }
 
 
@@ -717,10 +719,23 @@ def pack_blob(blob: Blob) -> torch.Tensor:
     return torch.cat([leaf.reshape(-1) for leaf in blob])
 
 
-def pack_rows(blob: Blob) -> torch.Tensor:
-    """Blob of [R, ...] leaves -> [R, NB] packed rows (each row equal to
-    pack_blob of that replica's blob)."""
-    return torch.cat([x.reshape(x.shape[0], -1) for x in blob], dim=1)
+def _rows_device(blob: Blob, device) -> torch.device:
+    if device is not None:
+        return torch.device(device)
+    return next((x.device for x in blob if isinstance(x, torch.Tensor)),
+                torch.device("cpu"))
+
+
+def pack_rows_plain(blob: Blob, device=None) -> torch.Tensor:
+    """Blob of [R, ...] leaves (tensors or numpy) -> [R, NB] packed rows
+    on ``device`` (default: the first tensor leaf's, else the CPU), each
+    row equal to pack_blob of that replica's blob: every leaf moved to
+    the device, then ``torch.cat``."""
+    dev = _rows_device(blob, device)
+    return torch.cat([
+        torch.as_tensor(x, dtype=_I32, device=dev).reshape(x.shape[0], -1)
+        for x in blob
+    ], dim=1)
 
 
 def pack_out(out: StepOutputs) -> torch.Tensor:
@@ -785,10 +800,26 @@ def _cfg_of(state: EngineState, n_replicas: int, req_lanes: int) -> EngineConfig
 # ---------------------------------------------------------------------------
 
 
-def on_card(t: torch.Tensor) -> bool:
-    """The one dispatch predicate: kernels for CUDA tensors, the plain
-    version for CPU ones."""
-    return t.is_cuda
+def on_card(t) -> bool:
+    """The one dispatch predicate: kernels for CUDA tensors (or a CUDA
+    ``torch.device``), the plain version for CPU ones."""
+    return (t if isinstance(t, torch.device) else t.device).type == "cuda"
+
+
+def pack_rows(blob: Blob, device=None,
+              launch_log: Optional[dict] = None) -> torch.Tensor:
+    """Blob of [R, ...] leaves (tensors or numpy) -> [R, NB] packed rows
+    on ``device`` (default: the first tensor leaf's, else the CPU): the
+    Blob-exchange tick's gather matrix.  CPU: :func:`pack_rows_plain`.
+    CUDA: the ``gp_pack_rows`` kernel (host leaves go up as they are,
+    card-resident ones are read in place; ``launch_log``: an optional
+    per-caller launch counter)."""
+    dev = _rows_device(blob, device)
+    if not on_card(dev):
+        return pack_rows_plain(blob, dev)
+    from . import gp_kernels
+
+    return gp_kernels.pack_rows(blob, dev, launch_log)
 
 
 def make_blob(state: EngineState) -> Blob:

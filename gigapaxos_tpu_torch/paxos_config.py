@@ -29,6 +29,9 @@ class PC(FlagEnum):
     # promises an unimplemented capability is worse than none)
     ENGINE_ROWS = 65536
     SLOT_WINDOW = 16                     # W: in-flight slots per group (ring buffer)
+    # the torch device a CLI node's engine runs on ("" = the CUDA card,
+    # which must be present; "cpu" = the plain PyTorch engine)
+    DEVICE = ""
 
     # ---- batching (ref: RequestBatcher / PaxosPacketBatcher) ----------
     BATCHING_ENABLED = True

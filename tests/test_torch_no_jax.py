@@ -5,7 +5,11 @@ A fresh interpreter installs a ``sys.meta_path`` finder that refuses
 submodules — a prefix match would also refuse ``gigapaxos_tpu_torch``),
 imports every module of ``gigapaxos_tpu_torch``, and checks that
 ``make_step(cfg)`` with no ``device`` raises when no CUDA card is
-present (no silent fallback to the CPU).
+present (no silent fallback to the CPU).  With the finder still on, it
+then loads what the port's default configuration names by dotted path
+(the reconfigurators' demand profile and placement policy, the CLI
+node's default app): an ``importlib`` default that named the JAX package
+would be refused there, though no module imports it.
 """
 
 import pathlib
@@ -56,6 +60,21 @@ if not torch.cuda.is_available():
         pass
     else:
         raise AssertionError("make_step(cfg) without a card did not raise")
+
+from gigapaxos_tpu_torch.reconfigurable_node import app_class
+from gigapaxos_tpu_torch.reconfiguration.demand import AggregateDemandProfiler
+from gigapaxos_tpu_torch.reconfiguration.placement import PlacementEngine
+
+loaded = [AggregateDemandProfiler().profile_cls, type(PlacementEngine().policy),
+          app_class()]
+for cls in loaded:
+    assert cls.__module__.startswith("gigapaxos_tpu_torch."), cls
+leaked = sorted(
+    k for k in sys.modules
+    if any(k == b or k.startswith(b + ".") for b in BLOCKED)
+)
+assert not leaked, leaked
+print("DEFAULTS", " ".join(f"{c.__module__}.{c.__name__}" for c in loaded))
 print("IMPORTED", len(mods))
 """
 
@@ -67,7 +86,12 @@ def test_port_imports_without_jax():
     )
     assert r.returncode == 0, r.stdout + r.stderr
     n = int(r.stdout.split("IMPORTED")[1].split()[0])
-    assert n >= 45, r.stdout
+    assert n >= 60, r.stdout
+    assert r.stdout.split("DEFAULTS")[1].split()[:3] == [
+        "gigapaxos_tpu_torch.reconfiguration.demand.DemandProfile",
+        "gigapaxos_tpu_torch.reconfiguration.placement.ProximateBalancePolicy",
+        "gigapaxos_tpu_torch.models.apps.NoopPaxosApp",
+    ], r.stdout
 
 
 def test_port_sources_do_not_name_the_reference():

@@ -161,11 +161,14 @@ def _emulate_lifecycle(monkeypatch) -> None:
 
 def _emulate_all(monkeypatch) -> None:
     """The whole kernel path on the CPU: the engine's wrappers as
-    ``test_torch_spmd`` emulates them, plus the lifecycle launch."""
+    ``test_torch_spmd`` emulates them, plus the lifecycle launch and the
+    Blob-exchange tick's row-pack launch (``test_torch_pack_rows``)."""
+    from test_torch_pack_rows import _emulated_launch as _emulated_pack_launch
     from test_torch_spmd import _emulate_kernels
 
     _emulate_kernels(monkeypatch)
     monkeypatch.setattr(gp_kernels, "_lifecycle_launch", _emulated_launch)
+    monkeypatch.setattr(gp_kernels, "_pack_launch", _emulated_pack_launch)
 
 
 def _random_state(rng, G, W):
