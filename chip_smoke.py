@@ -10,12 +10,18 @@ Phases (any failure exits nonzero):
 1. build   — compile ``gigapaxos_tpu_torch/csrc/gp_step.cu``,
              ``csrc/gp_lifecycle.cu`` and ``csrc/gp_pack_rows.cu`` for
              sm_90a, one nvcc each, in parallel; print the build time,
-             ptxas' resource report and the card's name and power limit.
+             ptxas' registers, spills and static shared memory for every
+             kernel (each instantiation of gp_step) and the card's name
+             and power limit.
 2. parity  — each kernel against its plain PyTorch version on the card,
              bit for bit, on seeded states (simulator steps plus lane fuzz
-             with wrap +-15 and ballot-delta saturation) for W in {8, 16,
-             32}, R in {3, 5}, K <= W, both make_step faces with N in
-             {1, 4} (heat on the packed face, donation on and off).
+             with wrap +-15 and ballot-delta saturation) at every
+             instantiation of gp_step (W in {8, 16, 32} with R in {1..5},
+             and the generic one at W=4, R=7), K <= W, at G=4,100 (bulk
+             copies, a ragged last tile) and G=1,001 (unaligned leaf
+             offsets: plain loads), both make_step faces with N in {1, 4}
+             (heat on the packed face, donation on and off); the C
+             launcher's plan against the wrapper's.
    lifecycle — every lifecycle kernel (create, kill, jump, restore_paused,
              restore_rows, extract_rows) against its plain version, bit
              for bit, on seeded random states (NULL and negative words,
@@ -27,23 +33,27 @@ Phases (any failure exits nonzero):
              (on the device: a CUDA graph of launches; and by events
              around a loop), full call time, plain and index_copy times.
    pack_rows — gp_pack_rows against pack_rows_plain, bit for bit, at
-             (G=65,536, W=16, R=3), (65,536, 16, 4) and (64, 16, 3) on
-             seeded and fuzzed blobs with numpy, card and CPU leaves
-             mixed; then its launch time (device and events), the full
-             call and its staging on the host's clock, the plain version
-             and torch.cat of card-resident leaves, beside its bound.
+             (G=65,536, W=16, R=3), (65,536, 16, 4), (64, 16, 3) and
+             (64, 16, 4) on seeded and fuzzed blobs with numpy, card and
+             CPU leaves mixed; then its launch time (device and events),
+             the full call and its staging on the host's clock, the plain
+             version and torch.cat of card-resident leaves, beside its
+             bound; at G=64 the kernel and torch.cat again, in turns.
 3. headline — the stacked face at G=1,048,576, W=32, K=16, R=3 under the
              bench's synthetic load, a steady arm and a failover arm
              (leadership rotation); a few steps of the plain version at
              this width beside the kernel, bit for bit; the RSM invariant
              on the kernel's states; committed decisions/s, ms per
-             replica-step against the bandwidth bound, peak memory.
+             replica-step on the device (a CUDA graph of launches) and its
+             share of the bandwidth bound, the same on a quiet state
+             (nothing decided), peak memory.
    step shapes — the manager's dispatch step (heat in place and fresh)
              and gp_make_blob against the plain version, bit for bit, for
              every replica id, at the server's shape (G=65,536, W=16, K=8,
              R=3), the density path's (G=65,536, W=16, K=4, R=1), the
              actives' (G=65,536, W=16, K=8, R=4) and the reconfigurators'
-             (G=64, W=16, K=8, R=3); then their times (device and events).
+             (G=64, W=16, K=8, R=3); then their times (device and events),
+             each step's share of its bound and its launch plan.
 4. density — testing/density.py on the card: 1,048,576 names on 65,536
              rows (W=16, K=4, one replica, packed spill in a temporary
              directory): boot by batched create + hibernate, the per-name
@@ -99,9 +109,15 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 # sizes (the chip run uses these; tests of this script shrink them)
-PARITY_G = 1000            # not a multiple of any groups-per-block count
-PARITY_SHAPES = [          # (W, R, K)
+# 4100: bulk copies with a ragged last tile at every W (the plan keeps
+# T >= 8 groups there); 1001 (not a multiple of 4): the leaf offsets inside
+# a gathered row are not 16-byte aligned, so the launch fills its ring with
+# plain loads
+PARITY_GS = (4100, 1001)
+PARITY_SHAPES = [          # (W, R, K): every fixed R of gp_step.cu, and the
     (8, 3, 4), (8, 5, 8), (16, 3, 8), (16, 5, 16), (32, 3, 16), (32, 5, 8),
+    (8, 1, 4), (16, 1, 4), (16, 2, 8), (16, 4, 8), (32, 4, 16),
+    (4, 7, 3),             # generic instantiation (runtime R and W)
 ]
 HEADLINE = dict(G=1_048_576, W=32, K=16, R=3)
 HEADLINE_WARM, HEADLINE_STEPS, HEADLINE_PLAIN_STEPS = 20, 50, 3
@@ -131,7 +147,9 @@ STEP_SHAPES = {"server": SERVER,
                                K=DENSITY["req_lanes"], R=1),
                "ar": AR, "rc": RC}
 # gp_pack_rows parity and timing: (G, W, R) of every tick that packs
-PACK_SHAPES = {"ar3": (65_536, 16, 3), "ar4": (65_536, 16, 4), "rc": (64, 16, 3)}
+PACK_SHAPES = {"ar3": (65_536, 16, 3), "ar4": (65_536, 16, 4), "rc": (64, 16, 3),
+               "rc4": (64, 16, 4)}
+PACK_TURNS = 3   # kernel and torch.cat timed in turns at the small shapes
 # the socket deployment: names created in one batch (1,024 cut to 256:
 # on an H100 host the batch alone took 941 s for 1,024 names), then one
 # by one; names that take requests and requests each; names migrated;
@@ -208,6 +226,40 @@ def lifecycle_bytes(name: str, G: int, W: int, N: int) -> int:
     if name == "gp_extract_rows":
         return 4 * (N + 2 * N * (12 + 7 * W))
     return 4 * (2 * G * words(TOUCHED[name]) + N * (1 + words(INPUTS[name])))
+
+
+def ptxas_summary(text: str) -> list:
+    """ptxas' ``-v`` report as one entry per kernel: its name (gp_step's
+    instantiations as ``gp_step<R,W>``, R = W = 0 the generic one), its
+    registers, spill bytes and static shared memory."""
+    import re
+
+    out, cur = [], None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            t = re.search(r"gp_step_kernelILi(\d+)ELi(\d+)E", name)
+            if t:
+                name = f"gp_step<{t.group(1)},{t.group(2)}>"
+            else:
+                t = re.search(r"\d+(gp_\w+?_kernel)", name)
+                name = t.group(1) if t else name
+            cur = {"kernel": name, "registers": None, "spill_stores": None,
+                   "spill_loads": None, "smem": 0}
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            cur["smem"] = int(sm.group(1)) if sm else 0
+    return out
 
 
 def host_ms(fn, iters: int) -> float:
@@ -378,6 +430,16 @@ def seeded_states(cfg, seed: int, device):
     return out
 
 
+def plan_str(plan: dict) -> str:
+    """The C launcher's plan (``gp_kernels.step_launch_plan``) in words."""
+    inst = plan["instance"]
+    inst = f"R{inst // 100}W{inst % 100}" if inst else "generic"
+    return (f"{inst}, T={plan['T']}, "
+            f"{plan['threads']} threads, {plan['smem_bytes']} B shared, "
+            f"{plan['ctas_per_sm']} CTAs/SM, grid {plan['grid']} over "
+            f"{plan['n_items']} items, {'bulk' if plan['aligned'] else 'plain'} loads")
+
+
 def phase_parity(diff: Diff, device) -> None:
     import numpy as np
     import torch
@@ -387,13 +449,13 @@ def phase_parity(diff: Diff, device) -> None:
     from gigapaxos_tpu_torch.parallel.spmd import make_step, stack_states
 
     t0 = time.perf_counter()
-    for i, (W, R, K) in enumerate(PARITY_SHAPES):
-        cfg = te.EngineConfig(PARITY_G, W, K, R)
-        G = cfg.n_groups
-        states = seeded_states(cfg, 100 + i, device)
-        rng = np.random.default_rng(200 + i)
+    shapes = [(G, i, dims) for G in PARITY_GS for i, dims in enumerate(PARITY_SHAPES)]
+    for G, i, (W, R, K) in shapes:
+        cfg = te.EngineConfig(G, W, K, R)
+        states = seeded_states(cfg, 100 + i + G, device)
+        rng = np.random.default_rng(200 + i + G)
         for s in states:
-            diff.eq("gp_make_blob", f"W{W}R{R}.blob",
+            diff.eq("gp_make_blob", f"G{G}W{W}R{R}.blob",
                     gp_kernels.make_blob_vec(s),
                     te.pack_blob(te.make_blob_plain(s)))
         gvec = torch.stack([te.pack_blob(te.make_blob_plain(s)) for s in states])
@@ -408,13 +470,12 @@ def phase_parity(diff: Diff, device) -> None:
             heat = dev(rng.integers(0, 100, G).astype(np.int32), torch.int32)
             st = states[my_id]
             k_st, k_out, k_blob, k_heat = gp_kernels.step(
-                st, gvec, heard, req, want, my_id, cfg, with_blob=True,
-                heat=heat,
+                st, gvec, heard, req, want, my_id, cfg, with_blob=True, heat=heat,
             )
             p_st, p_out = te.step_plain(
                 st, te.unpack_gathered(gvec, cfg), heard, req, want, my_id, cfg
             )
-            tag = f"W{W}R{R}K{K}.r{my_id}"
+            tag = f"G{G}W{W}R{R}K{K}.r{my_id}"
             diff.tree("gp_step", tag + ".state", k_st, p_st)
             diff.eq("gp_step", tag + ".out", k_out, te.pack_out(p_out))
             diff.eq("gp_step", tag + ".blob", k_blob,
@@ -436,7 +497,7 @@ def phase_parity(diff: Diff, device) -> None:
                 # a second dispatch on the first one's output
                 st0 = te.EngineState(*(x.clone() for x in states[0]))
                 k = fn(st0, gvec, heard, ring, want, 0, heat.clone())
-                tag = f"packed.W{W}R{R}.N{N}.d{int(donate)}"
+                tag = f"packed.G{G}W{W}R{R}.N{N}.d{int(donate)}"
                 diff.tree("gp_step", tag + ".state", k[0], p[0])
                 for j in (1, 2, 3):
                     diff.eq("gp_step", f"{tag}.{j}", k[j], p[j])
@@ -456,8 +517,8 @@ def phase_parity(diff: Diff, device) -> None:
             hm = dev(rng.random((R, R)) < 0.8, torch.bool)
             k_st, k_o = fn(stacked, reqs, wants, hm)
             p_st, p_o = fn.plain(stacked, reqs, wants, hm)
-            diff.tree("gp_step", f"stacked.W{W}R{R}.N{N}.state", k_st, p_st)
-            diff.tree("gp_step", f"stacked.W{W}R{R}.N{N}.out", k_o, p_o)
+            diff.tree("gp_step", f"stacked.G{G}W{W}R{R}.N{N}.state", k_st, p_st)
+            diff.tree("gp_step", f"stacked.G{G}W{W}R{R}.N{N}.out", k_o, p_o)
     torch.cuda.synchronize()
     log(f"parity: {diff.checked} comparisons bit-equal "
         f"({time.perf_counter() - t0:.1f} s)")
@@ -713,18 +774,25 @@ def phase_pack_rows(diff: Diff, device, bw: float) -> dict:
         plain_ms = host_ms(lambda: te.pack_rows_plain(blob, device), TIMING_ITERS)
         cat = lambda: torch.cat([x.reshape(R, -1) for x in on_card], dim=1)
         library_ms = graph_ms(cat)
+        # at the small shapes both sit near the launch floor: time them in
+        # turns, kernel then torch.cat, PACK_TURNS times
+        turns = [(graph_ms(staged.launch), graph_ms(cat))
+                 for _ in range(PACK_TURNS if G * R <= 4096 else 0)]
         nbytes = pack_bytes(G, W, R)
         res[shape] = {
             "G": G, "W": W, "R": R, "ms": ms, "ms_events": ms_events,
             "ms_call": ms_call, "ms_stage": ms_stage, "plain_ms": plain_ms,
             "library_ms": library_ms, "bytes": nbytes,
-            "bound_ms": nbytes / bw * 1e3,
+            "bound_ms": nbytes / bw * 1e3, "turns_ms_kernel_cat": turns,
         }
         log(f"pack_rows {shape} (G={G}, W={W}, R={R}): {ms:.6g} ms launch on the "
             f"device ({ms_events:.6g} ms by events; bound {nbytes / bw * 1e3:.6g} ms, "
             f"{nbytes} B); on the host's clock {ms_call:.6g} ms a call, "
             f"{ms_stage:.6g} ms its staging; plain {plain_ms:.6g} ms, torch.cat "
             f"of card-resident leaves {library_ms:.6g} ms")
+        if turns:
+            log(f"pack_rows {shape} in turns (kernel, torch.cat) ms: "
+                + ", ".join(f"({a:.6g}, {b:.6g})" for a, b in turns))
         del staged, blob, want, on_card
         torch.cuda.empty_cache()
     log(f"pack_rows parity: {diff.checked['gp_pack_rows']} checks bit-equal "
@@ -1398,9 +1466,13 @@ def phase_headline(diff: Diff, device, bw: float) -> dict:
     out_st = te.EngineState(*(torch.empty_like(x) for x in states))
     out_mat = torch.empty((R, te.out_vec_len(cfg)), dtype=torch.int32, device=device)
     out_bl = torch.empty_like(blobs)
-    ms_step = cuda_ms(lambda: gp_kernels.step_stacked(
+    plan = gp_kernels.step_launch_plan(cfg, stacked=True)
+    launch = lambda: gp_kernels.step_stacked(
         states, blobs, hm, req, no_want, cfg, out_states=out_st,
-        out_mat=out_mat, out_blobs=out_bl), TIMING_ITERS) / R
+        out_mat=out_mat, out_blobs=out_bl)
+    # on the device (a CUDA graph of launches), and by events around a loop
+    ms_step = graph_ms(launch, calls=5, reps=4) / R
+    ms_events = cuda_ms(launch, TIMING_ITERS) / R
     # the same launch with the wrapper allocating the new states (what
     # make_step does): the caching allocator's cost per step
     ms_fresh = cuda_ms(lambda: gp_kernels.step_stacked(
@@ -1409,14 +1481,30 @@ def phase_headline(diff: Diff, device, bw: float) -> dict:
     ms_blob = cuda_ms(lambda: gp_kernels.make_blob_rows(states, R),
                       TIMING_ITERS) / R
     plain_ms = cuda_ms(lambda: step_fn.plain(states, req, no_want), 2) / R
+    # a quiet state beside the steady one: 20 steps with no request
+    # offered, so nothing is decided or admitted and the execute and
+    # admission rounds have nothing to take
+    no_req = torch.full_like(req, -1)
+    quiet = build_replica_states(cfg, device=device)
+    for _ in range(HEADLINE_WARM):
+        quiet, _ = step_fn(quiet, no_req, no_want)
+    q_blobs = gp_kernels.make_blob_rows(quiet, R)
+    ms_quiet = graph_ms(lambda: gp_kernels.step_stacked(
+        quiet, q_blobs, hm, no_req, no_want, cfg, out_states=out_st,
+        out_mat=out_mat, out_blobs=out_bl), calls=5, reps=4) / R
+    del quiet, q_blobs
     nbytes = stacked_step_bytes(G, W, K, R)
     bound = nbytes / bw * 1e3
-    log(f"headline gp_step: {ms_step:.6g} ms per replica-step into "
-        f"preallocated states, {ms_fresh:.6g} ms into fresh ones; bound "
-        f"{bound:.6g} ms ({nbytes} B per replica-step at {bw:.3g} B/s), "
-        f"plain {plain_ms:.6g} ms; peak device memory {peak} B")
+    log(f"headline gp_step: {ms_step:.6g} ms per replica-step on the device "
+        f"into preallocated states, {100 * bound / ms_step:.4g}% of the bound "
+        f"({ms_events:.6g} ms by events, {ms_fresh:.6g} ms into fresh ones; "
+        f"quiet state {ms_quiet:.6g} ms); bound {bound:.6g} ms ({nbytes} B per "
+        f"replica-step at {bw:.3g} B/s), plain {plain_ms:.6g} ms; plan "
+        f"{plan_str(plan)}; peak device memory {peak} B")
     return {
         "arms": arms, "ms_per_replica_step": ms_step,
+        "ms_per_replica_step_events": ms_events, "ms_quiet": ms_quiet,
+        "share": bound / ms_step, "plan": plan,
         "ms_per_replica_step_fresh": ms_fresh, "bound_ms": bound,
         "plain_ms": plain_ms, "make_blob_ms": ms_blob,
         "make_blob_bound_ms": blob_bytes(G, W) / bw * 1e3,
@@ -1656,6 +1744,7 @@ def phase_step_shapes(diff: Diff, device, bw: float) -> dict:
         launch = lambda: gp_kernels.step(
             st, gvec, heard, req[0], want[0], 0, cfg, with_blob=True,
             out_state=out_st, heat=heat, heat_out=heat)
+        plan = gp_kernels.step_launch_plan(cfg)
         # the launch on the device (a CUDA graph of launches), and by the
         # events around a loop of wrapper calls (which reads the wrapper's
         # host work at small shapes)
@@ -1683,12 +1772,16 @@ def phase_step_shapes(diff: Diff, device, bw: float) -> dict:
             "bound_ms": step_bytes(G, W, K, R) / bw * 1e3,
             "make_blob_ms": blob_ms, "make_blob_plain_ms": blob_plain_ms,
             "make_blob_bound_ms": blob_bytes(G, W) / bw * 1e3,
+            "plan": plan,
         }
         r = res[shape]
+        r["share"] = r["bound_ms"] / ms
         log(f"{shape} shape gp_step: {ms:.6g} ms on the device into a "
-            f"preallocated state ({ms_events:.6g} ms by events around a loop, "
+            f"preallocated state, {100 * r['share']:.4g}% of the bound "
+            f"({ms_events:.6g} ms by events around a loop, "
             f"{ms_fresh:.6g} ms into a fresh one; bound {r['bound_ms']:.6g} ms, "
-            f"plain {plain_ms:.6g} ms); gp_make_blob {blob_ms:.6g} ms on the "
+            f"plain {plain_ms:.6g} ms; plan {plan_str(plan)}); gp_make_blob "
+            f"{blob_ms:.6g} ms on the "
             f"device ({blob_ms_events:.6g} ms by events; bound "
             f"{r['make_blob_bound_ms']:.6g} ms, plain {blob_plain_ms:.6g} ms)")
         del states, cases, st, gvec, out_st, g
@@ -1719,24 +1812,29 @@ def kernels_line(diff: Diff, head: dict, step_t: dict, life: dict, dens: dict,
             "ms": srv_t["ms"], "plain_ms": srv_t["plain_ms"],
             "bound_ms": srv_t["bound_ms"], "bound_by": "bytes",
             "library_ms": None, "ms_events": srv_t["ms_events"],
-            "ms_fresh_state": srv_t["ms_fresh"],
+            "ms_fresh_state": srv_t["ms_fresh"], "share": srv_t["share"],
+            "plan": srv_t["plan"],
             "shape": SERVER, "comparisons": diff.checked["gp_step"],
             "headline": {
                 "launches_steady": head["arms"]["steady"]["launches"]["gp_step"],
                 "launches_failover": head["arms"]["failover"]["launches"]["gp_step"],
                 "ms_per_replica_step": head["ms_per_replica_step"],
+                "ms_per_replica_step_events": head["ms_per_replica_step_events"],
                 "ms_per_replica_step_fresh_state":
                     head["ms_per_replica_step_fresh"],
+                "ms_quiet": head["ms_quiet"], "share": head["share"],
                 "bound_ms": head["bound_ms"], "plain_ms": head["plain_ms"],
+                "plan": head["plan"],
             },
             "density_shape": {
                 "shape": den_t["shape"],
                 "launches": dens["launches_total"]["gp_step"],
                 **{k: den_t[k] for k in ("ms", "ms_events", "ms_fresh", "bound_ms",
-                                         "plain_ms")},
+                                         "plain_ms", "share")},
             },
             **{f"{p}_shape": at_shape(step_t[p], "ms", "ms_events", "ms_fresh",
-                                      "bound_ms", "plain_ms") for p in ("ar", "rc")},
+                                      "bound_ms", "plain_ms", "share")
+               for p in ("ar", "rc")},
         },
         {
             "name": "gp_make_blob", "route": "cuda",
@@ -1803,7 +1901,7 @@ def kernels_line(diff: Diff, head: dict, step_t: dict, life: dict, dens: dict,
         "ms_call": t_pack["ms_call"], "ms_stage": t_pack["ms_stage"],
         "shape": {k: t_pack[k] for k in ("G", "W", "R")},
         "comparisons": diff.checked["gp_pack_rows"],
-        **{p: pack[p] for p in ("ar3", "rc")},
+        **{p: pack[p] for p in ("ar3", "rc", "rc4")},
     })
     return kernels
 
@@ -1847,9 +1945,10 @@ def main() -> int:
     log(f"build: {', '.join(os.path.basename(p) for p in libs.values())} in "
         f"{time.perf_counter() - t0:.2f} s (nvcc in parallel)")
     for src, text in gp_kernels.BUILD_INFO.get("ptxas", {}).items():
-        for line in text.splitlines():
-            if "registers" in line or "Compiling entry" in line or "spill" in line:
-                log(f"  ptxas {src}: {line.strip()}")
+        for k in ptxas_summary(text):
+            log(f"  ptxas {src}: {k['kernel']}: {k['registers']} registers, "
+                f"{k['spill_stores']} B spill stores, {k['spill_loads']} B spill "
+                f"loads, {k['smem']} B static shared memory")
 
     diff = Diff()
     t_start = time.perf_counter()

@@ -14,18 +14,21 @@
 // G=64 the launch's fixed cost bounds it.
 //
 // Design: one launch.  The wrapper hands a small table (one entry per leaf:
-// its base pointer, its words per row and its column offset in a packed row);
-// grid.y enumerates the (row, leaf) segments, and each segment's blocks copy
-// it with a grid-stride loop over 16-byte vectors (int4) where source and
-// destination are both 16-byte aligned, words otherwise.  Segments never
-// overlap, so no two threads write one word.  The kernel allocates nothing.
+// its base pointer, its words per row and its column offset in a packed row;
+// the leaves lie end to end).  grid.y is the output row, and each thread of
+// grid.x copies one 16-byte unit of it (a word where a leaf, its offset or
+// the output is not 16-byte aligned), finding the unit's leaf in the table.
+// One unit a thread keeps each thread's chain to one load and one store:
+// the first design (one block per (row, leaf) segment, a grid-stride loop)
+// ran 24 blocks for 52 KB at the reconfigurators' G=64 and lost to
+// torch.cat there.  Units never overlap, so no two threads write one word.
+// The kernel allocates nothing.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #define GP_PACK_NLEAF 8
 #define GP_PACK_BLOCK 256
-#define GP_PACK_MAX_BLOCKS_X 256  // per segment; grid.y holds R * 8 segments
 
 struct GpPackArgs {
   const int32_t* leaf[GP_PACK_NLEAF];  // [R, len] contiguous, Blob._fields order
@@ -39,24 +42,20 @@ struct GpPackArgs {
 
 namespace {
 
-__global__ void __launch_bounds__(GP_PACK_BLOCK) gp_pack_rows_kernel(const GpPackArgs a) {
-  const int seg = blockIdx.y;
-  const int r = seg / a.n_leaf;
-  const int l = seg % a.n_leaf;
-  const long long n = a.len[l];
-  const int32_t* src = a.leaf[l] + (long long)r * n;
-  int32_t* dst = a.out + (long long)r * a.NB + a.col[l];
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (((reinterpret_cast<uintptr_t>(src) | reinterpret_cast<uintptr_t>(dst)) & 15) == 0) {
-    const long long n4 = n >> 2;
-    const int4* s4 = reinterpret_cast<const int4*>(src);
-    int4* d4 = reinterpret_cast<int4*>(dst);
-    for (long long i = t; i < n4; i += stride) d4[i] = s4[i];
-    for (long long i = (n4 << 2) + t; i < n; i += stride) dst[i] = src[i];
-  } else {
-    for (long long i = t; i < n; i += stride) dst[i] = src[i];
-  }
+// one unit (V: int4 or one word) of row blockIdx.y a thread
+template <typename V>
+__global__ void __launch_bounds__(GP_PACK_BLOCK) gp_pack_rows_kernel(
+    const __grid_constant__ GpPackArgs a) {
+  constexpr int vw = sizeof(V) / 4;
+  const long long c = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * vw;
+  if (c >= a.NB) return;
+  const int r = blockIdx.y;
+  int l = 0;
+#pragma unroll
+  for (int q = 1; q < GP_PACK_NLEAF; ++q)
+    if (q < a.n_leaf && c >= a.col[q]) l = q;
+  *reinterpret_cast<V*>(a.out + r * a.NB + c) =
+      *reinterpret_cast<const V*>(a.leaf[l] + r * a.len[l] + (c - a.col[l]));
 }
 
 }  // namespace
@@ -67,21 +66,23 @@ int gp_pack_args_size() { return (int)sizeof(GpPackArgs); }
 
 // Launch the pack on `stream`; returns cudaGetLastError() (0 = ok).
 int gp_pack_rows_launch(const GpPackArgs* a, void* stream) {
-  if (a->R < 1 || a->n_leaf < 1 || a->n_leaf > GP_PACK_NLEAF || a->NB < 1 ||
-      (long long)a->R * a->n_leaf > 65535)
+  if (a->R < 1 || a->R > 65535 || a->n_leaf < 1 || a->n_leaf > GP_PACK_NLEAF || a->NB < 1)
     return (int)cudaErrorInvalidValue;
-  long long most = 0;
+  // the leaves lie end to end and fill the row
+  bool vec = (a->NB & 3) == 0 && (reinterpret_cast<uintptr_t>(a->out) & 15) == 0;
   for (int l = 0; l < a->n_leaf; ++l) {
-    if (a->leaf[l] == nullptr || a->len[l] < 0 || a->col[l] < 0 ||
-        a->col[l] + a->len[l] > a->NB)
+    if (a->leaf[l] == nullptr || a->len[l] < 1 ||
+        a->col[l] != (l == 0 ? 0 : a->col[l - 1] + a->len[l - 1]))
       return (int)cudaErrorInvalidValue;
-    if (a->len[l] > most) most = a->len[l];
+    vec = vec && (a->len[l] & 3) == 0 && (reinterpret_cast<uintptr_t>(a->leaf[l]) & 15) == 0;
   }
-  long long blocks = ((most + 3) / 4 + GP_PACK_BLOCK - 1) / GP_PACK_BLOCK;
-  if (blocks < 1) blocks = 1;
-  if (blocks > GP_PACK_MAX_BLOCKS_X) blocks = GP_PACK_MAX_BLOCKS_X;
-  gp_pack_rows_kernel<<<dim3((unsigned)blocks, (unsigned)(a->R * a->n_leaf)), GP_PACK_BLOCK, 0,
-                        (cudaStream_t)stream>>>(*a);
+  if (a->col[a->n_leaf - 1] + a->len[a->n_leaf - 1] != a->NB) return (int)cudaErrorInvalidValue;
+  const long long units = vec ? a->NB / 4 : a->NB;
+  const dim3 grid((unsigned)((units + GP_PACK_BLOCK - 1) / GP_PACK_BLOCK), (unsigned)a->R);
+  if (vec)
+    gp_pack_rows_kernel<int4><<<grid, GP_PACK_BLOCK, 0, (cudaStream_t)stream>>>(*a);
+  else
+    gp_pack_rows_kernel<int32_t><<<grid, GP_PACK_BLOCK, 0, (cudaStream_t)stream>>>(*a);
   return (int)cudaGetLastError();
 }
 

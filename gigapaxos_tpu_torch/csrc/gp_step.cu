@@ -15,35 +15,78 @@
 // gp_make_blob_kernel is make_blob + pack_blob alone (initial blob, the
 // manager's publish snapshot, the stacked face's first exchange).
 //
-// Bound.  The step is all-int32 control logic with no matrix products: it
-// moves bytes and does little arithmetic, so device-memory bandwidth bounds
-// it.  Per group per replica-step it reads the state (12 + 7W words), the R
-// gathered blob rows (R * (4 + 4W)), K request words, and writes the state,
-// the out vector (6 + 3W) and the blob (4 + 4W).
+// Bound.  The step is int32 control logic with no matrix products.  Per
+// group per replica-step it reads the state (12 + 7W words), the R gathered
+// blob rows (R * (4 + 4W); once per launch on the stacked face), K request
+// words, and writes the state, the out vector (6 + 3W) and the blob
+// (4 + 4W): device-memory bandwidth bounds it, and at W = 32 (one warp per
+// group) the instructions a warp issues per group come next.
 //
-// Design.  One thread per (group, ring lane): W consecutive lanes of a warp
-// form one group's segment (one warp per group at W = 32, 32/W groups per
-// warp below that), so every [G, W] plane is read and written as coalesced
-// 128-byte rows and every [G] value is a segment-uniform broadcast load.
-// Reductions over the ring (any, masked max, lane lookups) are
-// __ballot_sync / __shfl_*_sync with width = W.  The R-peer fold runs as a
-// loop inside the thread with its carries in registers; the carryover fold
-// (second pass over the peers) runs only in segments that reached a prepare
-// quorum, since its result is used nowhere else.  The W-offset execute loop
-// and the K admission loop stop as soon as no segment of the warp can take
-// another slot (exact: after the first miss nothing more is taken).
+// What held the first design back: R was a runtime loop bound, so each
+// thread issued its gathered-row loads one after another behind
+// data-dependent control with nothing copied ahead (37.5% occupancy, about
+// a third of the memory rate at the headline); every [G] word was a
+// separate load or 4-byte store per group; the stacked face ran one replica
+// after another, so each re-read the [R, NB] blob matrix from device
+// memory; and the execute and admission loops spent W and K rounds of votes
+// and shuffles per warp.
+//
+// Design.
+//   * Compile-time R and W: gp_step_kernel<R, W> for W in {8, 16, 32} and
+//     R in {1..5} (every peer loop unrolled, every row's words loaded
+//     independently), and <0, 0> with runtime bounds for every other shape
+//     the wrapper accepts (W <= 32 a power of two, R <= 32): same source.
+//   * A tile is T groups (the launcher picks T; the ring is
+//     GP_RING = 2 stages deep, which ran every path's shape at least as
+//     fast as 3 on an H100).  Each input of a tile is one contiguous
+//     segment: the 12 [G] state words, the 7 [G, W] planes, each gathered
+//     row's 4 [G] words and 4 lane planes, the [T, K] requests and the
+//     heat.  A persistent grid (at most the CTAs the card holds at once,
+//     and never more than the work items) walks the tiles; the CTA brings
+//     each item's segments into shared memory with TMA 1-D bulk copies
+//     completing on an mbarrier, GP_RING items ahead (each thread issues
+//     one segment's copy), so bytes stay in flight whatever the
+//     occupancy.  A launch whose offsets are not all
+//     16-byte aligned (G % 4 != 0, or a pointer off 16 bytes) fills the
+//     same ring with plain loads, one item at a time: same kernel, same
+//     compute.
+//   * One thread per (group, ring lane), W lanes a segment; every input is
+//     read from shared memory.  The [G] outputs (12 state, 6 out, 4 blob
+//     words, heat) are gathered in shared memory and written once per tile
+//     as coalesced 16-byte stores; the [G, W] planes go out as coalesced
+//     rows straight from the threads.
+//   * Stacked face: the work items are (tile, replica) with the replica
+//     fastest, so the R CTAs stepping one tile run together and read its R
+//     gathered rows through L2: the matrix leaves device memory once.
+//   * Execute: each lane marks the offset of its decided slot from the
+//     frontier in a warp-wide OR; when no two lanes of a segment mark one
+//     offset (always so under the ring convention) the frontier advance is
+//     the mask's trailing ones and the hash folds over a shared-memory row,
+//     with no votes.  A segment with a collision (a state off the ring
+//     convention) runs the exact W-round loop.  Admission is exact in O(1):
+//     lane j can only take request k = (j - c_next) mod W, so each lane
+//     tests its own k and two ballots give the admitted prefix.
 // State is written out of place: the kernel never writes a buffer it reads.
 // The kernel allocates nothing and launches on the caller's stream.
 //
 // Integer semantics match XLA's int32 exactly: additions, subtractions,
 // multiplications and left shifts wrap (done in uint32 and reinterpreted);
-// right shifts of signed values stay arithmetic.
+// right shifts of signed values stay arithmetic; the coord word keeps
+// ACTIVE in the sign bit.
 
 #include <cstdint>
+#include <map>
+#include <mutex>
+#include <tuple>
 #include <cuda_runtime.h>
 
 #define GP_NLEAF 19
-#define GP_BLOCK 128
+#define GP_MAX_THREADS 256
+#define GP_MAX_SMEM 232448  // what one block may use on sm_90
+#define GP_NOUT 23          // [G] output words staged per group
+#define GP_NINST 16         // 15 fixed instantiations + the generic one
+#define GP_RING 2           // stages of the input ring
+#define GP_MAX_DEV 64       // devices the launch plan keeps
 
 struct GpStepArgs {
   const int32_t* st_in[GP_NLEAF];  // EngineState._fields order
@@ -57,6 +100,8 @@ struct GpStepArgs {
   const int32_t* heat_in;   // [G] or null
   int32_t* heat_out;        // [G] or null (may alias heat_in)
   int32_t G, W, K, R, my_id, stacked;
+  int32_t T;                // set by the launcher: groups per tile
+  int32_t aligned;          // set by the launcher: bulk copies and 16-byte stores
 };
 
 struct GpBlobArgs {
@@ -85,6 +130,33 @@ constexpr int32_t INT32_MIN_V = (int32_t)0x80000000u;
 constexpr int IDLE = 0, PREPARING = 1, ACTIVE = 2;
 constexpr unsigned FULL = 0xffffffffu;
 
+// The tile's [G] state words in shared memory, in EngineState order with
+// the [G, W] leaves left out; and the 7 [G, W] leaves.
+__host__ __device__ __forceinline__ int g1_leaf(int i) { return i < 7 ? i : i + 5; }
+__host__ __device__ __forceinline__ int gw_leaf(int i) { return i < 5 ? 7 + i : 12 + i; }
+
+// One ring stage, in words (every segment a multiple of 4 words, T % 4 == 0):
+//   [12][T] state words | [7][T*W] state planes | [R][4][T] gathered words |
+//   [R][4][T*W] gathered lane planes | [T][K] requests | [T] heat
+// then, once per CTA: 2 x [23][T] staged [G] outputs (one item stores from
+// one while the next computes into the other) | [T][W] execute scratch |
+// GP_RING mbarriers.
+struct Layout {
+  int T, W, R, K, TW, o_sw, o_b1, o_bw, o_req, o_heat, stage;
+  __host__ __device__ Layout(int T_, int W_, int R_, int K_)
+      : T(T_), W(W_), R(R_), K(K_), TW(T_ * W_) {
+    o_sw = 12 * T;
+    o_b1 = o_sw + 7 * TW;
+    o_bw = o_b1 + 4 * R * T;
+    o_req = o_bw + 4 * R * TW;
+    o_heat = o_req + T * K;
+    stage = o_heat + T;
+  }
+  __host__ __device__ long long smem_bytes() const {
+    return 4LL * ((long long)GP_RING * stage + 2 * GP_NOUT * T + TW) + 8LL * GP_RING;
+  }
+};
+
 __device__ __forceinline__ int32_t add32(int32_t a, int32_t b) {
   return (int32_t)((uint32_t)a + (uint32_t)b);
 }
@@ -96,6 +168,10 @@ __device__ __forceinline__ int32_t shl32(int32_t a, int s) {
 }
 __device__ __forceinline__ int32_t imax(int32_t a, int32_t b) { return a > b ? a : b; }
 __device__ __forceinline__ int32_t imin(int32_t a, int32_t b) { return a < b ? a : b; }
+// trailing ones of x (32 when every bit is set)
+__device__ __forceinline__ int ones_tail(unsigned x) { return __clz(__brev(~x)); }
+// trailing zeros of x (32 when x == 0)
+__device__ __forceinline__ int zeros_tail(unsigned x) { return __clz(__brev(x)); }
 
 // (h * 31 + vid) ^ (vid << 7), int32 wraparound
 __device__ __forceinline__ int32_t mix32(int32_t h, int32_t v) {
@@ -128,13 +204,13 @@ __device__ __forceinline__ int32_t wrap_enc(int32_t slot, int32_t ebase, int kbi
   return ok ? c + WRAP_BIAS : 0;
 }
 
-// make_blob of one (group, lane): writes the lane's four [G, W] blob words
-// and, from lane 0, the four [G] words.  blob points at this replica's row.
-__device__ __forceinline__ void encode_blob(
-    int32_t* blob, long long G, long long GW, long long g, int j, int kbits,
-    int32_t tag, int32_t bal, int32_t exec_slot, int32_t c_phase, int32_t c_bal,
-    int32_t acc_bal, int32_t acc_vid, int32_t acc_slot, int32_t dec_vid,
-    int32_t dec_slot, int32_t c_prop_vid, int32_t c_prop_slot, int W) {
+// make_blob of one (group, lane): the lane's four [G, W] blob words, written
+// at lo = g * W + j of the row `blob` (4 * G + l * GW + lo).
+__device__ __forceinline__ void encode_lanes(
+    int32_t* blob, long long G, long long GW, long long lo, int j, int kbits,
+    int32_t bal, int32_t exec_slot, int32_t c_phase, int32_t acc_bal,
+    int32_t acc_vid, int32_t acc_slot, int32_t dec_vid, int32_t dec_slot,
+    int32_t c_prop_vid, int32_t c_prop_slot) {
   const int32_t eb = exec_slot >> kbits;
   bool acc_in, dec_ok, prop_ok;
   int32_t acc_w = wrap_enc(acc_slot, eb, kbits, acc_in);
@@ -143,338 +219,581 @@ __device__ __forceinline__ void encode_blob(
   acc_w = acc_ok ? acc_w : 0;
   const int32_t acc_d = acc_ok ? delta + 1 : 0;
   const int32_t dec_w = wrap_enc(dec_slot, eb, kbits, dec_ok);
-  const bool preparing = c_phase == PREPARING;
-  const bool active = c_phase == ACTIVE;
-  const int32_t prop_w = wrap_enc(active ? c_prop_slot : NULLV, eb, kbits, prop_ok);
+  const int32_t prop_w = wrap_enc(c_phase == ACTIVE ? c_prop_slot : NULLV, eb, kbits, prop_ok);
   const int32_t meta = acc_d | shl32(acc_w, 16) | shl32(dec_w, 21) | shl32(prop_w, 26);
-  const long long lo = g * W + j;
   blob[4 * G + lo] = acc_ok ? acc_vid : NULLV;
   blob[4 * G + GW + lo] = dec_ok ? dec_vid : NULLV;
   blob[4 * G + 2 * GW + lo] = prop_ok ? c_prop_vid : NULLV;
   blob[4 * G + 3 * GW + lo] = meta;
-  if (j == 0) {
-    blob[g] = tag;
-    blob[G + g] = bal;
-    blob[2 * G + g] = exec_slot;
-    blob[3 * G + g] = preparing ? c_bal : (active ? (c_bal | INT32_MIN_V) : NULLV);
+}
+
+// the blob's coord word: the prepare ballot, or the proposal ballot with the
+// sign bit set while ACTIVE, else NULL
+__device__ __forceinline__ int32_t coord_word(int32_t c_phase, int32_t c_bal) {
+  return c_phase == PREPARING ? c_bal : (c_phase == ACTIVE ? (c_bal | INT32_MIN_V) : NULLV);
+}
+
+// a segment's W lane bits of a ballot, rotated so that bit k is lane
+// (c0 + k) mod W
+__device__ __forceinline__ unsigned seg_rot(unsigned ballot, int segbase, unsigned wmask,
+                                            int c0, int W) {
+  const unsigned b = (ballot >> segbase) & wmask;
+  return c0 == 0 ? b : (((b >> c0) | (b << (W - c0))) & wmask);
+}
+
+// ---- shared-memory barriers and bulk copies (PTX) ----
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// waits for a phase; a wait that never ends (bytes armed that no copy
+// brings) traps, so the launch fails instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_addr(bar);
+  uint32_t done = 0, spins = 0;
+  do {
+    if (++spins == (1u << 26)) __trap();
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+__device__ __forceinline__ void bulk_g2s(void* dst, const void* src, uint32_t bytes,
+                                         uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Input segment i of work item (rep, tile at t0 with n groups): its source,
+// its offset in the stage and its length, in words.  Order: the 12 [G]
+// state words, the 7 [G, W] planes, each gathered row's 4 [G] words and 4
+// lane planes, the requests, the heat (when given).
+struct Seg {
+  const int32_t* src;
+  int off, words;
+};
+
+__device__ __forceinline__ int n_segs(const GpStepArgs& a, int R) {
+  return 20 + 8 * R + (a.heat_in != nullptr ? 1 : 0);
+}
+
+__device__ __forceinline__ Seg input_seg(const GpStepArgs& a, const Layout& L, int i, int rep,
+                                         long long t0, int n) {
+  const long long G = a.G, GW = G * L.W, NB = 4 * G + 4 * GW;
+  if (i < 12) return {a.st_in[g1_leaf(i)] + rep * G + t0, i * L.T, n};
+  if (i < 19)
+    return {a.st_in[gw_leaf(i - 12)] + rep * GW + t0 * L.W, L.o_sw + (i - 12) * L.TW, n * L.W};
+  i -= 19;
+  if (i < 8 * L.R) {
+    const int r = i >> 3, l = i & 7;
+    const int32_t* row = a.gathered + r * NB;
+    if (l < 4) return {row + l * G + t0, L.o_b1 + (r * 4 + l) * L.T, n};
+    return {row + 4 * G + (l - 4) * GW + t0 * L.W, L.o_bw + (r * 4 + l - 4) * L.TW, n * L.W};
+  }
+  if (i == 8 * L.R) return {a.req + (rep * G + t0) * L.K, L.o_req, n * L.K};
+  return {a.heat_in + t0, L.o_heat, n};
+}
+
+// bring one work item's segments into a stage: thread 0 arms the barrier
+// with the item's bytes (its one arrival), and thread t issues segment t
+// (a copy that lands before the arming leaves the transaction count
+// negative for a while; the phase cannot complete before the arrival)
+__device__ __forceinline__ void issue_item(const GpStepArgs& a, const Layout& L, int rep,
+                                           long long t0, int n, int32_t* stage, uint64_t* bar,
+                                           int tid, int nthr) {
+  if (tid == 0) {
+    const int per = 12 + 7 * L.W + 4 * L.R * (1 + L.W) + L.K + (a.heat_in != nullptr ? 1 : 0);
+    mbar_expect_tx(bar, (uint32_t)(4 * n * per));
+  }
+  const int ns = n_segs(a, L.R);
+  for (int i = tid; i < ns; i += nthr) {
+    const Seg s = input_seg(a, L, i, rep, t0, n);
+    if (s.words > 0) bulk_g2s(stage + s.off, s.src, (uint32_t)(4 * s.words), bar);
   }
 }
 
-__device__ __forceinline__ int32_t seg_max(int32_t v, int W) {
-  for (int off = W >> 1; off > 0; off >>= 1)
-    v = imax(v, __shfl_xor_sync(FULL, v, off, W));
-  return v;
+// the destination of staged [G] output word i (0-11 state in g1 order,
+// 12-17 out, 18-21 blob, 22 heat) for replica rep
+__device__ __forceinline__ int32_t* out_dst(const GpStepArgs& a, int i, int rep) {
+  const long long G = a.G, GW = G * a.W;
+  if (i < 12) return a.st_out[g1_leaf(i)] + rep * G;
+  if (i < 18) {
+    const long long M = 6 * G + 3 * GW;
+    const int k = i - 12;
+    const long long off = k == 0 ? 0 : k == 1 ? G : k == 2 ? 2 * G + GW
+                        : k == 3 ? 3 * G + GW : k == 4 ? 4 * G + GW : 5 * G + 2 * GW;
+    return a.out_vec + rep * M + off;
+  }
+  if (i < 22) return a.blob + rep * (4 * G + 4 * GW) + (i - 18) * G;
+  return a.heat_out;
 }
 
-__global__ void __launch_bounds__(GP_BLOCK) gp_step_kernel(const GpStepArgs a) {
-  const int W = a.W, K = a.K, R = a.R;
+// registers bounded for 3 CTAs an SM (80 a thread): at W <= 16 three ran
+// faster than four on an H100, and at W = 32 the two read within 2% of each
+// other, either way from one run to the next
+template <int RC, int WC>
+__global__ void __launch_bounds__(GP_MAX_THREADS, 3)
+    gp_step_kernel(const __grid_constant__ GpStepArgs a) {
+  const int R = RC > 0 ? RC : a.R;
+  const int W = WC > 0 ? WC : a.W;
+  const int K = a.K, T = a.T;
+  constexpr int S = GP_RING;
+  const Layout L(T, W, R, K);
+  const int TW = L.TW;
   const long long G = a.G;
-  const int kbits = __ffs(W) - 1;
-  const int t = threadIdx.x;
-  const int j = t & (W - 1);
-  const int segbase = (t & 31) & ~(W - 1);
-  const unsigned segmask = (W == 32) ? FULL : (((1u << W) - 1u) << segbase);
-  const long long g_raw = (long long)blockIdx.x * (GP_BLOCK / W) + t / W;
-  const bool valid = g_raw < G;
-  // lanes past the last group compute on group G-1 (every lane must take
-  // part in the warp shuffles) and write nothing
-  const long long g = valid ? g_raw : G - 1;
-  const int rep = a.stacked ? (int)blockIdx.y : 0;
-  const int my_id = a.stacked ? rep : a.my_id;
   const long long GW = G * W;
-  const long long NB = 4 * G + 4 * GW;
-  const long long M = 6 * G + 3 * GW;
-  const long long ig = (long long)rep * G + g;
-  const long long igw = (long long)rep * GW + g * W + j;
+  const int kbits = __ffs(W) - 1;
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int gi_raw = tid >> kbits;
+  const int j = tid & (W - 1);
+  const int segbase = (tid & 31) & ~(W - 1);
+  const unsigned wmask = W == 32 ? FULL : ((1u << W) - 1u);
+  const unsigned segmask = wmask << segbase;
 
-  const int32_t member_mask = a.st_in[L_MEMBER_MASK][ig];
-  const int32_t majority = a.st_in[L_MAJORITY][ig];
-  const int32_t version = a.st_in[L_VERSION][ig];
-  const int32_t stopped0 = a.st_in[L_STOPPED][ig];
-  const int32_t tag = a.st_in[L_TAG][ig];
-  const int32_t bal0 = a.st_in[L_BAL][ig];
-  const int32_t exec0 = a.st_in[L_EXEC_SLOT][ig];
-  const int32_t acc_bal0 = a.st_in[L_ACC_BAL][igw];
-  const int32_t acc_vid0 = a.st_in[L_ACC_VID][igw];
-  const int32_t acc_slot0 = a.st_in[L_ACC_SLOT][igw];
-  const int32_t dec_vid0 = a.st_in[L_DEC_VID][igw];
-  const int32_t dec_slot0 = a.st_in[L_DEC_SLOT][igw];
-  const int32_t app_hash0 = a.st_in[L_APP_HASH][ig];
-  const int32_t n_execd0 = a.st_in[L_N_EXECD][ig];
-  const int32_t c_phase0 = a.st_in[L_C_PHASE][ig];
-  const int32_t c_bal0 = a.st_in[L_C_BAL][ig];
-  const int32_t c_next0 = a.st_in[L_C_NEXT_SLOT][ig];
-  const int32_t c_prop_vid0 = a.st_in[L_C_PROP_VID][igw];
-  const int32_t c_prop_slot0 = a.st_in[L_C_PROP_SLOT][igw];
+  extern __shared__ __align__(16) int32_t smem[];
+  int32_t* sO2 = smem + S * L.stage;
+  int32_t* sV = sO2 + 2 * GP_NOUT * T;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sV + TW);
 
-  const uint8_t* heard = a.heard + (a.stacked ? (long long)rep * R : 0);
-  const int32_t* gv = a.gathered;
+  // work items fit an int (the launcher checks)
+  const int n_tiles = (int)((G + T - 1) / T);
+  const int n_items = a.stacked ? n_tiles * R : n_tiles;
+  const bool bulk = a.aligned != 0;
+  const int nb = a.blob != nullptr ? 4 : 0;
+  const int n_out = 18 + nb + (a.heat_out != nullptr ? 1 : 0);
 
-  // ---- live senders + 1. promise ----
-  unsigned live_bits = 0;
-  int32_t max_prep = INT32_MIN_V, max_prop = INT32_MIN_V;
-  for (int r = 0; r < R; ++r) {
-    const int32_t* row = gv + (long long)r * NB;
-    const int32_t pcoord = row[3 * G + g];
-    const bool lv = heard[r] != 0 && ((member_mask >> r) & 1) && row[g] == tag;
-    live_bits |= (lv ? 1u : 0u) << r;
-    const int32_t prep = pcoord >= 0 ? pcoord : NULLV;
-    const int32_t prop = (pcoord < 0 && pcoord != NULLV) ? (pcoord & 0x7FFFFFFF) : NULLV;
-    max_prep = imax(max_prep, lv ? prep : NULLV);
-    max_prop = imax(max_prop, lv ? prop : NULLV);
+  if (bulk && tid == 0) {
+    for (int s = 0; s < S; ++s) mbar_init(&bars[s], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  int32_t new_bal = imax(bal0, imax(max_prep, max_prop));
-  unsigned win_bits = 0;
-  if (max_prop != NULLV) {
+  __syncthreads();
+  // the tile and replica of a work item (replica fastest)
+  auto item_at = [&](int item, int& rep, long long& t0, int& n) {
+    const int tile = a.stacked ? item / R : item;
+    rep = a.stacked ? item - tile * R : 0;
+    t0 = (long long)tile * T;
+    n = (int)(G - t0 < T ? G - t0 : T);
+  };
+  if (bulk) {
+    for (int s = 0; s < S; ++s) {
+      const long long item = blockIdx.x + (long long)s * gridDim.x;
+      if (item >= n_items) break;
+      int rep, n;
+      long long t0;
+      item_at(item, rep, t0, n);
+      issue_item(a, L, rep, t0, n, smem + s * L.stage, &bars[s], tid, nthr);
+    }
+  }
+
+  // item k of this CTA uses stage s = k mod S in phase (k / S) mod 2, and
+  // output stage k mod 2
+  int s = 0, k = 0;
+  uint32_t phase_bit = 0;
+  for (int item = blockIdx.x; item < n_items; item += gridDim.x, ++k) {
+    int32_t* st = smem + s * L.stage;
+    int32_t* sO = sO2 + (k & 1) * GP_NOUT * T;
+    int rep, n;
+    long long t0;
+    item_at(item, rep, t0, n);
+    const bool valid = gi_raw < n;
+    // lanes past the last group compute on the tile's last group (every
+    // lane must take part in the warp collectives) and write nothing
+    const int gi = valid ? gi_raw : n - 1;
+    const long long g = t0 + gi;
+    const int my_id = a.stacked ? rep : a.my_id;
+    // the heard row and want byte come from global memory: their loads go
+    // out before the wait for the stage, so the two latencies overlap
+    const uint8_t* hrow = a.heard + (a.stacked ? (long long)rep * R : 0);
+    unsigned heard_bits = 0;
+#pragma unroll
+    for (int r = 0; r < R; ++r) heard_bits |= (hrow[r] != 0 ? 1u : 0u) << r;
+    const bool want = a.want[(long long)rep * G + g] != 0;
+    if (bulk) {
+      mbar_wait(&bars[s], phase_bit);
+    } else {
+      // plain loads: a segment has at most T * W words (K <= W), so each
+      // thread copies at most one word of it; eight segments' loads are in
+      // flight before the first store
+      const int ns = n_segs(a, R);
+      for (int i0 = 0; i0 < ns; i0 += 8) {
+        int32_t v[8];
+        int off[8];
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          off[q] = -1;
+          if (i0 + q < ns) {
+            const Seg sg = input_seg(a, L, i0 + q, rep, t0, n);
+            if (tid < sg.words) {
+              v[q] = __ldg(sg.src + tid);
+              off[q] = sg.off + tid;
+            }
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < 8; ++q)
+          if (off[q] >= 0) st[off[q]] = v[q];
+      }
+      __syncthreads();
+    }
+
+    // ================= one (group, lane) of the tile =================
+    const int32_t* s1 = st + gi;                       // [12][T]
+    const int32_t* sw = st + L.o_sw + gi * W + j;      // [7][TW]
+    const int32_t* b1 = st + L.o_b1 + gi;              // [R * 4][T]
+    const int32_t* bw = st + L.o_bw + gi * W + j;      // [R * 4][TW]
+    const int32_t* rq = st + L.o_req + gi * K;         // [K]
+#define S1(i) s1[(i) * T]
+#define SW(i) sw[(i) * TW]
+#define B1(r, l) b1[((r) * 4 + (l)) * T]
+#define BW(r, l) bw[((r) * 4 + (l)) * TW]
+    const int32_t member_mask = S1(0), majority = S1(1), version = S1(2);
+    const int32_t stopped0 = S1(3), tag = S1(4), bal0 = S1(5), exec0 = S1(6);
+    const int32_t app_hash0 = S1(7), n_execd0 = S1(8), c_phase0 = S1(9);
+    const int32_t c_bal0 = S1(10), c_next0 = S1(11);
+    const int32_t acc_bal0 = SW(0), acc_vid0 = SW(1), acc_slot0 = SW(2);
+    const int32_t dec_vid0 = SW(3), dec_slot0 = SW(4);
+    const int32_t c_prop_vid0 = SW(5), c_prop_slot0 = SW(6);
+
+    // ---- live senders + 1. promise ----
+    unsigned live_bits = 0;
+    int32_t max_prep = INT32_MIN_V, max_prop = INT32_MIN_V;
+#pragma unroll
     for (int r = 0; r < R; ++r) {
-      const int32_t pcoord = gv[(long long)r * NB + 3 * G + g];
-      const bool lv = (live_bits >> r) & 1;
+      const int32_t pcoord = B1(r, 3);
+      const bool lv = ((heard_bits >> r) & 1) && ((member_mask >> r) & 1) && B1(r, 0) == tag;
+      live_bits |= (lv ? 1u : 0u) << r;
+      const int32_t prep = pcoord >= 0 ? pcoord : NULLV;
       const int32_t prop = (pcoord < 0 && pcoord != NULLV) ? (pcoord & 0x7FFFFFFF) : NULLV;
-      win_bits |= ((lv ? prop : NULLV) == max_prop ? 1u : 0u) << r;
+      max_prep = imax(max_prep, lv ? prep : NULLV);
+      max_prop = imax(max_prop, lv ? prop : NULLV);
     }
-  }
-
-  // ---- 2+3. the peer fold: accept winner, learn, decision-ring merge ----
-  int32_t p_slot = NULLV, p_vid = NULLV;
-  int32_t s_c = NULLV, b_c = NULLV, det_vid = NULLV, n_match = 0;
-  int32_t c1_s = BIG, c1_v = NULLV;
-  const long long lo = g * W + j;
-  for (int r = 0; r < R; ++r) {
-    const int32_t* row = gv + (long long)r * NB;
-    const int32_t pbal = row[G + g];
-    const int32_t pexec = row[2 * G + g];
-    const int32_t a_vid = row[4 * G + lo];
-    const int32_t d_vid = row[4 * G + GW + lo];
-    const int32_t pr_vid = row[4 * G + 2 * GW + lo];
-    const int32_t meta = row[4 * G + 3 * GW + lo];
-    int32_t a_bal, a_slot, d_slot, pr_slot;
-    decode_lane(meta, pbal, pexec, j, kbits, a_bal, a_slot, d_slot, pr_slot);
-    const bool lv = (live_bits >> r) & 1;
-    const bool w = (win_bits >> r) & 1;
-    p_slot = imax(p_slot, w ? pr_slot : NULLV);
-    p_vid = imax(p_vid, w ? pr_vid : NULLV);
-    const bool ok = lv && a_slot != NULLV;
-    const int32_t s_r = ok ? a_slot : NULLV;
-    const int32_t b_r = ok ? a_bal : NULLV;
-    const bool better = ok && (s_r > s_c || (s_r == s_c && b_r > b_c));
-    const bool same = ok && s_r == s_c && b_r == b_c;
-    n_match = better ? 1 : n_match + (same ? 1 : 0);
-    if (better) { s_c = s_r; b_c = b_r; det_vid = a_vid; }
-    const bool okd = lv && d_slot != NULLV && d_slot >= exec0;
-    if (okd && d_slot < c1_s) { c1_s = d_slot; c1_v = d_vid; }
-  }
-  const bool detected = n_match >= majority && s_c != NULLV;
-
-  // ---- 2. accept ----
-  const bool acc_ok = max_prop == new_bal && max_prop != NULLV && stopped0 == 0;
-  const bool in_win = p_slot >= exec0 && p_slot < add32(exec0, W) && p_vid != NULLV;
-  const bool do_acc = acc_ok && in_win;
-  const int32_t acc_bal = do_acc ? max_prop : acc_bal0;
-  const int32_t acc_vid = do_acc ? p_vid : acc_vid0;
-  const int32_t acc_slot = do_acc ? p_slot : acc_slot0;
-  const bool acc_changed = do_acc && (acc_bal != acc_bal0 || acc_vid != acc_vid0 ||
-                                      acc_slot != acc_slot0);
-
-  // ---- 3. learn ----
-  const int32_t c0_s = (dec_slot0 != NULLV && dec_slot0 >= exec0) ? dec_slot0 : BIG;
-  const int32_t c2_s = (detected && s_c != NULLV && s_c >= exec0) ? s_c : BIG;
-  const int32_t best = imin(imin(c0_s, c1_s), c2_s);
-  const bool have = best < BIG;
-  const int32_t dec_vid = have ? (best == c0_s ? dec_vid0 : (best == c1_s ? c1_v : det_vid))
-                               : dec_vid0;
-  const int32_t dec_slot = have ? best : dec_slot0;
-
-  // ---- 4. execute: advance the in-order frontier ----
-  int32_t h = app_hash0, n_execd = n_execd0, n_adv = 0;
-  bool stop_seen = false, run_prev = true, my_run = false;
-  int32_t my_vid_at = NULLV;
-  for (int o = 0; o < W; ++o) {
-    if (!__any_sync(FULL, run_prev)) break;
-    const int32_t slot_o = add32(exec0, o);
-    const bool eq = dec_slot == slot_o;
-    const bool hit = (__ballot_sync(FULL, eq) & segmask) != 0;
-    const int32_t v = seg_max(eq ? dec_vid : NULLV, W);
-    const bool take = run_prev && hit;
-    if (take && v > 0) { h = mix32(h, v); n_execd = add32(n_execd, 1); }
-    stop_seen = stop_seen || (take && (v & STOP_BIT) != 0);
-    n_adv += take ? 1 : 0;
-    if (j == o) { my_run = take; my_vid_at = v; }
-    run_prev = take;
-  }
-  const int32_t exec_new = add32(exec0, n_adv);
-  const int32_t stopped = imax(stopped0, stop_seen ? 1 : 0);
-
-  // ---- majority-rank execute frontier (O(R^2) rank count) ----
-  int32_t maj_exec = INT32_MIN_V;
-  for (int x = 0; x < R; ++x) {
-    const int32_t ge_x = ((live_bits >> x) & 1) ? gv[(long long)x * NB + 2 * G + g] : NULLV;
-    int rank = 0;
-    for (int y = 0; y < R; ++y) {
-      const int32_t ge_y = ((live_bits >> y) & 1) ? gv[(long long)y * NB + 2 * G + g] : NULLV;
-      rank += ge_x <= ge_y ? 1 : 0;
-    }
-    maj_exec = imax(maj_exec, rank >= majority ? ge_x : NULLV);
-  }
-  maj_exec = imax(maj_exec, 0);
-
-  // ---- 5. coordinator ----
-  int32_t phase = c_phase0;
-  if (phase != IDLE && new_bal > c_bal0) phase = IDLE;  // preempted
-  const bool inert = member_mask == 0;
-  const bool orphaned = (new_bal & 31) == my_id && new_bal != NULLV;
-  const bool want = a.want[(long long)rep * G + g] != 0;
-  const bool start = (want || orphaned) && phase == IDLE && !inert && stopped == 0;
-  const int32_t start_bal = shl32(add32(new_bal >> 5, 1), 5) | my_id;
-  const int32_t c_bal = start ? start_bal : c_bal0;
-  if (start) phase = PREPARING;
-  if (phase == PREPARING) new_bal = imax(new_bal, c_bal);
-
-  unsigned prom_bits = 0;
-  int32_t n_promise = 1, prom_exec = INT32_MIN_V;
-  for (int r = 0; r < R; ++r) {
-    const int32_t* row = gv + (long long)r * NB;
-    const bool pr = row[G + g] == c_bal && ((live_bits >> r) & 1) && r != my_id;
-    prom_bits |= (pr ? 1u : 0u) << r;
-    n_promise += pr ? 1 : 0;
-    prom_exec = imax(prom_exec, pr ? row[2 * G + g] : NULLV);
-  }
-  const bool won = phase == PREPARING && n_promise >= majority;
-
-  // carryover: only read where it is used (segments that won a quorum)
-  int32_t co_slot = NULLV, co_bal = NULLV, co_vid = NULLV;
-  if (won) {
-    for (int r = 0; r < R; ++r) {
-      if (!((prom_bits >> r) & 1)) continue;
-      const int32_t* row = gv + (long long)r * NB;
-      int32_t a_bal, a_slot, d_slot, pr_slot;
-      decode_lane(row[4 * G + 3 * GW + lo], row[G + g], row[2 * G + g], j, kbits,
-                  a_bal, a_slot, d_slot, pr_slot);
-      const bool ok = a_slot != NULLV && a_slot >= exec0;
-      if (ok && (a_slot > co_slot || (a_slot == co_slot && a_bal > co_bal))) {
-        co_slot = a_slot; co_bal = a_bal; co_vid = row[4 * G + lo];
+    int32_t new_bal = imax(bal0, imax(max_prep, max_prop));
+    unsigned win_bits = 0;
+    if (max_prop != NULLV) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int32_t pcoord = B1(r, 3);
+        const bool lv = (live_bits >> r) & 1;
+        const int32_t prop = (pcoord < 0 && pcoord != NULLV) ? (pcoord & 0x7FFFFFFF) : NULLV;
+        win_bits |= ((lv ? prop : NULLV) == max_prop ? 1u : 0u) << r;
       }
     }
-    const bool my_ok = acc_slot != NULLV && acc_slot >= exec0;
-    if (my_ok && (acc_slot > co_slot || (acc_slot == co_slot && acc_bal > co_bal))) {
-      co_slot = acc_slot; co_bal = acc_bal; co_vid = acc_vid;
+
+    // ---- 2+3. the peer fold: accept winner, learn, decision-ring merge ----
+    int32_t p_slot = NULLV, p_vid = NULLV;
+    int32_t s_c = NULLV, b_c = NULLV, det_vid = NULLV, n_match = 0;
+    int32_t c1_s = BIG, c1_v = NULLV;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int32_t a_vid = BW(r, 0), d_vid = BW(r, 1), pr_vid = BW(r, 2);
+      int32_t a_bal, a_slot, d_slot, pr_slot;
+      decode_lane(BW(r, 3), B1(r, 1), B1(r, 2), j, kbits, a_bal, a_slot, d_slot, pr_slot);
+      const bool lv = (live_bits >> r) & 1;
+      const bool w = (win_bits >> r) & 1;
+      p_slot = imax(p_slot, w ? pr_slot : NULLV);
+      p_vid = imax(p_vid, w ? pr_vid : NULLV);
+      const bool ok = lv && a_slot != NULLV;
+      const int32_t s_r = ok ? a_slot : NULLV;
+      const int32_t b_r = ok ? a_bal : NULLV;
+      const bool better = ok && (s_r > s_c || (s_r == s_c && b_r > b_c));
+      const bool same = ok && s_r == s_c && b_r == b_c;
+      n_match = better ? 1 : n_match + (same ? 1 : 0);
+      if (better) { s_c = s_r; b_c = b_r; det_vid = a_vid; }
+      const bool okd = lv && d_slot != NULLV && d_slot >= exec0;
+      if (okd && d_slot < c1_s) { c1_s = d_slot; c1_v = d_vid; }
     }
-  }
-  const bool co_has = co_slot != NULLV;
-  if (won) phase = ACTIVE;
-  const int32_t floor_ = imax(exec_new, prom_exec);
-  int32_t c_prop_vid = won ? (co_has ? co_vid : NULLV) : c_prop_vid0;
-  int32_t c_prop_slot = won ? (co_has ? co_slot : NULLV) : c_prop_slot0;
-  const int32_t max_co_slot = seg_max(co_slot, W);
-  const int32_t next_on_win = imax(floor_, add32(max_co_slot, 1));
-  int32_t c_next = won ? next_on_win : c_next0;
+    const bool detected = n_match >= majority && s_c != NULLV;
 
-  // hole-filling no-ops in [floor, next)
-  const int32_t exp_slot = add32(exec_new, sub32(j, exec_new) & (W - 1));
-  if (won && exp_slot >= floor_ && exp_slot < c_next && c_prop_slot != exp_slot &&
-      dec_slot != exp_slot) {
-    c_prop_vid = NOOP_VID;
-    c_prop_slot = exp_slot;
-  }
+    // ---- 2. accept ----
+    const bool acc_ok = max_prop == new_bal && max_prop != NULLV && stopped0 == 0;
+    const bool in_win = p_slot >= exec0 && p_slot < add32(exec0, W) && p_vid != NULLV;
+    const bool do_acc = acc_ok && in_win;
+    const int32_t acc_bal = do_acc ? max_prop : acc_bal0;
+    const int32_t acc_vid = do_acc ? p_vid : acc_vid0;
+    const int32_t acc_slot = do_acc ? p_slot : acc_slot0;
+    const bool acc_changed = do_acc && (acc_bal != acc_bal0 || acc_vid != acc_vid0 ||
+                                        acc_slot != acc_slot0);
 
-  // retire learned / below-frontier proposals; surface preempted vids
-  const bool is_active = phase == ACTIVE;
-  const bool retire = c_prop_slot != NULLV && (dec_slot == c_prop_slot || c_prop_slot < exec0);
-  const int32_t preempted =
-      (retire && dec_vid != c_prop_vid && c_prop_vid > 0) ? c_prop_vid : NULLV;
-  if (retire) { c_prop_vid = NULLV; c_prop_slot = NULLV; }
+    // ---- 3. learn ----
+    const int32_t c0_s = (dec_slot0 != NULLV && dec_slot0 >= exec0) ? dec_slot0 : BIG;
+    const int32_t c2_s = (detected && s_c != NULLV && s_c >= exec0) ? s_c : BIG;
+    const int32_t best = imin(imin(c0_s, c1_s), c2_s);
+    const bool have = best < BIG;
+    const int32_t dec_vid = have ? (best == c0_s ? dec_vid0 : (best == c1_s ? c1_v : det_vid))
+                                 : dec_vid0;
+    const int32_t dec_slot = have ? best : dec_slot0;
 
-  // stop-request ordering
-  const bool stopping =
-      (__ballot_sync(FULL, c_prop_vid != NULLV && (c_prop_vid & STOP_BIT) != 0) & segmask) != 0;
-  const bool dec_stop =
-      (__ballot_sync(FULL, dec_slot != NULLV && dec_slot >= exec0 && (dec_vid & STOP_BIT) != 0) &
-       segmask) != 0;
-  const bool may_admit = is_active && stopped == 0 && !stopping && !dec_stop;
+    // ---- 4. execute: advance the in-order frontier ----
+    int32_t h = app_hash0, n_execd = n_execd0, n_adv = 0;
+    bool stop_seen = false, my_run = false;
+    int32_t my_vid_at = NULLV;
+    {
+      // the offset of my decided slot from the frontier, if inside the ring
+      const int32_t d_off = sub32(dec_slot, exec0);
+      const bool match = (uint32_t)d_off < (uint32_t)W;
+      const unsigned hits =
+          (__reduce_or_sync(FULL, match ? 1u << (segbase + d_off) : 0u) >> segbase) & wmask;
+      const int n_lanes = __popc(__ballot_sync(FULL, match) & segmask);
+      // two lanes of my segment on one offset: only off the ring convention
+      const bool collide = n_lanes != __popc(hits);
+      int32_t* vrow = sV + gi_raw * W;
+      // the value the exact loop takes at my offset: the max over the
+      // segment, where every other lane gives NULL
+      if (match && !collide) vrow[d_off] = W > 1 ? imax(dec_vid, NULLV) : dec_vid;
+      __syncwarp();
+      if (!collide) {
+        n_adv = ones_tail(hits);
+        for (int o = 0; o < n_adv; ++o) {
+          const int32_t v = vrow[o];
+          if (v > 0) { h = mix32(h, v); n_execd = add32(n_execd, 1); }
+          stop_seen = stop_seen || (v & STOP_BIT) != 0;
+        }
+        my_run = j < n_adv;
+        if (my_run) my_vid_at = vrow[j];
+      }
+      if (__any_sync(FULL, collide)) {
+        // the exact loop, for the segments with a collision
+        bool run_prev = collide;
+        for (int o = 0; o < W; ++o) {
+          if (!__any_sync(FULL, run_prev)) break;
+          const int32_t slot_o = add32(exec0, o);
+          const bool eq = dec_slot == slot_o;
+          const bool hit = (__ballot_sync(FULL, eq) & segmask) != 0;
+          const int32_t v = __reduce_max_sync(segmask, eq ? dec_vid : NULLV);
+          const bool take = run_prev && hit;
+          if (take && v > 0) { h = mix32(h, v); n_execd = add32(n_execd, 1); }
+          stop_seen = stop_seen || (take && (v & STOP_BIT) != 0);
+          n_adv += take ? 1 : 0;
+          if (collide && j == o) { my_run = take; my_vid_at = v; }
+          run_prev = take;
+        }
+      }
+    }
+    const int32_t exec_new = add32(exec0, n_adv);
+    const int32_t stopped = imax(stopped0, stop_seen ? 1 : 0);
 
-  // ---- admission: consecutive slots from c_next, contiguous prefix ----
-  if (is_active) c_next = imax(c_next, exec_new);
-  const int32_t bound = add32(maj_exec, W);
-  const int32_t my_req = j < K ? a.req[((long long)rep * G + g) * K + j] : NULLV;
-  bool adm_prev = true, no_stop_before = true;
-  int32_t n_admit = 0;
-  for (int k = 0; k < K; ++k) {
-    if (!__any_sync(FULL, adm_prev)) break;
-    const int32_t rk = __shfl_sync(FULL, my_req, k, W);
-    const int32_t cand = add32(c_next, k);
-    const int lk = cand & (W - 1);
-    const int32_t busy = __shfl_sync(FULL, c_prop_slot, lk, W);
-    int32_t dec_at = __shfl_sync(FULL, dec_slot, lk, W);
-    if (W > 1) dec_at = imax(dec_at, NULLV);  // masked max over the ring
-    const bool can = may_admit && no_stop_before && rk != NULLV && cand < bound &&
-                     busy == NULLV && dec_at != cand;
-    const bool adm = adm_prev && can;
-    if (adm && j == lk) { c_prop_vid = rk; c_prop_slot = cand; }
-    n_admit += adm ? 1 : 0;
-    adm_prev = adm;
-    no_stop_before = no_stop_before && !(rk != NULLV && (rk & STOP_BIT) != 0);
-  }
-  c_next = add32(c_next, n_admit);
+    // ---- majority-rank execute frontier (O(R^2) rank count) ----
+    int32_t maj_exec = INT32_MIN_V;
+#pragma unroll
+    for (int x = 0; x < R; ++x) {
+      const int32_t ge_x = ((live_bits >> x) & 1) ? B1(x, 2) : NULLV;
+      int rank = 0;
+#pragma unroll
+      for (int y = 0; y < R; ++y) {
+        const int32_t ge_y = ((live_bits >> y) & 1) ? B1(y, 2) : NULLV;
+        rank += ge_x <= ge_y ? 1 : 0;
+      }
+      maj_exec = imax(maj_exec, rank >= majority ? ge_x : NULLV);
+    }
+    maj_exec = imax(maj_exec, 0);
 
-  // ---- non-member rows stay frozen; write state', outputs, blob ----
-  if (!valid) return;  // no warp collectives below
-  const bool m = ((member_mask >> my_id) & 1) == 1;
-  const int32_t o_stopped = m ? stopped : stopped0;
-  const int32_t o_bal = m ? new_bal : bal0;
-  const int32_t o_exec = m ? exec_new : exec0;
-  const int32_t o_acc_bal = m ? acc_bal : acc_bal0;
-  const int32_t o_acc_vid = m ? acc_vid : acc_vid0;
-  const int32_t o_acc_slot = m ? acc_slot : acc_slot0;
-  const int32_t o_dec_vid = m ? dec_vid : dec_vid0;
-  const int32_t o_dec_slot = m ? dec_slot : dec_slot0;
-  const int32_t o_hash = m ? h : app_hash0;
-  const int32_t o_n_execd = m ? n_execd : n_execd0;
-  const int32_t o_phase = m ? phase : c_phase0;
-  const int32_t o_c_bal = m ? c_bal : c_bal0;
-  const int32_t o_c_next = m ? c_next : c_next0;
-  const int32_t o_cpv = m ? c_prop_vid : c_prop_vid0;
-  const int32_t o_cps = m ? c_prop_slot : c_prop_slot0;
+    // ---- 5. coordinator ----
+    int32_t phase = c_phase0;
+    if (phase != IDLE && new_bal > c_bal0) phase = IDLE;  // preempted
+    const bool inert = member_mask == 0;
+    const bool orphaned = (new_bal & 31) == my_id && new_bal != NULLV;
+    const bool start = (want || orphaned) && phase == IDLE && !inert && stopped == 0;
+    const int32_t start_bal = shl32(add32(new_bal >> 5, 1), 5) | my_id;
+    const int32_t c_bal = start ? start_bal : c_bal0;
+    if (start) phase = PREPARING;
+    if (phase == PREPARING) new_bal = imax(new_bal, c_bal);
 
-  a.st_out[L_ACC_BAL][igw] = o_acc_bal;
-  a.st_out[L_ACC_VID][igw] = o_acc_vid;
-  a.st_out[L_ACC_SLOT][igw] = o_acc_slot;
-  a.st_out[L_DEC_VID][igw] = o_dec_vid;
-  a.st_out[L_DEC_SLOT][igw] = o_dec_slot;
-  a.st_out[L_C_PROP_VID][igw] = o_cpv;
-  a.st_out[L_C_PROP_SLOT][igw] = o_cps;
+    unsigned prom_bits = 0;
+    int32_t n_promise = 1, prom_exec = INT32_MIN_V;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const bool pr = B1(r, 1) == c_bal && ((live_bits >> r) & 1) && r != my_id;
+      prom_bits |= (pr ? 1u : 0u) << r;
+      n_promise += pr ? 1 : 0;
+      prom_exec = imax(prom_exec, pr ? B1(r, 2) : NULLV);
+    }
+    const bool won = phase == PREPARING && n_promise >= majority;
 
-  int32_t* out = a.out_vec + (long long)rep * M;
-  out[2 * G + lo] = (m && my_run) ? my_vid_at : NULLV;           // exec_vid
-  out[5 * G + GW + lo] = (m && acc_changed) ? 1 : 0;              // acc_new
-  out[6 * G + 2 * GW + lo] = m ? preempted : NULLV;               // preempted_vid
+    // carryover: only read where it is used (segments that won a quorum)
+    int32_t co_slot = NULLV, co_bal = NULLV, co_vid = NULLV;
+    if (won) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (!((prom_bits >> r) & 1)) continue;
+        int32_t a_bal, a_slot, d_slot, pr_slot;
+        decode_lane(BW(r, 3), B1(r, 1), B1(r, 2), j, kbits, a_bal, a_slot, d_slot, pr_slot);
+        const bool ok = a_slot != NULLV && a_slot >= exec0;
+        if (ok && (a_slot > co_slot || (a_slot == co_slot && a_bal > co_bal))) {
+          co_slot = a_slot; co_bal = a_bal; co_vid = BW(r, 0);
+        }
+      }
+      const bool my_ok = acc_slot != NULLV && acc_slot >= exec0;
+      if (my_ok && (acc_slot > co_slot || (acc_slot == co_slot && acc_bal > co_bal))) {
+        co_slot = acc_slot; co_bal = acc_bal; co_vid = acc_vid;
+      }
+    }
+    const bool co_has = co_slot != NULLV;
+    if (won) phase = ACTIVE;
+    const int32_t floor_ = imax(exec_new, prom_exec);
+    int32_t c_prop_vid = won ? (co_has ? co_vid : NULLV) : c_prop_vid0;
+    int32_t c_prop_slot = won ? (co_has ? co_slot : NULLV) : c_prop_slot0;
+    const int32_t max_co_slot = __reduce_max_sync(segmask, co_slot);
+    const int32_t next_on_win = imax(floor_, add32(max_co_slot, 1));
+    int32_t c_next = won ? next_on_win : c_next0;
 
-  if (j == 0) {
-    a.st_out[L_MEMBER_MASK][ig] = member_mask;
-    a.st_out[L_MAJORITY][ig] = majority;
-    a.st_out[L_VERSION][ig] = version;
-    a.st_out[L_STOPPED][ig] = o_stopped;
-    a.st_out[L_TAG][ig] = tag;
-    a.st_out[L_BAL][ig] = o_bal;
-    a.st_out[L_EXEC_SLOT][ig] = o_exec;
-    a.st_out[L_APP_HASH][ig] = o_hash;
-    a.st_out[L_N_EXECD][ig] = o_n_execd;
-    a.st_out[L_C_PHASE][ig] = o_phase;
-    a.st_out[L_C_BAL][ig] = o_c_bal;
-    a.st_out[L_C_NEXT_SLOT][ig] = o_c_next;
-    const int32_t n_comm = m ? n_adv : 0;
-    const int32_t n_adm = m ? n_admit : 0;
-    out[g] = n_comm;                                  // n_committed
-    out[G + g] = exec0;                               // exec_base
-    out[2 * G + GW + g] = n_adm;                      // n_admitted
-    out[3 * G + GW + g] = m ? maj_exec : 0;           // maj_exec
-    out[4 * G + GW + g] = o_hash;                     // app_hash
-    out[5 * G + 2 * GW + g] = o_bal != bal0 ? 1 : 0;  // bal_new
-    if (a.heat_out != nullptr)
-      a.heat_out[g] = add32(add32(a.heat_in[g], n_comm), n_adm);
-  }
-  if (a.blob != nullptr) {
-    encode_blob(a.blob + (long long)rep * NB, G, GW, g, j, kbits, tag, o_bal, o_exec,
-                o_phase, o_c_bal, o_acc_bal, o_acc_vid, o_acc_slot, o_dec_vid,
-                o_dec_slot, o_cpv, o_cps, W);
+    // hole-filling no-ops in [floor, next)
+    const int32_t exp_slot = add32(exec_new, sub32(j, exec_new) & (W - 1));
+    if (won && exp_slot >= floor_ && exp_slot < c_next && c_prop_slot != exp_slot &&
+        dec_slot != exp_slot) {
+      c_prop_vid = NOOP_VID;
+      c_prop_slot = exp_slot;
+    }
+
+    // retire learned / below-frontier proposals; surface preempted vids
+    const bool is_active = phase == ACTIVE;
+    const bool retire =
+        c_prop_slot != NULLV && (dec_slot == c_prop_slot || c_prop_slot < exec0);
+    const int32_t preempted =
+        (retire && dec_vid != c_prop_vid && c_prop_vid > 0) ? c_prop_vid : NULLV;
+    if (retire) { c_prop_vid = NULLV; c_prop_slot = NULLV; }
+
+    // stop-request ordering
+    const bool stopping =
+        (__ballot_sync(FULL, c_prop_vid != NULLV && (c_prop_vid & STOP_BIT) != 0) & segmask) != 0;
+    const bool dec_stop = (__ballot_sync(FULL, dec_slot != NULLV && dec_slot >= exec0 &&
+                                                   (dec_vid & STOP_BIT) != 0) &
+                           segmask) != 0;
+    const bool may_admit = is_active && stopped == 0 && !stopping && !dec_stop;
+
+    // ---- admission: consecutive slots from c_next, contiguous prefix.
+    // Request k can only land on lane (c_next + k) mod W, so lane j tests
+    // its own k = (j - c_next) mod W; two ballots give the prefix. ----
+    if (is_active) c_next = imax(c_next, exec_new);
+    const int32_t bound = add32(maj_exec, W);
+    int n_admit;
+    {
+      const int kj = (int)((uint32_t)sub32(j, c_next) & (uint32_t)(W - 1));
+      const bool has_k = kj < K;
+      const int32_t rk = has_k ? rq[kj] : NULLV;
+      const int32_t cand = add32(c_next, kj);
+      const int32_t dec_at = W > 1 ? imax(dec_slot, NULLV) : dec_slot;  // masked max
+      const bool can = has_k && may_admit && rk != NULLV && cand < bound &&
+                       c_prop_slot == NULLV && dec_at != cand;
+      const bool stp = has_k && rk != NULLV && (rk & STOP_BIT) != 0;
+      const int c0 = c_next & (W - 1);
+      const unsigned can_k = seg_rot(__ballot_sync(FULL, can), segbase, wmask, c0, W);
+      const unsigned stop_k = seg_rot(__ballot_sync(FULL, stp), segbase, wmask, c0, W);
+      // request k needs every request before it admitted and no stop before it
+      n_admit = imin(ones_tail(can_k), zeros_tail(stop_k) + 1);
+      if (has_k && kj < n_admit) { c_prop_vid = rk; c_prop_slot = cand; }
+    }
+    c_next = add32(c_next, n_admit);
+
+    // ---- non-member rows stay frozen; write state', outputs, blob ----
+    const bool m = ((member_mask >> my_id) & 1) == 1;
+    if (valid) {
+      const int32_t o_stopped = m ? stopped : stopped0;
+      const int32_t o_bal = m ? new_bal : bal0;
+      const int32_t o_exec = m ? exec_new : exec0;
+      const int32_t o_acc_bal = m ? acc_bal : acc_bal0;
+      const int32_t o_acc_vid = m ? acc_vid : acc_vid0;
+      const int32_t o_acc_slot = m ? acc_slot : acc_slot0;
+      const int32_t o_dec_vid = m ? dec_vid : dec_vid0;
+      const int32_t o_dec_slot = m ? dec_slot : dec_slot0;
+      const int32_t o_hash = m ? h : app_hash0;
+      const int32_t o_n_execd = m ? n_execd : n_execd0;
+      const int32_t o_phase = m ? phase : c_phase0;
+      const int32_t o_c_bal = m ? c_bal : c_bal0;
+      const int32_t o_c_next = m ? c_next : c_next0;
+      const int32_t o_cpv = m ? c_prop_vid : c_prop_vid0;
+      const int32_t o_cps = m ? c_prop_slot : c_prop_slot0;
+
+      const long long lo = g * W + j;
+      const long long igw = (long long)rep * GW + lo;
+      a.st_out[L_ACC_BAL][igw] = o_acc_bal;
+      a.st_out[L_ACC_VID][igw] = o_acc_vid;
+      a.st_out[L_ACC_SLOT][igw] = o_acc_slot;
+      a.st_out[L_DEC_VID][igw] = o_dec_vid;
+      a.st_out[L_DEC_SLOT][igw] = o_dec_slot;
+      a.st_out[L_C_PROP_VID][igw] = o_cpv;
+      a.st_out[L_C_PROP_SLOT][igw] = o_cps;
+
+      int32_t* out = a.out_vec + (long long)rep * (6 * G + 3 * GW);
+      out[2 * G + lo] = (m && my_run) ? my_vid_at : NULLV;   // exec_vid
+      out[5 * G + GW + lo] = (m && acc_changed) ? 1 : 0;      // acc_new
+      out[6 * G + 2 * GW + lo] = m ? preempted : NULLV;       // preempted_vid
+      if (nb)
+        encode_lanes(a.blob + (long long)rep * (4 * G + 4 * GW), G, GW, lo, j, kbits, o_bal,
+                     o_exec, o_phase, o_acc_bal, o_acc_vid, o_acc_slot, o_dec_vid, o_dec_slot,
+                     o_cpv, o_cps);
+
+      if (j == 0) {
+        int32_t* o = sO + gi;
+        const int32_t n_comm = m ? n_adv : 0;
+        const int32_t n_adm = m ? n_admit : 0;
+        o[0 * T] = member_mask;  o[1 * T] = majority;  o[2 * T] = version;
+        o[3 * T] = o_stopped;    o[4 * T] = tag;       o[5 * T] = o_bal;
+        o[6 * T] = o_exec;       o[7 * T] = o_hash;    o[8 * T] = o_n_execd;
+        o[9 * T] = o_phase;      o[10 * T] = o_c_bal;  o[11 * T] = o_c_next;
+        o[12 * T] = n_comm;                 // n_committed
+        o[13 * T] = exec0;                  // exec_base
+        o[14 * T] = n_adm;                  // n_admitted
+        o[15 * T] = m ? maj_exec : 0;       // maj_exec
+        o[16 * T] = o_hash;                 // app_hash
+        o[17 * T] = o_bal != bal0 ? 1 : 0;  // bal_new
+        o[18 * T] = tag;
+        o[19 * T] = o_bal;
+        o[20 * T] = o_exec;
+        o[21 * T] = coord_word(o_phase, o_c_bal);
+        if (a.heat_out != nullptr) o[22 * T] = add32(add32(st[L.o_heat + gi], n_comm), n_adm);
+      }
+    }
+#undef S1
+#undef SW
+#undef B1
+#undef BW
+    // =================================================================
+
+    __syncthreads();  // the stage is read, the [G] outputs are staged
+    if (bulk) {
+      const long long next = item + (long long)S * gridDim.x;
+      if (next < n_items) {
+        int rep2, n2;
+        long long t2;
+        item_at((int)next, rep2, t2, n2);
+        issue_item(a, L, rep2, t2, n2, st, &bars[s], tid, nthr);
+      }
+    }
+    // the staged [G] outputs, one coalesced run per word
+    if (bulk) {
+      const int n4 = n >> 2;  // n % 4 == 0 on an aligned launch
+      for (int e = tid; e < n_out * n4; e += nthr) {
+        const int i = e / n4, q = e - i * n4;
+        const int w = i < 18 + nb ? i : 22;
+        reinterpret_cast<int4*>(out_dst(a, w, rep) + t0)[q] =
+            reinterpret_cast<const int4*>(sO + w * T)[q];
+      }
+    } else {
+      for (int e = tid; e < n_out * n; e += nthr) {
+        const int i = e / n, q = e - i * n;
+        const int w = i < 18 + nb ? i : 22;
+        out_dst(a, w, rep)[t0 + q] = sO[w * T + q];
+      }
+    }
+    if (++s == S) {
+      s = 0;
+      phase_bit ^= 1u;
+    }
   }
 }
 
@@ -492,11 +811,130 @@ __global__ void __launch_bounds__(256) gp_make_blob_kernel(const GpBlobArgs a) {
   const long long ig = (long long)rep * G + g;
   const long long igw = (long long)rep * GW + e;
   const int32_t* const* s = a.st_in;
-  encode_blob(a.blob + (long long)rep * (4 * G + 4 * GW), G, GW, g, j, kbits,
-              s[L_TAG][ig], s[L_BAL][ig], s[L_EXEC_SLOT][ig], s[L_C_PHASE][ig],
-              s[L_C_BAL][ig], s[L_ACC_BAL][igw], s[L_ACC_VID][igw], s[L_ACC_SLOT][igw],
-              s[L_DEC_VID][igw], s[L_DEC_SLOT][igw], s[L_C_PROP_VID][igw],
-              s[L_C_PROP_SLOT][igw], W);
+  int32_t* blob = a.blob + (long long)rep * (4 * G + 4 * GW);
+  // every lane loads the [G] words with its own (one round trip, not two)
+  const int32_t tag = s[L_TAG][ig], bal = s[L_BAL][ig], exec_slot = s[L_EXEC_SLOT][ig];
+  const int32_t c_phase = s[L_C_PHASE][ig], c_bal = s[L_C_BAL][ig];
+  encode_lanes(blob, G, GW, e, j, kbits, bal, exec_slot, c_phase, s[L_ACC_BAL][igw],
+               s[L_ACC_VID][igw], s[L_ACC_SLOT][igw], s[L_DEC_VID][igw], s[L_DEC_SLOT][igw],
+               s[L_C_PROP_VID][igw], s[L_C_PROP_SLOT][igw]);
+  if (j == 0) {
+    blob[g] = tag;
+    blob[G + g] = bal;
+    blob[2 * G + g] = exec_slot;
+    blob[3 * G + g] = coord_word(c_phase, c_bal);
+  }
+}
+
+// ---- the launch plan's host side ----
+typedef void (*StepKernel)(const GpStepArgs);
+
+// the instantiation for (R, W) and its id (R * 100 + W; 0 = generic)
+StepKernel pick_kernel(int R, int W, int* id) {
+#define GP_CASE(r, w)                    \
+  if (R == r && W == w) {                \
+    *id = r * 100 + w;                   \
+    return gp_step_kernel<r, w>;         \
+  }
+#define GP_CASES(r) GP_CASE(r, 8) GP_CASE(r, 16) GP_CASE(r, 32)
+  GP_CASES(1) GP_CASES(2) GP_CASES(3) GP_CASES(4) GP_CASES(5)
+#undef GP_CASES
+#undef GP_CASE
+  *id = 0;
+  return gp_step_kernel<0, 0>;
+}
+
+// the launcher's cache slot of an instantiation id (0 = generic)
+int slot_of(int id) {
+  return id == 0 ? 0 : 1 + (id / 100 - 1) * 3 + (id % 100 == 8 ? 0 : id % 100 == 16 ? 1 : 2);
+}
+
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+// The tile: T starts at 256 / W groups (256 threads) and halves while the
+// launch would have fewer work items than the card has SMs (small G: more,
+// smaller CTAs; down to 8 groups, which ran G=64 faster than 4 on an H100),
+// and further, down to 4 groups and at least one warp, while the ring does
+// not fit a block's shared memory.
+int choose_tile(const GpStepArgs& a, int sms) {
+  const int W = a.W, t_min = 32 / W > 4 ? 32 / W : 4;
+  const int t_small = t_min > 8 ? t_min : 8;
+  int T = GP_MAX_THREADS / W > t_min ? GP_MAX_THREADS / W : t_min;
+  const long long per_tile = a.stacked ? a.R : 1;
+  while (T > t_small && ((long long)a.G + T - 1) / T * per_tile < sms) T /= 2;
+  while (T > t_min && Layout(T, W, a.R, a.K).smem_bytes() > GP_MAX_SMEM) T /= 2;
+  return T;
+}
+
+struct Plan {
+  StepKernel fn;
+  int id, threads, occ;
+  long long smem, grid, n_items;
+};
+
+// What the launcher learns once per device and keeps: the SM count, which
+// instantiations have their shared-memory cap raised, and the CTAs per SM
+// of each (instantiation, threads, shared memory).  Every PaxosServer of a
+// process steps on a thread of its own and ctypes drops the GIL, so one
+// mutex guards all of it.
+std::mutex plan_mu;
+int plan_sms[GP_MAX_DEV];
+bool plan_cap_set[GP_MAX_DEV][GP_NINST];
+std::map<std::tuple<int, int, int, long long>, int> plan_occ;  // (dev, slot, threads, smem)
+
+// check the arguments; choose the kernel, the tile, the shared memory, the
+// CTAs the card holds at once and the grid
+int make_plan(GpStepArgs* a, Plan* p) {
+  const int W = a->W;
+  if (W < 1 || W > 32 || (W & (W - 1)) || a->K < 0 || a->K > W || a->R < 1 || a->R > 32 ||
+      a->G < 1)
+    return (int)cudaErrorInvalidValue;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < 0 || dev >= GP_MAX_DEV) return (int)cudaErrorInvalidDevice;
+  p->fn = pick_kernel(a->R, W, &p->id);
+  const int slot = slot_of(p->id);
+  std::lock_guard<std::mutex> lock(plan_mu);
+  if (plan_sms[dev] == 0) {
+    e = cudaDeviceGetAttribute(&plan_sms[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return (int)e;
+  }
+  a->T = choose_tile(*a, plan_sms[dev]);
+  const Layout L(a->T, W, a->R, a->K);
+  p->smem = L.smem_bytes();
+  if (p->smem > GP_MAX_SMEM) return (int)cudaErrorInvalidValue;
+  bool al = (a->G % 4) == 0 && aligned16(a->gathered) && aligned16(a->req) &&
+            aligned16(a->out_vec) && aligned16(a->blob) && aligned16(a->heat_in) &&
+            aligned16(a->heat_out);
+  for (int l = 0; l < GP_NLEAF; ++l) al = al && aligned16(a->st_in[l]) && aligned16(a->st_out[l]);
+  a->aligned = al ? 1 : 0;
+  p->threads = a->T * W;
+  const long long n_tiles = ((long long)a->G + a->T - 1) / a->T;
+  p->n_items = a->stacked ? n_tiles * a->R : n_tiles;
+  if (p->n_items > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  // the cap is raised once to the most a block may use: a launch asks for
+  // what its tile needs, and the cap does not change the CTAs an SM holds
+  if (!plan_cap_set[dev][slot]) {
+    e = cudaFuncSetAttribute((const void*)p->fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             GP_MAX_SMEM);
+    if (e != cudaSuccess) return (int)e;
+    plan_cap_set[dev][slot] = true;
+  }
+  const auto key = std::make_tuple(dev, slot, p->threads, p->smem);
+  auto it = plan_occ.find(key);
+  if (it == plan_occ.end()) {
+    int occ = 0;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, (const void*)p->fn, p->threads,
+                                                      (size_t)p->smem);
+    if (e != cudaSuccess) return (int)e;
+    it = plan_occ.emplace(key, occ).first;
+  }
+  p->occ = it->second;
+  if (p->occ < 1) return (int)cudaErrorInvalidConfiguration;
+  const long long cap = (long long)p->occ * plan_sms[dev];
+  p->grid = p->n_items < cap ? p->n_items : cap;
+  return 0;
 }
 
 }  // namespace
@@ -508,13 +946,29 @@ int gp_blob_args_size() { return (int)sizeof(GpBlobArgs); }
 
 // Launch gp_step_kernel on `stream`; returns cudaGetLastError() (0 = ok).
 int gp_step_launch(const GpStepArgs* a, void* stream) {
-  if (a->W < 1 || a->W > 32 || (a->W & (a->W - 1)) || a->K > a->W || a->R < 1 ||
-      a->R > 32 || a->G < 1)
-    return (int)cudaErrorInvalidValue;
-  const long long gpb = GP_BLOCK / a->W;
-  dim3 grid((unsigned)((a->G + gpb - 1) / gpb), a->stacked ? (unsigned)a->R : 1u);
-  gp_step_kernel<<<grid, GP_BLOCK, 0, (cudaStream_t)stream>>>(*a);
+  GpStepArgs k = *a;
+  Plan p;
+  const int rc = make_plan(&k, &p);
+  if (rc != 0) return rc;
+  void* params[] = {&k};
+  cudaError_t e = cudaLaunchKernel((const void*)p.fn, dim3((unsigned)p.grid), dim3(p.threads),
+                                   params, (size_t)p.smem, (cudaStream_t)stream);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+// The plan gp_step_launch would launch with: info = {instantiation id
+// (R * 100 + W, 0 = generic), groups per tile, threads, shared-memory
+// bytes, CTAs per SM, grid, aligned (bulk copies), work items}.  Returns 0
+// or a cudaError.
+int gp_step_launch_info(const GpStepArgs* a, long long* info) {
+  GpStepArgs k = *a;
+  Plan p;
+  const int rc = make_plan(&k, &p);
+  if (rc != 0) return rc;
+  const long long v[8] = {p.id, k.T, p.threads, p.smem, p.occ, p.grid, k.aligned, p.n_items};
+  for (int i = 0; i < 8; ++i) info[i] = v[i];
+  return 0;
 }
 
 // Launch gp_make_blob_kernel on `stream`; returns cudaGetLastError().

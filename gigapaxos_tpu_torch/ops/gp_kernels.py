@@ -87,6 +87,8 @@ class _StepArgs(ctypes.Structure):
         ("R", ctypes.c_int32),
         ("my_id", ctypes.c_int32),
         ("stacked", ctypes.c_int32),
+        ("T", ctypes.c_int32),         # set by the C launcher
+        ("aligned", ctypes.c_int32),   # set by the C launcher
     ]
 
 
@@ -191,7 +193,7 @@ def build(force: bool = False) -> Dict[str, str]:
 def _bind(name: str, cdll: ctypes.CDLL) -> None:
     if name == "gp_step":
         sizes = {"gp_step_args_size": _StepArgs, "gp_blob_args_size": _BlobArgs}
-        launchers = ("gp_step_launch", "gp_make_blob_launch")
+        launchers = ("gp_step_launch", "gp_make_blob_launch", "gp_step_launch_info")
     elif name == "gp_lifecycle":
         sizes = {"gp_life_args_size": _LifeArgs}
         launchers = ("gp_lifecycle_launch",)
@@ -276,6 +278,28 @@ def _check_cfg(cfg: EngineConfig) -> None:
         raise ValueError(f"n_replicas must be in [1, 32], got {cfg.n_replicas}")
 
 
+# the C launcher's plan, in gp_step_launch_info's order
+STEP_PLAN_KEYS = ("instance", "T", "threads", "smem_bytes", "ctas_per_sm", "grid",
+                  "aligned", "n_items")
+
+
+def step_launch_plan(cfg: EngineConfig, stacked: bool = False) -> dict:
+    """The plan ``gp_step_launch`` makes for ``cfg`` on the current card,
+    for 16-byte aligned tensors (the caching allocator's): the
+    instantiation (R * 100 + W, 0 = generic), the groups per tile, the
+    threads and shared memory of a CTA, the CTAs an SM holds, the grid,
+    bulk copies or plain loads, and the work items."""
+    _check_cfg(cfg)
+    a = _StepArgs()
+    a.G, a.W, a.K, a.R = cfg.n_groups, cfg.window, cfg.req_lanes, cfg.n_replicas
+    a.stacked = int(stacked)
+    got = (ctypes.c_longlong * len(STEP_PLAN_KEYS))()
+    rc = lib().gp_step_launch_info(ctypes.addressof(a), ctypes.addressof(got))
+    if rc != 0:
+        raise RuntimeError(f"gp_step_launch_info failed: cudaError {rc}")
+    return dict(zip(STEP_PLAN_KEYS, (int(x) for x in got)))
+
+
 def step(state: EngineState, gvec: torch.Tensor, heard: torch.Tensor,
          req_vid: torch.Tensor, want_coord: torch.Tensor, my_id: int,
          cfg: EngineConfig, *, with_blob: bool = True,
@@ -338,10 +362,11 @@ def step_stacked(states: EngineState, blobs: torch.Tensor, heard: torch.Tensor,
                  cfg: EngineConfig, *, out_states: Optional[EngineState] = None,
                  out_blobs: Optional[torch.Tensor] = None,
                  out_mat: Optional[torch.Tensor] = None):
-    """One ``gp_step`` launch for ALL R replicas (grid.y = replica id):
-    stacked ``[R, G, ...]`` states, the ``[R, NB]`` blob matrix as the
-    gather, ``heard [R, R]``, ``req [R, G, K]``, ``want [R, G]``.
-    Returns (states', out matrix [R, M], blobs' [R, NB] or None)."""
+    """One ``gp_step`` launch for ALL R replicas (work items (tile,
+    replica), the replica fastest): stacked ``[R, G, ...]`` states, the
+    ``[R, NB]`` blob matrix as the gather, ``heard [R, R]``, ``req [R, G,
+    K]``, ``want [R, G]``.  Returns (states', out matrix [R, M], blobs'
+    [R, NB] or None)."""
     _check_cfg(cfg)
     G, W, K, R = cfg.n_groups, cfg.window, cfg.req_lanes, cfg.n_replicas
     dev = states.bal.device

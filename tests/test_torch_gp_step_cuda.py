@@ -3,8 +3,15 @@
 ``gp_step`` (step + make_blob + pack_blob + heat, one launch) and
 ``gp_make_blob`` on the card, bit for bit against ``step_plain`` /
 ``make_blob_plain`` on the same CUDA tensors, over random states that
-break the ring convention, for W in {8, 16, 32} and R in {3, 5}; and a
-SimCluster on the card in lock step with one on the CPU.
+break the ring convention (slots off their lane, several lanes deciding
+one slot of the window), at every instantiation of ``csrc/gp_step.cu``
+(W in {8, 16, 32} x R in {1..5}, K = W = 32, and the generic one at W=4,
+R=7), on both faces (packed with heat, stacked), at G=301 (G % 4 == 1:
+unaligned leaf offsets, plain loads) and G=4100 (bulk copies, a ragged
+last tile);
+the launcher's plan at the paths' shapes, its refusals, and one
+instantiation launched at two tiles from two threads; and a SimCluster on
+the card in lock step with one on the CPU.
 
 A CUDA kernel has no CPU mode: every test here skips without a card.
 This file imports nothing of JAX, so it also runs where JAX is absent
@@ -21,7 +28,16 @@ from gigapaxos_tpu_torch.ops import engine as te
 from gigapaxos_tpu_torch.testing.sim import SimCluster
 
 NULL = -1
-G = 301  # not a multiple of any groups-per-block count
+# 301: G % 4 == 1, so a gathered row's [G] leaves sit off 16-byte
+# boundaries and the launch takes plain loads; 4100: bulk copies, and not a
+# multiple of the tile at any W
+GS = (301, 4100)
+G = 301
+# every instantiation (W, R) with a K of its own, the shapes held here
+# before the instantiations (K below min(W, 4R)), K = W = 32 (admission at
+# full width), and the generic one
+SHAPES = [(W, R, min(W, 4 * R)) for W in (8, 16, 32) for R in (1, 2, 3, 4, 5)]
+SHAPES += [(8, 3, 4), (16, 3, 8), (32, 3, 16), (32, 5, 8), (32, 4, 32), (4, 7, 3)]
 
 
 def _need_card():
@@ -29,7 +45,7 @@ def _need_card():
         pytest.skip("needs a CUDA card: gp_step has no CPU mode")
 
 
-def _random_state(rng, W, R, near=None):
+def _random_state(rng, W, R, near=None, G=G):
     kb = W.bit_length() - 1
     if near is None:
         exec_slot = rng.integers(20 * W, 4000, size=G)
@@ -48,6 +64,9 @@ def _random_state(rng, W, R, near=None):
         s = ((eb[:, None] + eps) << kb) | lanes
         s = np.where(rng.random((G, W)) < 0.05,
                      rng.integers(0, 5000, size=(G, W)), s)
+        # inside the window but off the lane: several lanes on one slot
+        s = np.where(rng.random((G, W)) < 0.05,
+                     exec_slot[:, None] + rng.integers(0, W, size=(G, W)), s)
         return np.where(rng.random((G, W)) < 0.3, NULL, s)
 
     vids = lambda: np.where(rng.random((G, W)) < 0.1,
@@ -80,23 +99,28 @@ def _eq(a, b, what):
         assert torch.equal(getattr(a, f), getattr(b, f)), f"{what}: {f}"
 
 
-@pytest.mark.parametrize("W,R,K", [(8, 3, 4), (8, 5, 8), (16, 3, 8),
-                                   (16, 5, 16), (32, 3, 16), (32, 5, 8)])
-def test_gp_step_matches_plain(W, R, K):
+def _inputs(rng, G, W, K, R):
+    me = _random_state(rng, W, R, G=G)
+    peers = [_dev(_random_state(rng, W, R, near=me, G=G)) for _ in range(R)]
+    req = np.where(rng.random((G, K)) < 0.6, rng.integers(1, 100, (G, K)), NULL)
+    req = np.where(rng.random((G, K)) < 0.05, req | (1 << 30), req)
+    return me, peers, torch.as_tensor(req.astype(np.int32), device="cuda")
+
+
+@pytest.mark.parametrize("G", GS)
+@pytest.mark.parametrize("W,R,K", SHAPES)
+def test_gp_step_matches_plain(W, R, K, G):
+    """The packed face: one replica's step with heat, and gp_make_blob."""
     _need_card()
     from gigapaxos_tpu_torch.ops import gp_kernels
 
     cfg = te.EngineConfig(G, W, K, R)
-    rng = np.random.default_rng(W * 7 + R)
+    rng = np.random.default_rng(W * 7 + R + G)
     for _ in range(4):
-        me = _random_state(rng, W, R)
-        peers = [_dev(_random_state(rng, W, R, near=me)) for _ in range(R)]
+        me, peers, req = _inputs(rng, G, W, K, R)
         st = _dev(me)
         gvec = torch.stack([te.pack_blob(te.make_blob_plain(p)) for p in peers])
         heard = torch.as_tensor(rng.random(R) < 0.85, device="cuda")
-        req = np.where(rng.random((G, K)) < 0.6, rng.integers(1, 100, (G, K)), NULL)
-        req = np.where(rng.random((G, K)) < 0.05, req | (1 << 30), req)
-        req = torch.as_tensor(req.astype(np.int32), device="cuda")
         want = torch.as_tensor(rng.random(G) < 0.3, device="cuda")
         heat = torch.as_tensor(rng.integers(0, 9, G).astype(np.int32), device="cuda")
         my_id = int(rng.integers(0, R))
@@ -112,6 +136,131 @@ def test_gp_step_matches_plain(W, R, K):
         for p in peers:
             assert torch.equal(gp_kernels.make_blob_vec(p),
                                te.pack_blob(te.make_blob_plain(p)))
+
+
+@pytest.mark.parametrize("G", GS)
+@pytest.mark.parametrize("W,R,K", SHAPES)
+def test_gp_step_stacked_matches_plain(W, R, K, G):
+    """The stacked face: every replica of the [R, G, ...] state in one
+    launch against R plain steps, each with its own heard row, requests
+    and want."""
+    _need_card()
+    from gigapaxos_tpu_torch.ops import gp_kernels
+    from gigapaxos_tpu_torch.parallel.spmd import stack_states
+
+    cfg = te.EngineConfig(G, W, K, R)
+    rng = np.random.default_rng(W * 11 + R + G)
+    for _ in range(2):
+        me = _random_state(rng, W, R, G=G)
+        reps = [_dev(_random_state(rng, W, R, near=me, G=G)) for _ in range(R)]
+        states = stack_states(reps)
+        blobs = torch.stack([te.pack_blob(te.make_blob_plain(p)) for p in reps])
+        heard = torch.as_tensor(rng.random((R, R)) < 0.85, device="cuda")
+        req = np.where(rng.random((R, G, K)) < 0.6, rng.integers(1, 100, (R, G, K)), NULL)
+        req = torch.as_tensor(req.astype(np.int32), device="cuda")
+        want = torch.as_tensor(rng.random((R, G)) < 0.3, device="cuda")
+        out_blobs = torch.empty_like(blobs)
+        k_st, k_mat, k_bl = gp_kernels.step_stacked(
+            states, blobs, heard, req, want, cfg, out_blobs=out_blobs)
+        g = te.unpack_gathered(blobs, cfg)
+        for r in range(R):
+            p_st, p_out = te.step_plain(reps[r], g, heard[r], req[r], want[r], r, cfg)
+            _eq(te.EngineState(*(x[r] for x in k_st)), p_st, f"replica {r}")
+            assert torch.equal(k_mat[r], te.pack_out(p_out)), r
+            assert torch.equal(k_bl[r], te.pack_blob(te.make_blob_plain(p_st))), r
+
+
+# (G, W, K, R, stacked) -> (instantiation, groups per tile)
+PATH_PLANS = {
+    "headline": ((1_048_576, 32, 16, 3, True), (332, 8)),
+    "server": ((65_536, 16, 8, 3, False), (316, 16)),
+    "density": ((65_536, 16, 4, 1, False), (116, 16)),
+    "actives": ((65_536, 16, 8, 4, False), (416, 16)),
+    "reconfigurators": ((64, 16, 8, 3, False), (316, 8)),
+    "generic": ((4100, 4, 3, 7, False), (0, 16)),
+}
+
+
+@pytest.mark.parametrize("path", sorted(PATH_PLANS))
+def test_gp_step_plan_at_the_paths_shapes(path):
+    """The launcher's plan: the instantiation, the tile (256 threads; fewer
+    groups where G is small, so the launch spreads over more SMs), bulk
+    copies at G % 4 == 0, and a grid of at least one and at most
+    the work items."""
+    _need_card()
+    from gigapaxos_tpu_torch.ops import gp_kernels
+
+    (G_, W, K, R, stacked), (inst, T) = PATH_PLANS[path]
+    p = gp_kernels.step_launch_plan(te.EngineConfig(G_, W, K, R), stacked)
+    assert (p["instance"], p["T"], p["threads"]) == (inst, T, T * W), p
+    assert p["n_items"] == -(-G_ // T) * (R if stacked else 1), p
+    assert 1 <= p["grid"] <= p["n_items"] and p["ctas_per_sm"] >= 1, p
+    assert p["aligned"] == (G_ % 4 == 0), p
+
+
+@pytest.mark.parametrize("field,value", [("W", 12), ("W", 64), ("K", 17), ("R", 0),
+                                         ("R", 33), ("G", 0)])
+def test_gp_step_refuses_a_bad_plan(field, value):
+    """The C launcher refuses arguments it has no plan for (the wrapper
+    refuses them first; this holds the launcher on its own)."""
+    _need_card()
+    import ctypes
+
+    from gigapaxos_tpu_torch.ops import gp_kernels
+
+    a = gp_kernels._StepArgs()
+    a.G, a.W, a.K, a.R = 64, 16, 8, 3
+    setattr(a, field, value)
+    got = (ctypes.c_longlong * len(gp_kernels.STEP_PLAN_KEYS))()
+    assert gp_kernels.lib().gp_step_launch_info(ctypes.addressof(a),
+                                               ctypes.addressof(got)) != 0
+
+
+def test_gp_step_one_instantiation_at_two_tiles_from_two_threads():
+    """An active and a reconfigurator with as many replicas run one
+    instantiation at two tiles (G=65,536: 16 groups, 47,120 B of shared
+    memory; G=64: 8 groups, 23,568 B), each server stepping on a thread of
+    its own.  Launches from both threads at once stay bit-equal to
+    plain."""
+    _need_card()
+    import threading
+
+    from gigapaxos_tpu_torch.ops import gp_kernels
+
+    def case(G_, seed):
+        cfg = te.EngineConfig(G_, 16, 8, 3)
+        rng = np.random.default_rng(seed)
+        me, peers, req = _inputs(rng, G_, 16, 8, 3)
+        st = _dev(me)
+        gvec = torch.stack([te.pack_blob(te.make_blob_plain(p)) for p in peers])
+        heard = torch.ones(3, dtype=torch.bool, device="cuda")
+        want = torch.as_tensor(rng.random(G_) < 0.3, device="cuda")
+        p_st, p_out = te.step_plain(st, te.unpack_gathered(gvec, cfg), heard, req,
+                                    want, 1, cfg)
+        return cfg, (st, gvec, heard, req, want, 1, cfg), (p_st, te.pack_out(p_out))
+
+    cases = [case(65_536, 1), case(64, 2)]
+    torch.cuda.synchronize()
+    errors = []
+    start = threading.Barrier(len(cases))
+
+    def run(cfg, args, want):
+        try:
+            start.wait()
+            for _ in range(200):
+                k_st, k_out, _, _ = gp_kernels.step(*args)
+            torch.cuda.synchronize()
+            _eq(k_st, want[0], f"G={cfg.n_groups}")
+            assert torch.equal(k_out, want[1]), cfg.n_groups
+        except BaseException as e:  # reported on the main thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=c) for c in cases]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors
 
 
 def test_sim_cluster_on_card_matches_cpu():

@@ -84,10 +84,14 @@ def _host(ptr: int, n: int) -> np.ndarray:
 
 def _emulated_launch(a) -> None:
     """``gp_pack_rows_launch`` on host memory: the launcher's argument
-    checks, then every (row, leaf) segment copied as the kernel copies it."""
+    checks, then every (row, leaf) segment copied as the kernel copies it.
+    The output is poisoned first: a column no segment covers must not
+    pass because ``torch.empty`` handed back a freed block that already
+    held the expected words."""
     R, NB, n_leaf = int(a.R), int(a.NB), int(a.n_leaf)
     assert R >= 1 and 1 <= n_leaf <= len(te.Blob._fields) and NB >= 1
     out = _host(a.out, R * NB).reshape(R, NB)
+    out[:] = np.int32(0x5A5A5A5A)
     for l in range(n_leaf):
         n, col = int(a.len[l]), int(a.col[l])
         assert n >= 0 and col >= 0 and col + n <= NB

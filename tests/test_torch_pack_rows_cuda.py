@@ -4,7 +4,8 @@ The kernel against ``pack_rows_plain`` on the same inputs, bit for bit:
 seeded Blobs over the full int32 range for R in {1, 3, 4}, W in {8, 16,
 32} and G in {64, 1000, 4099} (not a multiple of 4: the word path beside
 the vector one), with leaves on the card, in numpy, on the CPU, mixed,
-and on the card at an address that is not 16-byte aligned; one launch
+and on the card at an address that is not 16-byte aligned, and at the
+paths' own shapes (G=65,536 and G=64, R in {3, 4}); one launch
 counted per call, the inputs unchanged, bad inputs refused.  Then the
 reconfiguration harness (``ReconfigurableCluster``) on the card in lock
 step with the same harness on the CPU through a create -> requests ->
@@ -80,6 +81,22 @@ def test_pack_rows_kernel_matches_plain(R, W, G):
             leaf = leaves[f]
             host = leaf.cpu().numpy() if isinstance(leaf, torch.Tensor) else leaf
             assert np.array_equal(host, v), (name, f)
+
+
+@pytest.mark.parametrize("G,W,R", [(65_536, 16, 3), (65_536, 16, 4), (64, 16, 3), (64, 16, 4)])
+def test_pack_rows_kernel_at_path_shapes(G, W, R):
+    """The shapes the paths pack: the actives' (G=65,536) and the
+    reconfigurators' (G=64), with card leaves (16-byte units) and with one
+    leaf off a 16-byte boundary (word units)."""
+    _need_card()
+    rng = np.random.default_rng(G + R)
+    d = _blob_np(rng, R, G, W)
+    want = te.pack_rows_plain(te.Blob(**d), "cuda")
+    card = {f: torch.as_tensor(v, device="cuda") for f, v in d.items()}
+    for name, leaves in (("card", card), ("misaligned", dict(card, bal=_misaligned(d["bal"])))):
+        got = te.pack_rows(te.Blob(**leaves), "cuda")
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), name
 
 
 def test_pack_rows_refuses_bad_inputs():
