@@ -17,7 +17,8 @@ Phases (any failure exits nonzero):
              bit for bit, on seeded states (simulator steps plus lane fuzz
              with wrap +-15 and ballot-delta saturation) at every
              instantiation of gp_step (W in {8, 16, 32} with R in {1..5},
-             and the generic one at W=4, R=7), K <= W, at G=4,100 (bulk
+             W=8 with R=4, and the generic one at W=4, R=7), K <= W, at
+             G=4,100 (bulk
              copies, a ragged last tile) and G=1,001 (unaligned leaf
              offsets: plain loads), both make_step faces with N in {1, 4}
              (heat on the packed face, donation on and off); the C
@@ -27,14 +28,17 @@ Phases (any failure exits nonzero):
              for bit, on seeded random states (NULL and negative words,
              full 32-bit masks) at the server shape (G=65,536, W=16; N in
              {1, 7, 4,096, 16,384}) and the headline shape (G=1,048,576, W=32;
-             N=4,096) and the reconfigurators' shape (G=64, W=16; N=1);
-             the input state unchanged, untouched leaves the input's own
+             N=4,096) and the reconfigurators' shape (G=64, W=16; N=1),
+             a sharded worker's (G=32,768, W=16; N in {1, 7, 64}) and the
+             chaos and transaction soaks' (G in {24, 8, 16, 48}, W=8; N in
+             {1, 7, G}); the input state unchanged, untouched leaves the input's own
              tensors, bad row batches refused; then each op's launch time
              (on the device: a CUDA graph of launches; and by events
              around a loop), full call time, plain and index_copy times.
    pack_rows — gp_pack_rows against pack_rows_plain, bit for bit, at
-             (G=65,536, W=16, R=3), (65,536, 16, 4), (64, 16, 3) and
-             (64, 16, 4) on seeded and fuzzed blobs with numpy, card and
+             (G=65,536, W=16, R=3), (65,536, 16, 4), (64, 16, 3),
+             (64, 16, 4) and the soaks' (24, 8, 4), (8, 8, 3) and
+             (16, 8, 3) on seeded and fuzzed blobs with numpy, card and
              CPU leaves mixed; then its launch time (device and events),
              the full call and its staging on the host's clock, the plain
              version and torch.cat of card-resident leaves, beside its
@@ -51,8 +55,11 @@ Phases (any failure exits nonzero):
              and gp_make_blob against the plain version, bit for bit, for
              every replica id, at the server's shape (G=65,536, W=16, K=8,
              R=3), the density path's (G=65,536, W=16, K=4, R=1), the
-             actives' (G=65,536, W=16, K=8, R=4) and the reconfigurators'
-             (G=64, W=16, K=8, R=3); then their times (device and events),
+             actives' (G=65,536, W=16, K=8, R=4), the reconfigurators'
+             (G=64, W=16, K=8, R=3), a sharded worker's (G=32,768, W=16,
+             K=8, R=3) and the soaks' (G, W, K, R) = (24, 8, 4, 4),
+             (8, 8, 4, 3), (16, 8, 4, 3) and (48, 8, 4, 1): every shape
+             that a later phase launches a kernel at; then their times (device and events),
              each step's share of its bound and its launch plan.
 4. density — testing/density.py on the card: 1,048,576 names on 65,536
              rows (W=16, K=4, one replica, packed spill in a temporary
@@ -86,11 +93,43 @@ Phases (any failure exits nonzero):
              deletes (rows freed on every former member, records purged
              on every reconfigurator); creates/s, latencies, req/s,
              launches.
-9. report  — the kernels line, then the device line (last).
+10. sharded — ReconfigurableNode AR0..AR2, each with SERVING_WORKERS=2
+             worker processes on the card (ENGINE_ROWS=65,536 split to
+             32,768 rows a worker, W=16, K=8, R=3, HashChainApp by
+             APPLICATION; the parent builds the kernels before it spawns),
+             and RC0..RC2 in this process, on loopback ports, configured by
+             properties alone: 64 batched creates, 8 requests on each name
+             (every response the next link of its hash chain), every
+             member's state equal (the admin plane's app_state op, sent to
+             the name's shard), names on both shards as shard_of_name
+             places them, a CREATE through RC0's HTTP front and a request
+             POSTed to the owning worker's front, GET /stats and /metrics
+             from both, 8 deletes (rows freed on every member); every
+             worker of every active launched gp_step (its counts and card
+             memory from the stats admin op); req/s, p50/p99 and ticks/s
+             per worker beside phase 6's, each over its request window.
+   sharded_rows — the control: the same deployment with each worker at
+             65,536 rows (ENGINE_ROWS=131,072), so that ticks/s per
+             process stand beside phase 6's at equal rows per engine.
+11. txn    — ManagerCluster of 3 managers on the card with
+             TxnApp(StatefulAdderApp()) at the server shape: 32
+             transactions over 2-4 of 16 groups each, 8 at once (balances
+             equal on every member, conserved, equal to the committed
+             history, no lock left); the coordinator-crash commit arm
+             (journals in a temporary directory, all members restart, the
+             resolver re-drives the commit); run_txn_soak(786083501) at its
+             own shape.
+12. chaos  — one pinned seed each, at the harness's own shapes, on the
+             card: run_soak(1234), run_sharded_soak(20260804, workers=2),
+             run_density_soak(1); steps, ticks and seconds; any
+             SoakDivergence fails the run.
+13. report — the kernels line, then the device line (last).
 
 Kernel launch counts are reset to 0 just before each main-path run
-(phases 3 to 8) and read just after; parity and timing launches do not
-count.  ``--phases a,b`` runs a subset and prints no report (for
+(phases 3 to 8 and 10 to 12) and read just after; parity and timing
+launches do not count.  Phase 10's launches are its worker processes'
+counts (read through the stats admin op at the phase's end) plus this
+process's (the reconfigurators).  ``--phases a,b`` runs a subset and prints no report (for
 iterating); the contract run takes no arguments.  Imports nothing of JAX
 or of the JAX package.
 """
@@ -117,6 +156,7 @@ PARITY_GS = (4100, 1001)
 PARITY_SHAPES = [          # (W, R, K): every fixed R of gp_step.cu, and the
     (8, 3, 4), (8, 5, 8), (16, 3, 8), (16, 5, 16), (32, 3, 16), (32, 5, 8),
     (8, 1, 4), (16, 1, 4), (16, 2, 8), (16, 4, 8), (32, 4, 16),
+    (8, 4, 4),             # run_soak's actives (testing/chaos.py)
     (4, 7, 3),             # generic instantiation (runtime R and W)
 ]
 HEADLINE = dict(G=1_048_576, W=32, K=16, R=3)
@@ -127,6 +167,18 @@ SERVER = dict(G=65_536, W=16, K=8, R=3)
 # reconfigurators' record engine (64 rows, 3 reconfigurators)
 AR = dict(G=65_536, W=16, K=8, R=4)
 RC = dict(G=64, W=16, K=8, R=3)
+# the sharded deployment's worker processes per active, and a worker's
+# engine (ENGINE_ROWS / SERVING_WORKERS rows)
+SHARDED_WORKERS = 2
+WORKER = dict(SERVER, G=SERVER["G"] // SHARDED_WORKERS)
+# the chaos harness's and the transaction soak's own engines
+# (testing/chaos.py): run_soak's actives and every soak's reconfigurators;
+# run_sharded_soak's actives per shard and run_txn_soak's managers;
+# run_density_soak's rows
+CHAOS_ENGINES = {"soak_ar": dict(G=24, W=8, K=4, R=4),
+                 "soak_rc": dict(G=8, W=8, K=4, R=3),
+                 "soak_g16": dict(G=16, W=8, K=4, R=3),
+                 "soak_density": dict(G=48, W=8, K=4, R=1)}
 SERVER_NAMES, SERVER_REQS_PER_NAME = 32, 10
 TIMING_ITERS = 30
 WATCHDOG_S = 1140.0
@@ -134,7 +186,10 @@ WATCHDOG_S = 1140.0
 # (16,384 is the density path's boot chunk)
 LIFE_SHAPES = {"server": (65_536, 16, (1, 7, 4096, 16_384)),
                "headline": (1_048_576, 32, (4096,)),
-               "rc": (RC["G"], RC["W"], (1,))}
+               "rc": (RC["G"], RC["W"], (1,)),
+               "worker": (WORKER["G"], WORKER["W"], (1, 7, 64)),
+               **{k: (d["G"], d["W"], (1, 7, d["G"]))
+                  for k, d in CHAOS_ENGINES.items()}}
 LIFE_TIMING_N = 4096
 DENSITY = dict(names=1_048_576, rows=65_536, window=16, req_lanes=4,
                boot_chunk=16_384, burst=4096, per_name_burst=None,
@@ -145,10 +200,13 @@ DENSITY = dict(names=1_048_576, rows=65_536, window=16, req_lanes=4,
 STEP_SHAPES = {"server": SERVER,
                "density": dict(G=DENSITY["rows"], W=DENSITY["window"],
                                K=DENSITY["req_lanes"], R=1),
-               "ar": AR, "rc": RC}
-# gp_pack_rows parity and timing: (G, W, R) of every tick that packs
+               "ar": AR, "rc": RC, "worker": WORKER, **CHAOS_ENGINES}
+# gp_pack_rows parity and timing: (G, W, R) of every tick that packs (the
+# density soak runs one replica and packs nothing)
 PACK_SHAPES = {"ar3": (65_536, 16, 3), "ar4": (65_536, 16, 4), "rc": (64, 16, 3),
-               "rc4": (64, 16, 4)}
+               "rc4": (64, 16, 4),
+               **{k: (d["G"], d["W"], d["R"]) for k, d in CHAOS_ENGINES.items()
+                  if d["R"] > 1}}
 PACK_TURNS = 3   # kernel and torch.cat timed in turns at the small shapes
 # the socket deployment: names created in one batch (1,024 cut to 256:
 # on an H100 host the batch alone took 941 s for 1,024 names), then one
@@ -159,6 +217,17 @@ RC_REQ_NAMES, RC_REQS_PER_NAME = 64, 8
 RC_MOVES, RC_DELETES = 16, 16
 ST_BATCHES, ST_BATCH_REQS = 10, 10   # slots driven past the straggler
 SERVER_HIBERNATE, SERVER_POST_REQS_PER_NAME = 8, 2
+# the sharded deployment: names created in one batch, requests on each,
+# names deleted
+SH_NAMES, SH_REQS_PER_NAME, SH_DELETES = 64, 8, 8
+# transactions at the server shape: accounts (each starting at the
+# balance), transactions and how many run at once; then the soak's seed
+TXN_SEED, TXN_ACCOUNTS, TXN_BALANCE = 20260804, 16, 1000
+TXN_COUNT, TXN_INFLIGHT = 32, 8
+TXN_SOAK_SEED = 786083501
+# the chaos families' pinned seeds (tests/test_chaos.py,
+# tests/test_serving_workers.py; run_density_soak's default seed)
+CHAOS_SEED, CHAOS_SHARDED_SEED, CHAOS_DENSITY_SEED = 1234, 20260804, 1
 
 # the lifecycle kernels: name, function of ops/lifecycle.py, the JAX
 # function it replaces, and the path whose launches count ("parity" for
@@ -1095,12 +1164,11 @@ def phase_reconfiguration(device) -> dict:
     from gigapaxos_tpu_torch.ops import engine as te
     from gigapaxos_tpu_torch.paxos_config import PC
     from gigapaxos_tpu_torch.reconfigurable_node import ReconfigurableNode
-    from gigapaxos_tpu_torch.testing.ports import free_ports
     from gigapaxos_tpu_torch.utils.config import Config
     from gigapaxos_tpu_torch.utils.profiler import DelayProfiler
 
     n_ar, n_rc = AR["R"], RC["R"]
-    ports = free_ports(n_ar + n_rc)
+    ports = node_ports(n_ar + n_rc, (0, Config.get_int(PC.HTTP_PORT_OFFSET)))
     for i in range(n_ar):
         Config.set(f"active.AR{i}", f"127.0.0.1:{ports[i]}")
     for i in range(n_rc):
@@ -1555,6 +1623,7 @@ def phase_server(device) -> dict:
     try:
         for s in servers:
             s.start()
+        t_started = time.perf_counter()
         client = PaxosClientAsync([("127.0.0.1", p) for p in ports])
         names = [f"svc{i}" for i in range(SERVER_NAMES)]
         t_create = time.perf_counter()
@@ -1612,7 +1681,10 @@ def phase_server(device) -> dict:
                  f"{ {nm: expected[nm] for nm in list(bad)[:4]} }; "
                  f"{server_diag(servers)}")
 
+        # ticks/s over the request window alone, as phase 10 counts them
+        ticks0 = [s._tick for s in servers]
         wall = run_chains(SERVER_REQS_PER_NAME, 0)
+        ticks_per_s = [(s._tick - t) / wall for s, t in zip(servers, ticks0)]
         converge("after the first requests")
         n = len(lat)
         lat_ms = np.sort(np.asarray(lat)) * 1e3
@@ -1643,9 +1715,11 @@ def phase_server(device) -> dict:
         for k in ("gp_create_groups", "gp_kill_groups", "gp_restore_paused_rows"):
             if launches[k] <= 0:
                 fail(f"server: {k} never launched: {launches}")
+        ticks_phase = [s._tick / (time.perf_counter() - t_started) for s in servers]
         res = {
             "requests": n, "names": len(names), "seconds": wall,
-            "req_per_s": n / wall,
+            "req_per_s": n / wall, "ticks_per_s": ticks_per_s,
+            "ticks_per_s_phase": ticks_phase,
             "p50_ms": float(np.percentile(lat_ms, 50)),
             "p99_ms": float(np.percentile(lat_ms, 99)),
             "create_seconds": t_create,
@@ -1660,7 +1734,9 @@ def phase_server(device) -> dict:
             f"p50 {res['p50_ms']:.6g} ms, p99 {res['p99_ms']:.6g} ms; "
             f"{SERVER_HIBERNATE} names hibernated and restored on all "
             f"{R} servers in {t_hib:.4f} s, then {n_post} more requests "
-            f"correct in {wall_post:.4f} s; "
+            f"correct in {wall_post:.4f} s; ticks/s per server over the first "
+            f"requests {[round(t, 4) for t in ticks_per_s]} (over the phase "
+            f"{[round(t, 4) for t in ticks_phase]}); "
             f"launches {launches}, per manager {per_mgr}")
         return res
     finally:
@@ -1792,13 +1868,609 @@ def phase_step_shapes(diff: Diff, device, bw: float) -> dict:
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# phase 10: sharded serving over sockets; phase 11: transactions; phase 12:
+# the chaos soaks
+# ---------------------------------------------------------------------------
+
+
+def node_ports(n: int, offsets=(0,)) -> list:
+    """``n`` loopback base ports for nodes that also listen at base +
+    offset (the HTTP front, the serving workers): each base with all its
+    derived ports free at once, none shared between two bases.  Taken
+    below the OS's ephemeral range where it leaves room, so that no
+    connection's local port can take one before its node binds it."""
+    import random
+    import socket
+
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            lo = int(f.read().split()[0])
+    except (OSError, ValueError, IndexError):
+        lo = 0
+    span = (10_000, lo - max(offsets) - 1)
+    rng = random.Random()
+    held, out = [], []
+    try:
+        for _ in range(10_000):
+            if len(out) == n:
+                return out
+            if span[1] - span[0] >= 1000:
+                base = rng.randrange(*span)
+            else:   # no room below: the OS's picks, checked alike
+                with socket.socket() as s:
+                    s.bind(("127.0.0.1", 0))
+                    base = s.getsockname()[1]
+                if base + max(offsets) > 65535:
+                    continue
+            socks = []
+            try:
+                for off in offsets:
+                    s = socket.socket()
+                    socks.append(s)
+                    s.bind(("127.0.0.1", base + off))
+            except OSError:
+                for s in socks:
+                    s.close()
+                continue
+            held += socks
+            out.append(base)
+        raise OSError(f"no {n} loopback ports free with offsets {offsets}")
+    finally:
+        for s in held:
+            s.close()
+
+
+def _chain_link(h: str, v: str) -> str:
+    import hashlib
+
+    return hashlib.sha256((h + v).encode("utf-8")).hexdigest()
+
+
+def _http(url: str, payload=None, timeout: float = 60.0):
+    """GET (no payload) or POST a JSON payload; (status, content type, body)."""
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(url, data=data,
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return r.status, r.headers.get("Content-Type", ""), r.read().decode()
+
+
+def phase_sharded(device, server: dict = None, rows: int = SERVER["G"],
+                  label: str = "sharded") -> dict:
+    """``ReconfigurableNode`` AR0..AR2 (each the accept/route parent of
+    ``SHARDED_WORKERS`` worker processes on the card, ``serving/``) and
+    RC0..RC2 in this process, on loopback ports, configured by properties
+    alone (``ENGINE_ROWS`` split across each node's workers, HashChainApp
+    by ``APPLICATION``); ``ReconfigurableAppClient``: batched creates,
+    requests, the HTTP fronts, deletes, each checked; every worker's
+    launches, ticks and card memory from the ``stats`` admin op."""
+    import numpy as np
+
+    from gigapaxos_tpu_torch.clients import PaxosClientAsync
+    from gigapaxos_tpu_torch.clients.reconfigurable_client import ReconfigurableAppClient
+    from gigapaxos_tpu_torch.models.apps import HashChainApp
+    from gigapaxos_tpu_torch.ops import engine as te
+    from gigapaxos_tpu_torch.paxos_config import PC
+    from gigapaxos_tpu_torch.reconfigurable_node import ReconfigurableNode
+    from gigapaxos_tpu_torch.serving import shard_of_name, worker_address
+    from gigapaxos_tpu_torch.serving.router import ShardedActiveNode
+    from gigapaxos_tpu_torch.utils.config import Config
+
+    n_w, n_ar, n_rc = SHARDED_WORKERS, SERVER["R"], RC["R"]
+    off_w = Config.get_int(PC.SERVING_WORKER_PORT_OFFSET)
+    ports = node_ports(n_ar + n_rc, (0, Config.get_int(PC.HTTP_PORT_OFFSET))
+                       + tuple(off_w + w for w in range(n_w)))
+    for i in range(n_ar):
+        Config.set(f"active.AR{i}", f"127.0.0.1:{ports[i]}")
+    for i in range(n_rc):
+        Config.set(f"reconfigurator.RC{i}", f"127.0.0.1:{ports[n_ar + i]}")
+    Config.set("SERVING_WORKERS", str(n_w))
+    Config.set("ENGINE_ROWS", str(rows))
+    want = (rows // n_w, SERVER["W"], SERVER["K"], SERVER["R"])
+    if dict(zip("GWKR", want)) not in STEP_SHAPES.values():
+        fail(f"{label}: workers at {want}, a shape phases 1-2 do not check")
+    Config.set("SLOT_WINDOW", str(SERVER["W"]))
+    Config.set("APPLICATION", "gigapaxos_tpu_torch.models.apps.HashChainApp")
+    te.reset_launch_counts()
+    t_phase = time.perf_counter()
+    step_log = lambda what: log(f"{label}: [{time.perf_counter() - t_phase:.1f} s] {what}")
+    nodes, client, admin = [], None, None
+    try:
+        for i in range(n_ar):
+            nodes.append(ReconfigurableNode(f"AR{i}", HashChainApp, device=device))
+        for i in range(n_rc):
+            nodes.append(ReconfigurableNode(f"RC{i}", HashChainApp, device=device))
+        parents = [n.servers[0] for n in nodes[:n_ar]]
+        if not all(isinstance(p, ShardedActiveNode) and p.device.type == device.type
+                   for p in parents):
+            fail(f"{label}: the actives are {[type(p).__name__ for p in parents]}")
+        rcs = [n.servers[0] for n in nodes[n_ar:]]
+        # every node's workers boot together (each worker imports torch,
+        # opens its own CUDA context and allocates its engine)
+        errs = []
+
+        def start(n):
+            try:
+                n.start()
+            except Exception as e:  # reported below, the phase fails
+                errs.append(f"{n.name}: {e!r}")
+
+        threads = [threading.Thread(target=start, args=(n,)) for n in nodes]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        if errs:
+            fail(f"{label}: boot failed: {errs}")
+        step_log(f"{n_ar} actives x {n_w} workers and {n_rc} reconfigurators listening")
+        admin = PaxosClientAsync([("127.0.0.1", ports[i]) for i in range(n_ar)])
+
+        def stats_all():
+            out = []
+            for i in range(n_ar):
+                st = admin.admin_sync(i, {"op": "stats"}, timeout=30)
+                if not st or not st.get("ok"):
+                    fail(f"{label}: stats of AR{i}: {st}")
+                out.append(st)
+            return out
+
+        # readiness: the router's phase is the worst of its workers'
+        deadline = time.time() + 120
+        while True:
+            sts = stats_all()
+            if all(st["phase"] == "serving" for st in sts):
+                break
+            if time.time() > deadline:
+                fail(f"{label}: not serving: {[st['serving'] for st in sts]}")
+            time.sleep(0.5)
+        # each worker's engine section (the parent cannot read a worker's
+        # counters): its shape, launches and card memory
+        engines = lambda key: [[w["engine"][key] for w in st["workers"]] for st in sts]
+        shapes = {tuple(s) for per in engines("shape") for s in per}
+        if shapes != {want}:
+            fail(f"{label}: the workers' engines are {shapes}, expected {want} "
+                 f"(the shape phases 1-2 hold the kernels at)")
+        mem = engines("device_memory")
+        step_log(f"every worker serving at {want}; card memory per worker "
+                 f"(free, total, allocated bytes): {mem}")
+        client = ReconfigurableAppClient.from_properties()
+
+        # 1. batched creates
+        names = [f"shn{i}" for i in range(SH_NAMES)]
+        t0 = time.perf_counter()
+        results = client.create_names(names, timeout=240)
+        t_create = time.perf_counter() - t0
+        bad = [nm for nm in names if not (results.get(nm) or {}).get("ok")]
+        if bad:
+            fail(f"{label}: {len(bad)} of {len(names)} creates failed, first "
+                 f"{bad[0]}: {results.get(bad[0])}")
+        step_log(f"{len(names)} batched creates in {t_create:.4f} s")
+        owner = {nm: shard_of_name(nm, n_w) for nm in names}
+        if set(owner.values()) != set(range(n_w)):
+            fail(f"{label}: the names do not span every shard: {owner}")
+
+        # 2. requests: SH_REQS_PER_NAME in sequence on each name, the names
+        # in parallel; every response the next link of the name's chain
+        chains = {nm: "" for nm in names}
+        lat, errors = [], []
+        lock = threading.Lock()
+
+        def chain(nm: str) -> None:
+            h = chains[nm]
+            for k in range(SH_REQS_PER_NAME):
+                v = f"s{k}"
+                t1 = time.perf_counter()
+                resp = client.send_request_sync(nm, v, timeout=120)
+                dt = time.perf_counter() - t1
+                h = _chain_link(h, v)
+                with lock:
+                    lat.append(dt)
+                    if resp != h[:16]:
+                        errors.append((nm, v, resp, h[:16]))
+            chains[nm] = h
+
+        ticks0 = [[w["tick"] for w in st["workers"]] for st in stats_all()]
+        threads = [threading.Thread(target=chain, args=(nm,)) for nm in names]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        wall = time.perf_counter() - t0
+        ticks1 = [[w["tick"] for w in st["workers"]] for st in stats_all()]
+        if errors:
+            fail(f"{label}: {len(errors)} wrong responses, first {errors[0]}")
+        ticks_per_s = [[(b - a) / wall for a, b in zip(t0_, t1_)]
+                       for t0_, t1_ in zip(ticks0, ticks1)]
+        step_log(f"{len(lat)} requests correct in {wall:.4f} s")
+
+        # 3. every member of every name holds the same chain, on its shard
+        def app_state(i, nm):
+            r = admin.admin_sync(i, {"op": "app_state", "name": nm}, timeout=30)
+            if not r or not r.get("ok"):
+                fail(f"{label}: app_state {nm} at AR{i}: {r}")
+            return r
+
+        want_ck = lambda nm: json.dumps({"h": chains[nm], "n": SH_REQS_PER_NAME})
+        deadline = time.time() + 60
+        while True:
+            bad = [(nm, i) for nm in names for i in range(n_ar)
+                   if app_state(i, nm)["checkpoint"] != want_ck(nm)]
+            if not bad or time.time() > deadline:
+                break
+            time.sleep(0.5)
+        if bad:
+            nm, i = bad[0]
+            fail(f"{label}: {len(bad)} members differ, first {nm} at AR{i}: "
+                 f"{app_state(i, nm)} expected {want_ck(nm)}")
+        hosted = [[w["residency"]["active_names"] for w in st["workers"]]
+                  for st in stats_all()]
+        per_shard = [sum(1 for nm in names if owner[nm] == w) for w in range(n_w)]
+        if any(h != per_shard for h in hosted):
+            fail(f"{label}: names per worker {hosted}, expected {per_shard} on "
+                 "every active")
+        step_log(f"every member agrees; names per shard {per_shard} on every active")
+
+        # 4. the HTTP fronts: a CREATE through RC0's, a request POSTed to
+        # the owning worker's front on AR0, /stats and /metrics from both
+        off = Config.get_int(PC.HTTP_PORT_OFFSET)
+        rc_url = f"http://127.0.0.1:{ports[n_ar] + off}"
+        if rcs[0]._http is None:
+            fail(f"{label}: RC0 has no HTTP front (port taken)")
+        code, _ct, body = _http(rc_url, {"type": "CREATE", "name": "shttp",
+                                         "actives": list(range(n_ar))})
+        if code != 200 or not json.loads(body).get("ok"):
+            fail(f"{label}: HTTP create: {code} {body}")
+        w_http = shard_of_name("shttp", n_w)
+        host, wport = worker_address(("127.0.0.1", ports[0]), w_http)
+        ar_url = f"http://{host}:{wport + off}"
+        code, _ct, body = _http(ar_url, {"name": "shttp", "request": "via-http"})
+        got = json.loads(body)
+        if code != 200 or got.get("response") != _chain_link("", "via-http")[:16]:
+            fail(f"{label}: HTTP request: {code} {got}")
+        resp = client.send_request_sync("shttp", "binary", timeout=60)
+        if resp != _chain_link(_chain_link("", "via-http"), "binary")[:16]:
+            fail(f"{label}: the binary request after the HTTP one: {resp}")
+        for url in (rc_url, ar_url):
+            code, ct, body = _http(f"{url}/stats")
+            if code != 200 or "stats" not in json.loads(body):
+                fail(f"{label}: GET {url}/stats: {code} {body[:200]}")
+            code, ct, body = _http(f"{url}/metrics")
+            if code != 200 or "# delayprofiler " not in body:
+                fail(f"{label}: GET {url}/metrics: {code} {body[:200]}")
+        step_log("HTTP fronts: create, request, /stats and /metrics answered")
+
+        # 5. deletes; every member frees the row
+        deleted = names[:SH_DELETES]
+        del_errors = []
+
+        def delete(nm):
+            ack = client.delete_name(nm, timeout=240)
+            if not ack or not ack.get("ok"):
+                with lock:
+                    del_errors.append((nm, ack))
+
+        threads = [threading.Thread(target=delete, args=(nm,)) for nm in deleted]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        t_delete = time.perf_counter() - t0
+        if del_errors:
+            fail(f"{label}: {len(del_errors)} deletes failed, first {del_errors[0]}")
+        patience = 3 * Config.get_float(PC.DEACTIVATION_PERIOD_S)
+        deadline = time.time() + patience
+        while True:
+            left = [(nm, i) for nm in deleted for i in range(n_ar)
+                    if app_state(i, nm)["hosted"]]
+            if not left or time.time() > deadline:
+                break
+            time.sleep(0.5)
+        if left:
+            fail(f"{label}: deleted names still hosted: {left[:4]}")
+        sts = stats_all()
+        hosted = [[w["residency"]["active_names"] for w in st["workers"]] for st in sts]
+        live = [nm for nm in names if nm not in deleted] + ["shttp"]
+        per_shard = [sum(1 for nm in live if shard_of_name(nm, n_w) == w)
+                     for w in range(n_w)]
+        if any(h != per_shard for h in hosted):
+            fail(f"{label}: after the deletes names per worker {hosted}, "
+                 f"expected {per_shard}")
+        step_log(f"{len(deleted)} deletes in {t_delete:.4f} s; rows freed on every member")
+
+        # 6. launches: every worker of every active launched gp_step
+        worker_launches = engines("launches")
+        for i, per in enumerate(worker_launches):
+            for w, lc in enumerate(per):
+                if not lc or lc.get("gp_step", 0) <= 0:
+                    fail(f"{label}: worker {w} of AR{i} never launched gp_step: {lc}")
+        parent = dict(te.LAUNCHES)
+        launches = {k: parent[k] + sum(lc[k] for per in worker_launches for lc in per)
+                    for k in parent}
+        for k in ("gp_step", "gp_make_blob", "gp_create_groups", "gp_kill_groups"):
+            if launches[k] <= 0:
+                fail(f"{label}: {k} never launched: {launches}")
+        lat_ms = np.sort(np.asarray(lat)) * 1e3
+        res = {
+            "workers_per_active": n_w, "worker_shape": want,
+            "creates": len(names), "create_seconds": t_create,
+            "requests": len(lat), "req_per_s": len(lat) / wall,
+            "p50_ms": float(np.percentile(lat_ms, 50)),
+            "p99_ms": float(np.percentile(lat_ms, 99)),
+            "ticks_per_s": ticks_per_s, "deletes": len(deleted),
+            "delete_seconds": t_delete, "device_memory": mem,
+            "launches": launches, "parent_launches": parent,
+            "worker_launches": worker_launches,
+            "seconds": time.perf_counter() - t_phase,
+        }
+        beside = ""
+        if server:
+            beside = (f" (phase 6, 3 servers in one process: {server['req_per_s']:.6g} "
+                      f"req/s, p50 {server['p50_ms']:.6g} ms, p99 "
+                      f"{server['p99_ms']:.6g} ms, ticks/s per server "
+                      f"{[round(t, 4) for t in server['ticks_per_s']]})")
+        log(f"{label}: {len(lat)} requests over {len(names)} names on {n_ar} actives x "
+            f"{n_w} workers: {res['req_per_s']:.6g} req/s, p50 {res['p50_ms']:.6g} ms, "
+            f"p99 {res['p99_ms']:.6g} ms, ticks/s per worker "
+            f"{[[round(t, 4) for t in per] for per in ticks_per_s]}{beside}; "
+            f"launches {launches}, per worker {worker_launches} "
+            f"({res['seconds']:.1f} s)")
+        return res
+    finally:
+        for c in (client, admin):
+            if c is not None:
+                c.close()
+        for n in nodes:
+            try:
+                n.stop()
+            except Exception as e:  # a node that never started
+                log(f"{label}: stopping {n.name}: {e!r}")
+        Config.clear()
+
+
+def phase_txn(device) -> dict:
+    """Sorted 2PC over Paxos on the card: a ``ManagerCluster`` of 3
+    managers with ``TxnApp(StatefulAdderApp())`` at the server shape takes
+    concurrent transfers over 2-4 groups each (exact conservation, equal
+    balances on every member, no lock left); the coordinator-crash commit
+    arm (journals in a temporary directory, every member crash-restarts,
+    the resolver re-drives the commit); then one pinned seed of
+    ``run_txn_soak`` at its own shape."""
+    import random
+    import shutil
+
+    from gigapaxos_tpu_torch.models.apps import StatefulAdderApp
+    from gigapaxos_tpu_torch.ops import engine as te
+    from gigapaxos_tpu_torch.testing.chaos import run_txn_soak
+    from gigapaxos_tpu_torch.testing.cluster import ManagerCluster
+    from gigapaxos_tpu_torch.txn import (COMMITTED, TXN_COORD, Transaction, TxnApp,
+                                         TxnDriver, TxnResolver, tx_op, txc_op)
+
+    G, W, K, R = (SERVER[k] for k in ("G", "W", "K", "R"))
+    cfg = te.EngineConfig(G, W, K, R)
+    te.reset_launch_counts()
+    t_phase = time.perf_counter()
+    rng = random.Random(TXN_SEED)
+    accounts = [f"acct{i}" for i in range(TXN_ACCOUNTS)]
+
+    def make(**kw):
+        c = ManagerCluster(cfg, lambda: TxnApp(StatefulAdderApp()), device=device, **kw)
+        c.create(TXN_COORD)
+        for nm in accounts:
+            c.create(nm, initial_state=str(TXN_BALANCE))
+        return c
+
+    # 1. concurrent transfers
+    c = make()
+    try:
+        steps = [0]
+        clock = lambda: steps[0] * 0.05
+
+        def submit(name, value, rid, cb):
+            c.managers[rng.randrange(R)].propose(name, value, request_id=rid, callback=cb)
+
+        def transfer():
+            k = rng.randint(2, 4)
+            names = rng.sample(accounts, k)
+            amounts = [rng.randint(1, 9) for _ in names[1:]]
+            ops = [(names[0], str(-sum(amounts)))] + [
+                (nm, str(a)) for nm, a in zip(names[1:], amounts)]
+            return TxnDriver(Transaction(ops, rng=rng), submit, TXN_COORD, clock,
+                             prepare_timeout_s=4.0, retransmit_s=0.4, rng=rng)
+
+        active, done = [], []
+        todo = TXN_COUNT
+        t0 = time.perf_counter()
+        while todo or active:
+            while todo and len(active) < TXN_INFLIGHT:
+                active.append(transfer())
+                todo -= 1
+            for d in list(active):
+                r = d.poll()
+                if r is not None:
+                    done.append((d, r))
+                    active.remove(d)
+            c.step_all()
+            steps[0] += 1
+            if steps[0] > 20_000:
+                fail(f"txn: {len(active)} transactions undecided after 20,000 steps")
+        wall = time.perf_counter() - t0
+        committed = [(d, r) for d, r in done if r["outcome"] == COMMITTED]
+        if not committed:
+            fail(f"txn: none of {len(done)} transactions committed")
+        want = {nm: TXN_BALANCE for nm in accounts}
+        for d, _r in committed:
+            for nm, dv in d.txn.ops:
+                want[nm] += int(dv)
+        deadline = time.time() + 60
+        while True:
+            views = [{nm: m.app.totals.get(nm) for nm in accounts} for m in c.managers]
+            if all(v == want for v in views) or time.time() > deadline:
+                break
+            c.step_all()
+        if not all(v == want for v in views):
+            fail(f"txn: balances {views} differ from the committed history {want}")
+        if sum(want.values()) != TXN_BALANCE * len(accounts):
+            fail(f"txn: conservation breach: {want}")
+        for m in c.managers:
+            if m.app.locks or m.app.staged:
+                fail(f"txn: locks left on member {m.my_id}: {m.app.locks} {m.app.staged}")
+        transfers = {"txns": len(done), "committed": len(committed), "steps": steps[0],
+                     "seconds": wall, "txn_per_s": len(done) / wall,
+                     "ms_per_step": wall / steps[0] * 1e3}
+        log(f"txn: {len(done)} transactions over 2-4 of {len(accounts)} groups, "
+            f"{len(committed)} committed, {steps[0]} steps in {wall:.4f} s "
+            f"({transfers['txn_per_s']:.6g} txn/s, {transfers['ms_per_step']:.6g} "
+            "ms a step); balances conserved and equal on every member")
+    finally:
+        c.close()
+
+    # 2. the coordinator-crash commit arm (tests/test_txn.py:287)
+    tmp = tempfile.mkdtemp(prefix="gp_txn_")
+    c = make(log_dirs=[os.path.join(tmp, f"n{r}") for r in range(R)], checkpoint_every=4)
+    try:
+        rid = [1 << 40]
+
+        def send(name, value, max_steps=600):
+            rid[0] += 1
+            box = []
+            for attempt in range(max_steps):
+                if attempt % 40 == 0:
+                    c.managers[0].propose(name, value, request_id=rid[0],
+                                          callback=lambda r, resp: box.append(resp))
+                if box:
+                    return json.loads(box[-1])
+                c.step_all()
+            fail(f"txn: no decision for {name}: {value[:60]}")
+
+        txid = "txcommitarm"
+        ok = [send(TXN_COORD, txc_op("begin", txid, names=["acct0", "acct1"],
+                                     ops=[["acct0", "5"], ["acct1", "7"]], t=0.0))["ok"],
+              send("acct0", tx_op("prepare", txid, vals=["5"]))["ok"],
+              send("acct1", tx_op("prepare", txid, vals=["7"]))["ok"],
+              send(TXN_COORD, txc_op("prepared", txid))["ok"],
+              send(TXN_COORD, txc_op("decide", txid, outcome=COMMITTED))["outcome"]
+              == COMMITTED]
+        if not all(ok):
+            fail(f"txn: commit arm setup: {ok}")
+        c.run(4)
+        t0 = time.perf_counter()
+        for r in range(R):
+            c.restart(r)
+        t_restart = time.perf_counter() - t0
+        for m in c.managers:
+            if m.app.locks.get("acct0") != txid or \
+                    m.app.records[TXN_COORD][txid]["state"] != COMMITTED:
+                fail(f"txn: replay on member {m.my_id} lost the transaction plane")
+        steps = [0]
+
+        def asubmit(name, value, rid_, cb):
+            c.managers[0].propose(name, value, request_id=rid_, callback=cb)
+
+        res_ = TxnResolver(asubmit, TXN_COORD, lambda: steps[0] * 0.05,
+                           resolve_period_s=0.2, presume_abort_s=5.0, retransmit_s=0.2)
+        for _ in range(4000):
+            res_.poll()
+            c.step_all()
+            steps[0] += 1
+            if res_.scans >= 3 and res_.idle():
+                break
+        else:
+            fail(f"txn: the resolver never drained: {res_.live_records}")
+        if res_.resolved_count != 1:
+            fail(f"txn: resolved {res_.resolved_count} transactions, expected 1")
+        for m in c.managers:
+            if (m.app.totals.get("acct0"), m.app.totals.get("acct1")) != \
+                    (TXN_BALANCE + 5, TXN_BALANCE + 7) or m.app.locks or m.app.staged:
+                fail(f"txn: member {m.my_id} after the re-driven commit: "
+                     f"{m.app.totals} {m.app.locks}")
+        log(f"txn: coordinator-crash commit arm: 3 members restarted from their "
+            f"journals in {t_restart:.4f} s, the resolver re-drove the commit in "
+            f"{steps[0]} steps")
+    finally:
+        c.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = dict(te.LAUNCHES)
+    for k in ("gp_step", "gp_make_blob", "gp_create_groups", "gp_pack_rows"):
+        if launches[k] <= 0:
+            fail(f"txn: {k} never launched: {launches}")
+
+    # 3. one pinned seed of the transaction soak at its own shape
+    t0 = time.perf_counter()
+    soak = run_txn_soak(TXN_SOAK_SEED, device=device)
+    soak["seconds"] = time.perf_counter() - t0
+    log(f"txn: run_txn_soak({TXN_SOAK_SEED}) on the card: {soak}")
+    total = dict(te.LAUNCHES)
+    return {"transfers": transfers, "restart_seconds": t_restart, "soak": soak,
+            "launches": total, "seconds": time.perf_counter() - t_phase}
+
+
+def phase_chaos(device) -> dict:
+    """One pinned seed of each chaos family at the harness's own shapes on
+    the card: ``run_soak``, ``run_sharded_soak`` (2 shards) and
+    ``run_density_soak``; any ``SoakDivergence`` fails the run."""
+    from gigapaxos_tpu_torch.manager import PaxosManager
+    from gigapaxos_tpu_torch.ops import engine as te
+    from gigapaxos_tpu_torch.testing import chaos
+    from gigapaxos_tpu_torch.testing.rc_cluster import ReconfigurableCluster
+
+    te.reset_launch_counts()
+    counts = {"cluster_steps": 0, "manager_ticks": 0}
+    saved = (ReconfigurableCluster.step, PaxosManager.tick, PaxosManager.tick_host)
+
+    def counted(fn, key):
+        def wrap(*a, **kw):
+            counts[key] += 1
+            return fn(*a, **kw)
+        return wrap
+
+    ReconfigurableCluster.step = counted(saved[0], "cluster_steps")
+    PaxosManager.tick = counted(saved[1], "manager_ticks")
+    PaxosManager.tick_host = counted(saved[2], "manager_ticks")
+    out = {}
+    try:
+        for family, call in (
+            ("soak", lambda: chaos.run_soak(CHAOS_SEED, device=device)),
+            ("sharded_soak", lambda: chaos.run_sharded_soak(
+                CHAOS_SHARDED_SEED, workers=2, device=device)),
+            ("density_soak", lambda: chaos.run_density_soak(
+                CHAOS_DENSITY_SEED, device=device)),
+        ):
+            for k in counts:
+                counts[k] = 0
+            t0 = time.perf_counter()
+            try:
+                res = call()
+            except chaos.SoakDivergence as e:
+                fail(f"chaos: {family} diverged: {str(e)[:2000]}")
+            res = {**res, **counts, "seconds": time.perf_counter() - t0}
+            out[family] = res
+            log(f"chaos: run_{family} on the card: {res}")
+    finally:
+        ReconfigurableCluster.step, PaxosManager.tick, PaxosManager.tick_host = saved
+    launches = dict(te.LAUNCHES)
+    for k in ("gp_step", "gp_make_blob", "gp_create_groups", "gp_kill_groups",
+              "gp_restore_paused_rows", "gp_pack_rows"):
+        if launches[k] <= 0:
+            fail(f"chaos: {k} never launched: {launches}")
+    out["launches"] = launches
+    return out
+
+
+
 def kernels_line(diff: Diff, head: dict, step_t: dict, life: dict, dens: dict,
-                 xfer: dict, srv: dict, pack: dict, rcs: dict, rcn: dict) -> list:
+                 xfer: dict, srv: dict, pack: dict, rcs: dict, rcn: dict,
+                 shd: dict, txn: dict, chs: dict) -> list:
     """The kernels line's entries, from the phases' results."""
     srv_t, den_t = step_t["server"], step_t["density"]
     per_path = {"density": dens["launches_total"], "state_transfer": xfer["launches"],
                 "server": srv["launches"], "rc_stepped": rcs["launches"],
-                "reconfiguration": rcn["launches"]}
+                "reconfiguration": rcn["launches"], "sharded": shd["launches"],
+                "txn": txn["launches"], "chaos": chs["launches"]}
     on_paths = lambda name: {p: per_path[p][name] for p in per_path}
     at_shape = lambda t, *keys: {k: t[k] for k in ("shape",) + keys}
     kernels = [
@@ -1834,7 +2506,8 @@ def kernels_line(diff: Diff, head: dict, step_t: dict, life: dict, dens: dict,
             },
             **{f"{p}_shape": at_shape(step_t[p], "ms", "ms_events", "ms_fresh",
                                       "bound_ms", "plain_ms", "share")
-               for p in ("ar", "rc")},
+               for p in ("ar", "rc", "worker")},
+            "checked_shapes": {k: step_t[k]["shape"] for k in step_t},
         },
         {
             "name": "gp_make_blob", "route": "cuda",
@@ -1861,7 +2534,8 @@ def kernels_line(diff: Diff, head: dict, step_t: dict, life: dict, dens: dict,
             },
             **{f"{p}_shape": at_shape(step_t[p], "make_blob_ms", "make_blob_ms_events",
                                       "make_blob_plain_ms", "make_blob_bound_ms")
-               for p in ("ar", "rc")},
+               for p in ("ar", "rc", "worker")},
+            "checked_shapes": {k: step_t[k]["shape"] for k in step_t},
         },
     ]
     for name, _fn, ref, path in LIFE_KERNELS:
@@ -1886,6 +2560,7 @@ def kernels_line(diff: Diff, head: dict, step_t: dict, life: dict, dens: dict,
                    ("G", "W", "N", "ms", "ms_events", "ms_call", "ms_stage",
                     "plain_ms", "library_ms", "bound_ms")}
                for p in ("headline", "rc")},
+            "checked_shapes": {k: LIFE_SHAPES[k][:2] for k in LIFE_SHAPES},
         })
     t_pack = pack["ar4"]
     kernels.append({
@@ -1902,6 +2577,7 @@ def kernels_line(diff: Diff, head: dict, step_t: dict, life: dict, dens: dict,
         "shape": {k: t_pack[k] for k in ("G", "W", "R")},
         "comparisons": diff.checked["gp_pack_rows"],
         **{p: pack[p] for p in ("ar3", "rc", "rc4")},
+        "checked_shapes": dict(PACK_SHAPES),
     })
     return kernels
 
@@ -1922,6 +2598,9 @@ def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "gigapaxos_tpu_torch", "csrc")):
         fail("run from a checkout: gigapaxos_tpu_torch/ is missing")
     sys.path.insert(0, HERE)
+    # the serving workers phase 10 spawns import the package from here too
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        [HERE] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p])
     # a hang anywhere dumps every thread's stack and exits nonzero before
     # the run's time limit
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
@@ -1968,6 +2647,15 @@ def main() -> int:
         ("server", lambda: phase_server(device)),
         ("rc_stepped", lambda: phase_rc_stepped(device)),
         ("reconfiguration", lambda: phase_reconfiguration(device)),
+        ("sharded", lambda: phase_sharded(device, out.get("server"))),
+        # the control: the same deployment with each worker at the server
+        # shape's rows, so that ticks/s per process can be held against
+        # phase 6's at equal rows per engine
+        ("sharded_rows", lambda: phase_sharded(
+            device, out.get("server"), rows=SHARDED_WORKERS * SERVER["G"],
+            label="sharded_rows")),
+        ("txn", lambda: phase_txn(device)),
+        ("chaos", lambda: phase_chaos(device)),
     ]
     only = [p for p in (args.phases or "").split(",") if p]
     unknown = set(only) - {name for name, _ in phases}
@@ -1988,7 +2676,8 @@ def main() -> int:
     # report
     kernels = kernels_line(diff, out["headline"], out["step_shapes"], out["lifecycle"],
                            out["density"], out["state_transfer"], out["server"],
-                           out["pack_rows"], out["rc_stepped"], out["reconfiguration"])
+                           out["pack_rows"], out["rc_stepped"], out["reconfiguration"],
+                           out["sharded"], out["txn"], out["chaos"])
     for k in kernels:
         if k["launches"] <= 0:
             fail(f"{k['name']}: no launch on the "
@@ -1996,6 +2685,22 @@ def main() -> int:
     head, srv, dens, xfer = out["headline"], out["server"], out["density"], out["state_transfer"]
     rcs, rcn, pack = out["rc_stepped"], out["reconfiguration"], out["pack_rows"]["ar4"]
     ab, ch = dens["ablation"], dens["churn"]
+    shd, txn, chs = out["sharded"], out["txn"], out["chaos"]
+    ctl = out["sharded_rows"]
+    chaos_s = ", ".join(f"{k} {v['seconds']:.4g} s" for k, v in chs.items()
+                        if k != "launches")
+    log(f"summary: sharded {shd['req_per_s']:.6g} req/s p50 {shd['p50_ms']:.6g} ms "
+        f"p99 {shd['p99_ms']:.6g} ms over {SERVER['R']} actives x {SHARDED_WORKERS} "
+        f"workers; ticks/s per process over the request window: phase 6 "
+        f"{[round(t, 4) for t in srv['ticks_per_s']]} (3 servers in one process, "
+        f"{SERVER['G']} rows each), workers at {shd['worker_shape'][0]} rows "
+        f"{[[round(t, 4) for t in per] for per in shd['ticks_per_s']]}, at "
+        f"{ctl['worker_shape'][0]} rows "
+        f"{[[round(t, 4) for t in per] for per in ctl['ticks_per_s']]}; "
+        f"txn {txn['transfers']['txns']} transactions "
+        f"({txn['transfers']['committed']} committed) in "
+        f"{txn['transfers']['seconds']:.6g} s, soak {txn['soak']['steps']} steps; "
+        f"chaos {chaos_s}")
     log(f"summary: headline steady {head['arms']['steady']['dec_per_s']:.6g} "
         f"dec/s, failover {head['arms']['failover']['dec_per_s']:.6g} dec/s; "
         f"server {srv['req_per_s']:.6g} req/s p50 {srv['p50_ms']:.6g} ms "

@@ -495,6 +495,15 @@ def _rows(idx, G: int, what: str, dedupe: bool = False) -> np.ndarray:
     return h.astype(np.int32)
 
 
+def kill_bitmap(rows: np.ndarray, G: int) -> np.ndarray:
+    """The batch of ``gp_kill_kernel`` as a bitmap: bit ``g % 32`` of word
+    ``g // 32`` is set where row ``g`` is killed (int32 words)."""
+    bits = np.zeros(-(-G // 32), np.uint32)
+    r = rows.astype(np.int64)
+    np.bitwise_or.at(bits, r >> 5, (np.uint32(1) << (r & 31).astype(np.uint32)))
+    return bits.view(np.int32)
+
+
 def _host_i32(val, shape, what: str) -> np.ndarray:
     """Host values -> a contiguous int32 array of ``shape`` (broadcast as
     the plain version's row assignment broadcasts; int32 wraparound as
@@ -548,8 +557,12 @@ class Staged:
                 on_dev[leaf] = val
             else:
                 staged.append(_host_i32(val, shape_of(leaf), f"{name}.{leaf}"))
+        if op == OP_KILL:
+            staged.append(kill_bitmap(rows, G))
         flat = torch.from_numpy(np.concatenate([x.ravel() for x in staged])).to(dev)
         a.idx = flat.data_ptr()
+        if op == OP_KILL:
+            a.inp[0] = flat.data_ptr() + 4 * N
         off = N
         for leaf in inputs:
             if leaf in on_dev:

@@ -103,8 +103,29 @@ class ActiveReplicaServer(PaxosServer):
                 self._stop_events.append((name, row, epoch))
 
         self.manager.on_stop_executed = deferred_stop
-        # the app-request REST front (HttpActiveReplica analog,
-        # http_front.py) is not ported yet: ROADMAP item 10
+        # app-request REST (HttpActiveReplica analog) at port + offset
+        self._http = None
+        try:
+            from .http_front import start_ar_http
+
+            self._http = start_ar_http(
+                self.transport.listen_host,
+                self.transport.listen_port
+                + Config.get_int(PC.HTTP_PORT_OFFSET),
+                lambda name, value, cb: self.manager.propose(
+                    name, value, callback=cb
+                ),
+                overloaded=self.manager.overloaded,
+                metrics=self.manager.metrics.render,
+            )
+        except OSError:
+            pass  # HTTP port taken: binary protocol still fully serves
+
+    def stop(self) -> None:
+        if self._http is not None:
+            self._http.shutdown()
+            self._http.server_close()  # release the bound listen socket
+        super().stop()
 
     def _reply_client(self, dst, kind, body) -> None:
         pass  # ARs never address clients through the epoch plane
@@ -184,8 +205,33 @@ class ReconfiguratorServer(PaxosServer):
         # bootstrap the RC-record RSM (the AR_RC_NODES-style special group,
         # ReconfigurableNode.java:160-181): deterministic row on every RC
         self.manager.create_paxos_instance(RC_GROUP, rc_ids)
-        # the REST front (HttpReconfigurator analog, http_front.py) is
-        # not ported yet: ROADMAP item 10
+        # REST front-end (HttpReconfigurator analog) at port + offset
+        self._http = None
+        try:
+            from .http_front import start_rc_http
+
+            def submit(kind: str, body: Dict, waiter) -> None:
+                op = dict(body)
+                op["client"] = self._register_client_fn(waiter)
+                with self._layer_lock:
+                    self.reconfigurator.handle_message(kind, op)
+
+            self._http = start_rc_http(
+                self.transport.listen_host,
+                self.transport.listen_port
+                + Config.get_int(PC.HTTP_PORT_OFFSET),
+                submit,
+                metrics=self.manager.metrics.render,
+                stats=self._layer_stats,
+            )
+        except OSError:
+            pass  # HTTP port taken: binary protocol still fully serves
+
+    def stop(self) -> None:
+        if self._http is not None:
+            self._http.shutdown()
+            self._http.server_close()  # release the bound listen socket
+        super().stop()
 
     # ---- client replies -------------------------------------------------
     def _register_client(self, reply) -> List:
@@ -315,23 +361,38 @@ class ReconfigurableNode:
             raise ValueError(
                 f"{name!r} appears in neither active.* nor reconfigurator.*"
             )
+        n_workers = Config.get_int(PC.SERVING_WORKERS)
         if ar_id is not None:
-            n_workers = Config.get_int(PC.SERVING_WORKERS)
             if n_workers > 1:
-                # sharded serving (the accept/route parent over worker
-                # processes, serving/) is not ported yet
-                raise NotImplementedError(
-                    f"SERVING_WORKERS={n_workers}: sharded serving is not "
-                    "ported yet (ROADMAP item 10); run with SERVING_WORKERS=1"
+                # sharded serving: this process becomes the accept/route
+                # parent; worker PROCESSES own the engine/journal per
+                # name shard (serving/), on this node's device.  The RC
+                # role (if this node holds one) stays unsharded below.
+                from .serving.router import ShardedActiveNode
+
+                self.servers.append(
+                    ShardedActiveNode(name, n_workers, device=device)
                 )
-            self.servers.append(ActiveReplicaServer(
-                ar_id, ar_nodes, rc_nodes, make_app(), ar_cfg,
-                log_dir=(f"{log_dir}/ar{ar_id}" if log_dir else None),
-                device=device, **server_kw,
-            ))
+            else:
+                self.servers.append(ActiveReplicaServer(
+                    ar_id, ar_nodes, rc_nodes, make_app(), ar_cfg,
+                    log_dir=(f"{log_dir}/ar{ar_id}" if log_dir else None),
+                    device=device, **server_kw,
+                ))
         if rc_id is not None:
+            rc_ar_cfg = ar_cfg
+            if n_workers > 1:
+                # the actives' names live in worker shards of
+                # ENGINE_ROWS / SERVING_WORKERS rows each: probe rows in
+                # that space (a deliberate divergence from the JAX
+                # package, which probes ENGINE_ROWS and so can place a
+                # name beyond its worker's engine; ROADMAP section C)
+                from .serving import worker_rows
+
+                rc_ar_cfg = ar_cfg._replace(n_groups=worker_rows(
+                    Config.get_int(PC.ENGINE_ROWS), n_workers))
             self.servers.append(ReconfiguratorServer(
-                rc_id, ar_nodes, rc_nodes, rc_cfg, ar_cfg,
+                rc_id, ar_nodes, rc_nodes, rc_cfg, rc_ar_cfg,
                 log_dir=(f"{log_dir}/rc{rc_id}" if log_dir else None),
                 device=device, **server_kw,
             ))

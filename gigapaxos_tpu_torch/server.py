@@ -40,10 +40,23 @@ from .obs.metrics import collect_process_gauges
 from .net.node_config import NodeConfig
 from .net.transport import MessageTransport
 from .obs import gplog
-from .ops.engine import EngineConfig
+from .ops.engine import LAUNCHES, EngineConfig
 from .paxos_config import PC
 from .utils.config import Config
 from .utils.profiler import DelayProfiler
+
+
+def _device_memory(device) -> Optional[Dict[str, int]]:
+    """Free, total and allocated bytes of the card the engine runs on
+    (None on the CPU): with several serving workers on one card, each
+    reports its own view through the ``stats`` op."""
+    if device.type != "cuda":
+        return None
+    import torch
+
+    free, total = torch.cuda.mem_get_info(device)
+    return {"free": int(free), "total": int(total),
+            "allocated": int(torch.cuda.memory_allocated(device))}
 
 
 class PaxosServer:
@@ -618,6 +631,20 @@ class PaxosServer:
             reply(encode_json("admin_response", self.my_id, {
                 "op": op, "name": body["name"], "ok": bool(ok),
             }))
+        elif op == "app_state":
+            # one name's replica state on this node: hosted or not, and
+            # the app's checkpoint.  Not in the JAX package: a sharded
+            # node's members live in worker processes, and this is how a
+            # check outside them reads their state (the router sends a
+            # named admin op to the name's shard)
+            name = body["name"]
+            row = self.manager.names.get(name)
+            reply(encode_json("admin_response", self.my_id, {
+                "op": op, "name": name, "ok": True,
+                "hosted": row is not None, "row": row,
+                "checkpoint": (self.manager.app.checkpoint(name)
+                               if row is not None else None),
+            }))
         elif op in ("hibernate", "restore"):
             # checkpoint-and-sleep / local wake-up (PaxosManager.java:
             # 2209-2252) — node-local ops, like the reference's
@@ -664,6 +691,12 @@ class PaxosServer:
                     "mesh": self.manager.mesh_info(),
                     "compile": self.manager.engine_compile_stats(),
                     "heat": self._heat_stats(),
+                    # the engine's shape, this process's kernel launches
+                    # and card memory: a sharded node's router cannot read
+                    # its workers' any other way
+                    "shape": list(self.cfg),
+                    "launches": dict(LAUNCHES),
+                    "device_memory": _device_memory(self.manager.device),
                 },
                 # residency plane: engine rows vs paused-in-RAM vs
                 # paused-on-disk (+ the spill store's segment/compaction

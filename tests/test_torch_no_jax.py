@@ -9,7 +9,12 @@ present (no silent fallback to the CPU).  With the finder still on, it
 then loads what the port's default configuration names by dotted path
 (the reconfigurators' demand profile and placement policy, the CLI
 node's default app): an ``importlib`` default that named the JAX package
-would be refused there, though no module imports it.
+would be refused there, though no module imports it.  The sharded-serving
+slice adds to the probe: the serving, HTTP, transaction, trace-merge and
+chaos modules by name, the worker module the supervisor spawns (found by
+its dotted name, as ``python -m`` finds it) and the worker's default
+``APPLICATION``; and with no card, ``run_sharded_soak`` and the sharded
+parent refuse to run without a device.
 """
 
 import pathlib
@@ -74,6 +79,43 @@ leaked = sorted(
     if any(k == b or k.startswith(b + ".") for b in BLOCKED)
 )
 assert not leaked, leaked
+
+# the slice's modules, each by name (a rename would drop out of the walk)
+for m in ("serving", "serving.router", "serving.supervisor", "serving.worker",
+          "http_front", "txn", "txn.app", "txn.driver", "txn.recovery",
+          "txn.transactor", "obs.tracemerge", "testing.chaos"):
+    assert f"gigapaxos_tpu_torch.{m}" in mods, m
+import importlib.util
+import inspect
+
+from gigapaxos_tpu_torch.serving import supervisor, worker
+
+spawned = [x for x in inspect.getsource(supervisor).split('"') if x.endswith(".serving.worker")]
+assert spawned == ["gigapaxos_tpu_torch.serving.worker"], spawned
+spec = importlib.util.find_spec(spawned[0])
+assert spec is not None and spec.origin == worker.__file__, spec
+worker_app = [x for x in inspect.getsource(worker).split() if "app_class" in x]
+assert worker_app, "the worker no longer loads APPLICATION through app_class"
+if not torch.cuda.is_available():
+    from gigapaxos_tpu_torch.serving.router import ShardedActiveNode
+    from gigapaxos_tpu_torch.testing.chaos import run_sharded_soak
+    from gigapaxos_tpu_torch.utils.config import Config
+
+    Config.set("active.AR0", "127.0.0.1:1")
+    for call in (lambda: run_sharded_soak(20260804, workers=2, rounds=1),
+                 lambda: ShardedActiveNode("AR0", 2)):
+        try:
+            call()
+        except RuntimeError as e:
+            assert "no CUDA device" in str(e), e
+        else:
+            raise AssertionError("ran without a device and without a card")
+    Config.clear()
+leaked = sorted(
+    k for k in sys.modules
+    if any(k == b or k.startswith(b + ".") for b in BLOCKED)
+)
+assert not leaked, leaked
 print("DEFAULTS", " ".join(f"{c.__module__}.{c.__name__}" for c in loaded))
 print("IMPORTED", len(mods))
 """
@@ -86,7 +128,7 @@ def test_port_imports_without_jax():
     )
     assert r.returncode == 0, r.stdout + r.stderr
     n = int(r.stdout.split("IMPORTED")[1].split()[0])
-    assert n >= 60, r.stdout
+    assert n >= 72, r.stdout
     assert r.stdout.split("DEFAULTS")[1].split()[:3] == [
         "gigapaxos_tpu_torch.reconfiguration.demand.DemandProfile",
         "gigapaxos_tpu_torch.reconfiguration.placement.ProximateBalancePolicy",

@@ -14,8 +14,8 @@ plain engine), at their own tiny shapes and with their own checks:
   on re-issue) and anycast with one active dead, exactly once.
 
 Plus the entry points' device contract: with no card and no device the
-node and the stepped harness raise, ``SERVING_WORKERS > 1`` raises ``NotImplementedError``, and
-the CLI (``python -m gigapaxos_tpu_torch.reconfigurable_node NAME...
+node and the stepped harness raise, ``SERVING_WORKERS > 1`` boots the
+sharded parent (``serving/``) on the node's device, and the CLI (``python -m gigapaxos_tpu_torch.reconfigurable_node NAME...
 DEVICE=cpu``) serves a client from one process.
 """
 
@@ -260,13 +260,33 @@ def test_cluster_without_a_device_raises_with_no_card():
 
 
 def test_sharded_serving_is_not_ported():
+    """The refusal of sharded serving is gone: ``SERVING_WORKERS > 1``
+    gives the active role a ``ShardedActiveNode`` (the accept/route
+    parent) whose workers will run on the node's device, and raises no
+    ``NotImplementedError``; the reconfigurator role stays unsharded.
+    (The name dates from when the port raised here; it is kept so that
+    the test's record carries on.)"""
+    from gigapaxos_tpu_torch.reconfigurable_node import ReconfiguratorServer
+    from gigapaxos_tpu_torch.serving.router import ShardedActiveNode
+
     Config.clear()
     try:
         Config.set("active.AR0", "127.0.0.1:1")
+        Config.set("reconfigurator.AR0", "127.0.0.1:2")
         Config.set("SERVING_WORKERS", "2")
-        with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-            ReconfigurableNode("AR0", HashChainApp,
-                               ar_cfg=EngineConfig(8, 8, 4, 1), device="cpu")
+        node = ReconfigurableNode("AR0", HashChainApp,
+                                  ar_cfg=EngineConfig(8, 8, 4, 1),
+                                  rc_cfg=EngineConfig(8, 8, 4, 1), device="cpu")
+        sharded, rc = node.servers
+        assert isinstance(sharded, ShardedActiveNode)
+        assert sharded.router.n_workers == 2 and sharded.device.type == "cpu"
+        assert sharded.supervisor.extra_args[-1] == "DEVICE=cpu"
+        assert isinstance(rc, ReconfiguratorServer)
+        sharded.router.link.close()
+        if rc._http is not None:  # mounted at construction; never started
+            rc._http.shutdown()
+            rc._http.server_close()
+        rc.manager.close()
     finally:
         Config.clear()
 

@@ -79,7 +79,8 @@ def _popcount(x: int) -> int:
 def _emulated_launch(a) -> None:
     """``gp_lifecycle_launch`` on host memory: the copy pass over every
     leaf with an output pointer, then the row pass (extract: the gather
-    alone), each row as the CUDA kernel writes it."""
+    alone), each row as the CUDA kernel writes it; for kill, the bitmap
+    the kernel reads is checked against the batch first."""
     G, W, N, op = int(a.G), int(a.W), int(a.N), int(a.op)
     assert 0 <= op <= gp_kernels.OP_EXTRACT and G >= 1 and W >= 1 and N >= 0
     shape = lambda f, rows: (rows, W) if f in GW else (rows,)
@@ -91,9 +92,17 @@ def _emulated_launch(a) -> None:
             out[...] = s[f]
     elif o:
         raise AssertionError("extract got state outputs")
+    if op == gp_kernels.OP_KILL:
+        # what the kernel reads instead of idx: the batch as a bitmap
+        bits = _host(a.inp[0], (-(-G // 32),)).view(np.uint32)
+        want = np.zeros(G, bool)
+        want[_host(a.idx, (N,)) if N else []] = True
+        got = ((bits[np.arange(G) >> 5] >> (np.arange(G) & 31).astype(np.uint32)) & 1) == 1
+        assert (got == want).all(), "kill bitmap does not mark exactly the batch"
     if N == 0:
         return
-    i = {f: _host(a.inp[L[f]], shape(f, N)) for f in FIELDS if a.inp[L[f]]}
+    i = {f: _host(a.inp[L[f]], shape(f, N)) for f in FIELDS
+         if a.inp[L[f]] and op != gp_kernels.OP_KILL}
     idx = _host(a.idx, (N,)).astype(np.int64)
     assert len(set(idx.tolist())) == N and idx.min() >= 0 and idx.max() < G
     if op == gp_kernels.OP_EXTRACT:
