@@ -31,7 +31,8 @@ Phases (any failure exits nonzero):
              N=4,096) and the reconfigurators' shape (G=64, W=16; N=1),
              a sharded worker's (G=32,768, W=16; N in {1, 7, 64}) and the
              chaos and transaction soaks' (G in {24, 8, 16, 48}, W=8; N in
-             {1, 7, G}); the input state unchanged, untouched leaves the input's own
+             {1, 7, G}) and the recovery path's (G=262,144, W=8; N in
+             {1, 32,768}); the input state unchanged, untouched leaves the input's own
              tensors, bad row batches refused; then each op's launch time
              (on the device: a CUDA graph of launches; and by events
              around a loop), full call time, plain and index_copy times.
@@ -58,7 +59,8 @@ Phases (any failure exits nonzero):
              actives' (G=65,536, W=16, K=8, R=4), the reconfigurators'
              (G=64, W=16, K=8, R=3), a sharded worker's (G=32,768, W=16,
              K=8, R=3) and the soaks' (G, W, K, R) = (24, 8, 4, 4),
-             (8, 8, 4, 3), (16, 8, 4, 3) and (48, 8, 4, 1): every shape
+             (8, 8, 4, 3), (16, 8, 4, 3) and (48, 8, 4, 1) and the
+             recovery path's (262,144, 8, 4, 1): every shape
              that a later phase launches a kernel at; then their times (device and events),
              each step's share of its bound and its launch plan.
 4. density — testing/density.py on the card: 1,048,576 names on 65,536
@@ -123,10 +125,24 @@ Phases (any failure exits nonzero):
              card: run_soak(1234), run_sharded_soak(20260804, workers=2),
              run_density_soak(1); steps, ticks and seconds; any
              SoakDivergence fails the run.
-13. report — the kernels line, then the device line (last).
+13. recovery — testing/recovery.py on the card at the JAX package's
+             recovery probe's published defaults, uncut: 262,144 names on
+             262,144 rows (W=8, K=4, one replica), 2,048 names driven
+             before a 16-shard checkpoint, 32,768 after it into a journal
+             of 4 MB files, 512 B app states; a cold restart with 4 replay
+             workers and 1,024 hot names, then the eager baseline.  Every
+             name holds its expected total after full hydration, the hot
+             name is answered while the node is still recovering, the
+             journal spans at least 2 files, the restarted leaves equal the
+             crashed node's last leaves and a CPU restart's of the same
+             directory bit for bit, and the restarted manager launched
+             gp_step and gp_make_blob; restart-to-serving, first-serve,
+             full-hydration, eager, replay, create and checkpoint seconds
+             and the directory's bytes.
+14. report — the kernels line, then the device line (last).
 
 Kernel launch counts are reset to 0 just before each main-path run
-(phases 3 to 8 and 10 to 12) and read just after; parity and timing
+(phases 3 to 8 and 10 to 13) and read just after; parity and timing
 launches do not count.  Phase 10's launches are its worker processes'
 counts (read through the stats admin op at the phase's end) plus this
 process's (the reconfigurators).  ``--phases a,b`` runs a subset and prints no report (for
@@ -182,6 +198,12 @@ CHAOS_ENGINES = {"soak_ar": dict(G=24, W=8, K=4, R=4),
 SERVER_NAMES, SERVER_REQS_PER_NAME = 32, 10
 TIMING_ITERS = 30
 WATCHDOG_S = 1140.0
+# the recovery probe's published defaults (scripts/recovery_probe.py:75-96),
+# uncut; its engine is one replica with K=4 (recovery_probe.py:109)
+RECOVERY = dict(g=262_144, names=262_144, active=2048, tail=32_768,
+                pad_bytes=256, state_bytes=512, window=8, shards=16, workers=4,
+                hot=1024, journal_file_mb=4.0)
+RECOVERY_ENGINE = dict(G=RECOVERY["g"], W=RECOVERY["window"], K=4, R=1)
 # lifecycle parity and timing: (G, W, batch sizes)
 # (16,384 is the density path's boot chunk)
 LIFE_SHAPES = {"server": (65_536, 16, (1, 7, 4096, 16_384)),
@@ -189,7 +211,11 @@ LIFE_SHAPES = {"server": (65_536, 16, (1, 7, 4096, 16_384)),
                "rc": (RC["G"], RC["W"], (1,)),
                "worker": (WORKER["G"], WORKER["W"], (1, 7, 64)),
                **{k: (d["G"], d["W"], (1, 7, d["G"]))
-                  for k, d in CHAOS_ENGINES.items()}}
+                  for k, d in CHAOS_ENGINES.items()},
+               # the recovery path's creates: one name, and the probe's
+               # create chunk (recovery_probe.py:124)
+               "recovery": (RECOVERY_ENGINE["G"], RECOVERY_ENGINE["W"],
+                            (1, 32_768))}
 LIFE_TIMING_N = 4096
 DENSITY = dict(names=1_048_576, rows=65_536, window=16, req_lanes=4,
                boot_chunk=16_384, burst=4096, per_name_burst=None,
@@ -200,7 +226,8 @@ DENSITY = dict(names=1_048_576, rows=65_536, window=16, req_lanes=4,
 STEP_SHAPES = {"server": SERVER,
                "density": dict(G=DENSITY["rows"], W=DENSITY["window"],
                                K=DENSITY["req_lanes"], R=1),
-               "ar": AR, "rc": RC, "worker": WORKER, **CHAOS_ENGINES}
+               "ar": AR, "rc": RC, "worker": WORKER, **CHAOS_ENGINES,
+               "recovery": RECOVERY_ENGINE}
 # gp_pack_rows parity and timing: (G, W, R) of every tick that packs (the
 # density soak runs one replica and packs nothing)
 PACK_SHAPES = {"ar3": (65_536, 16, 3), "ar4": (65_536, 16, 4), "rc": (64, 16, 3),
@@ -1599,6 +1626,17 @@ def server_diag(servers) -> str:
     return f"servers {per}; profiler {DelayProfiler.get_stats()}"
 
 
+def tick_stages_ms(before: dict, after: dict) -> dict:
+    """Milliseconds per tick of each host stage a ``DelayProfiler`` sums
+    (its ``t_*`` counts), over the window between two snapshots of its
+    counts (``n_ticks`` counts the ticks of every server it serves)."""
+    n = after.get("n_ticks", 0) - before.get("n_ticks", 0)
+    if n <= 0:
+        return {}
+    return {k: 1e3 * (after[k] - before.get(k, 0)) / n
+            for k in sorted(after) if k.startswith("t_")}
+
+
 def phase_server(device) -> dict:
     import numpy as np
 
@@ -1608,6 +1646,7 @@ def phase_server(device) -> dict:
     from gigapaxos_tpu_torch.ops import engine as te
     from gigapaxos_tpu_torch.server import PaxosServer
     from gigapaxos_tpu_torch.testing.ports import free_ports
+    from gigapaxos_tpu_torch.utils.profiler import DelayProfiler
 
     G, W, K, R = (SERVER[k] for k in ("G", "W", "K", "R"))
     cfg = te.EngineConfig(G, W, K, R)
@@ -1681,10 +1720,13 @@ def phase_server(device) -> dict:
                  f"{ {nm: expected[nm] for nm in list(bad)[:4]} }; "
                  f"{server_diag(servers)}")
 
-        # ticks/s over the request window alone, as phase 10 counts them
+        # ticks/s and the host stages of a tick over the request window
+        # alone, as phase 10 counts them
         ticks0 = [s._tick for s in servers]
+        prof0 = DelayProfiler.get_snapshot()["counts"]
         wall = run_chains(SERVER_REQS_PER_NAME, 0)
         ticks_per_s = [(s._tick - t) / wall for s, t in zip(servers, ticks0)]
+        stages = tick_stages_ms(prof0, DelayProfiler.get_snapshot()["counts"])
         converge("after the first requests")
         n = len(lat)
         lat_ms = np.sort(np.asarray(lat)) * 1e3
@@ -1719,7 +1761,7 @@ def phase_server(device) -> dict:
         res = {
             "requests": n, "names": len(names), "seconds": wall,
             "req_per_s": n / wall, "ticks_per_s": ticks_per_s,
-            "ticks_per_s_phase": ticks_phase,
+            "ticks_per_s_phase": ticks_phase, "tick_stages_ms": stages,
             "p50_ms": float(np.percentile(lat_ms, 50)),
             "p99_ms": float(np.percentile(lat_ms, 99)),
             "create_seconds": t_create,
@@ -1736,7 +1778,8 @@ def phase_server(device) -> dict:
             f"{R} servers in {t_hib:.4f} s, then {n_post} more requests "
             f"correct in {wall_post:.4f} s; ticks/s per server over the first "
             f"requests {[round(t, 4) for t in ticks_per_s]} (over the phase "
-            f"{[round(t, 4) for t in ticks_phase]}); "
+            f"{[round(t, 4) for t in ticks_phase]}); host stages of a tick "
+            f"over the first requests, ms per tick: {stages}; "
             f"launches {launches}, per manager {per_mgr}")
         return res
     finally:
@@ -2072,7 +2115,8 @@ def phase_sharded(device, server: dict = None, rows: int = SERVER["G"],
                         errors.append((nm, v, resp, h[:16]))
             chains[nm] = h
 
-        ticks0 = [[w["tick"] for w in st["workers"]] for st in stats_all()]
+        sts0 = stats_all()
+        ticks0 = [[w["tick"] for w in st["workers"]] for st in sts0]
         threads = [threading.Thread(target=chain, args=(nm,)) for nm in names]
         t0 = time.perf_counter()
         for th in threads:
@@ -2080,7 +2124,11 @@ def phase_sharded(device, server: dict = None, rows: int = SERVER["G"],
         for th in threads:
             th.join()
         wall = time.perf_counter() - t0
-        ticks1 = [[w["tick"] for w in st["workers"]] for st in stats_all()]
+        sts1 = stats_all()
+        ticks1 = [[w["tick"] for w in st["workers"]] for st in sts1]
+        # the host stages of one worker's tick (AR0's first) over the window
+        stages = tick_stages_ms(sts0[0]["workers"][0]["profiler"]["counts"],
+                                sts1[0]["workers"][0]["profiler"]["counts"])
         if errors:
             fail(f"{label}: {len(errors)} wrong responses, first {errors[0]}")
         ticks_per_s = [[(b - a) / wall for a, b in zip(t0_, t1_)]
@@ -2201,7 +2249,8 @@ def phase_sharded(device, server: dict = None, rows: int = SERVER["G"],
             "requests": len(lat), "req_per_s": len(lat) / wall,
             "p50_ms": float(np.percentile(lat_ms, 50)),
             "p99_ms": float(np.percentile(lat_ms, 99)),
-            "ticks_per_s": ticks_per_s, "deletes": len(deleted),
+            "ticks_per_s": ticks_per_s, "tick_stages_ms": stages,
+            "deletes": len(deleted),
             "delete_seconds": t_delete, "device_memory": mem,
             "launches": launches, "parent_launches": parent,
             "worker_launches": worker_launches,
@@ -2212,11 +2261,15 @@ def phase_sharded(device, server: dict = None, rows: int = SERVER["G"],
             beside = (f" (phase 6, 3 servers in one process: {server['req_per_s']:.6g} "
                       f"req/s, p50 {server['p50_ms']:.6g} ms, p99 "
                       f"{server['p99_ms']:.6g} ms, ticks/s per server "
-                      f"{[round(t, 4) for t in server['ticks_per_s']]})")
+                      f"{[round(t, 4) for t in server['ticks_per_s']]}; host "
+                      f"stages of a server's tick at {SERVER['G']} rows, ms per "
+                      f"tick: {server['tick_stages_ms']})")
         log(f"{label}: {len(lat)} requests over {len(names)} names on {n_ar} actives x "
             f"{n_w} workers: {res['req_per_s']:.6g} req/s, p50 {res['p50_ms']:.6g} ms, "
             f"p99 {res['p99_ms']:.6g} ms, ticks/s per worker "
-            f"{[[round(t, 4) for t in per] for per in ticks_per_s]}{beside}; "
+            f"{[[round(t, 4) for t in per] for per in ticks_per_s]}; host stages "
+            f"of AR0's first worker's tick at {want[0]} rows, ms per tick: "
+            f"{stages}{beside}; "
             f"launches {launches}, per worker {worker_launches} "
             f"({res['seconds']:.1f} s)")
         return res
@@ -2461,16 +2514,64 @@ def phase_chaos(device) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: cold restart from a sharded checkpoint and a multi-file journal
+# ---------------------------------------------------------------------------
+
+
+def phase_recovery(device) -> dict:
+    """``run_recovery`` at the probe's published defaults, uncut, with the
+    eager baseline and a CPU restart of the same directory (module
+    docstring)."""
+    from gigapaxos_tpu_torch.ops import engine as te
+    from gigapaxos_tpu_torch.testing.recovery import RecoveryCheckFailed, run_recovery
+
+    te.reset_launch_counts()
+    try:
+        res = run_recovery(**RECOVERY, eager_baseline=True, compare_cpu=True,
+                           device=device, progress=lambda m: log(f"recovery: {m}"))
+    except RecoveryCheckFailed as e:
+        fail(f"recovery: {e}")
+    launches = dict(te.LAUNCHES)
+    rst = res["restart"]
+    if res["journal_files"] < 2:
+        fail(f"recovery: the journal spans {res['journal_files']} file(s), not 2+")
+    if rst["leaves_differ_from_crashed"]:
+        fail(f"recovery: restarted leaves differ from the crashed node's: "
+             f"{rst['leaves_differ_from_crashed']}")
+    for k in ("gp_step", "gp_make_blob"):
+        if res["restart_launches"].get(k, 0) <= 0:
+            fail(f"recovery: the restarted manager never launched {k}: "
+                 f"{res['restart_launches']}")
+    for k in ("gp_create_groups", "gp_step", "gp_make_blob"):
+        if launches[k] <= 0:
+            fail(f"recovery: {k} never launched: {launches}")
+    res["launches"] = launches
+    log(f"recovery: {res['names']} names on {res['g']} rows, {res['journal_files']} "
+        f"journal files, {res['dir_bytes']} B on disk; create "
+        f"{res['build']['create_s']:.6g} s, checkpoint {res['build']['checkpoint_s']:.6g} "
+        f"s; restart to serving {rst['restart_to_serving_s']:.6g} s, first serve "
+        f"{rst['time_to_first_serve_s']:.6g} s ({rst['phase_at_first_serve']}), full "
+        f"hydration {rst['full_hydrate_s']:.6g} s, eager baseline "
+        f"{res['eager_baseline_restart_s']:.6g} s, replay {rst['replay_s']:.6g} s "
+        f"({rst['replay_segments']} segments, {rst['replay_blocks']} blocks); "
+        f"{rst['names_checked']} names checked, {rst['names_wrong']} wrong; leaves "
+        f"equal to the crashed node's and to a CPU restart's (CPU restart "
+        f"{res['cpu_restart']['restart_s']:.6g} s); restarted manager's launches "
+        f"{res['restart_launches']}; launches {launches}")
+    return res
+
 
 def kernels_line(diff: Diff, head: dict, step_t: dict, life: dict, dens: dict,
                  xfer: dict, srv: dict, pack: dict, rcs: dict, rcn: dict,
-                 shd: dict, txn: dict, chs: dict) -> list:
+                 shd: dict, txn: dict, chs: dict, rec: dict) -> list:
     """The kernels line's entries, from the phases' results."""
     srv_t, den_t = step_t["server"], step_t["density"]
     per_path = {"density": dens["launches_total"], "state_transfer": xfer["launches"],
                 "server": srv["launches"], "rc_stepped": rcs["launches"],
                 "reconfiguration": rcn["launches"], "sharded": shd["launches"],
-                "txn": txn["launches"], "chaos": chs["launches"]}
+                "txn": txn["launches"], "chaos": chs["launches"],
+                "recovery": rec["launches"]}
     on_paths = lambda name: {p: per_path[p][name] for p in per_path}
     at_shape = lambda t, *keys: {k: t[k] for k in ("shape",) + keys}
     kernels = [
@@ -2506,7 +2607,7 @@ def kernels_line(diff: Diff, head: dict, step_t: dict, life: dict, dens: dict,
             },
             **{f"{p}_shape": at_shape(step_t[p], "ms", "ms_events", "ms_fresh",
                                       "bound_ms", "plain_ms", "share")
-               for p in ("ar", "rc", "worker")},
+               for p in ("ar", "rc", "worker", "recovery")},
             "checked_shapes": {k: step_t[k]["shape"] for k in step_t},
         },
         {
@@ -2534,7 +2635,7 @@ def kernels_line(diff: Diff, head: dict, step_t: dict, life: dict, dens: dict,
             },
             **{f"{p}_shape": at_shape(step_t[p], "make_blob_ms", "make_blob_ms_events",
                                       "make_blob_plain_ms", "make_blob_bound_ms")
-               for p in ("ar", "rc", "worker")},
+               for p in ("ar", "rc", "worker", "recovery")},
             "checked_shapes": {k: step_t[k]["shape"] for k in step_t},
         },
     ]
@@ -2559,7 +2660,7 @@ def kernels_line(diff: Diff, head: dict, step_t: dict, life: dict, dens: dict,
             **{p: {k: life[name][p][k] for k in
                    ("G", "W", "N", "ms", "ms_events", "ms_call", "ms_stage",
                     "plain_ms", "library_ms", "bound_ms")}
-               for p in ("headline", "rc")},
+               for p in ("headline", "rc", "recovery")},
             "checked_shapes": {k: LIFE_SHAPES[k][:2] for k in LIFE_SHAPES},
         })
     t_pack = pack["ar4"]
@@ -2656,6 +2757,7 @@ def main() -> int:
             label="sharded_rows")),
         ("txn", lambda: phase_txn(device)),
         ("chaos", lambda: phase_chaos(device)),
+        ("recovery", lambda: phase_recovery(device)),
     ]
     only = [p for p in (args.phases or "").split(",") if p]
     unknown = set(only) - {name for name, _ in phases}
@@ -2677,7 +2779,8 @@ def main() -> int:
     kernels = kernels_line(diff, out["headline"], out["step_shapes"], out["lifecycle"],
                            out["density"], out["state_transfer"], out["server"],
                            out["pack_rows"], out["rc_stepped"], out["reconfiguration"],
-                           out["sharded"], out["txn"], out["chaos"])
+                           out["sharded"], out["txn"], out["chaos"],
+                           out["recovery"])
     for k in kernels:
         if k["launches"] <= 0:
             fail(f"{k['name']}: no launch on the "
@@ -2686,7 +2789,8 @@ def main() -> int:
     rcs, rcn, pack = out["rc_stepped"], out["reconfiguration"], out["pack_rows"]["ar4"]
     ab, ch = dens["ablation"], dens["churn"]
     shd, txn, chs = out["sharded"], out["txn"], out["chaos"]
-    ctl = out["sharded_rows"]
+    ctl, rec = out["sharded_rows"], out["recovery"]
+    rst = rec["restart"]
     chaos_s = ", ".join(f"{k} {v['seconds']:.4g} s" for k, v in chs.items()
                         if k != "launches")
     log(f"summary: sharded {shd['req_per_s']:.6g} req/s p50 {shd['p50_ms']:.6g} ms "
@@ -2701,6 +2805,10 @@ def main() -> int:
         f"({txn['transfers']['committed']} committed) in "
         f"{txn['transfers']['seconds']:.6g} s, soak {txn['soak']['steps']} steps; "
         f"chaos {chaos_s}")
+    log(f"summary: host stages of a tick, ms per tick over the request windows: "
+        f"a phase 6 server at {SERVER['G']} rows {srv['tick_stages_ms']}; AR0's "
+        f"first worker at {shd['worker_shape'][0]} rows {shd['tick_stages_ms']}, at "
+        f"{ctl['worker_shape'][0]} rows {ctl['tick_stages_ms']}")
     log(f"summary: headline steady {head['arms']['steady']['dec_per_s']:.6g} "
         f"dec/s, failover {head['arms']['failover']['dec_per_s']:.6g} dec/s; "
         f"server {srv['req_per_s']:.6g} req/s p50 {srv['p50_ms']:.6g} ms "
@@ -2713,6 +2821,14 @@ def main() -> int:
         f"{rcn['move_p50_ms']:.6g} ms; rc_stepped {rcs['steps_script']} + "
         f"{rcs['steps_lossy']} steps; gp_pack_rows {pack['ms']:.6g} ms vs bound "
         f"{pack['bound_ms']:.6g} ms; on {smi_line}")
+    log(f"summary: recovery {rec['names']} names, {rec['journal_files']} journal "
+        f"files, {rec['dir_bytes']} B: restart to serving "
+        f"{rst['restart_to_serving_s']:.6g} s, first serve "
+        f"{rst['time_to_first_serve_s']:.6g} s, full hydration "
+        f"{rst['full_hydrate_s']:.6g} s, eager baseline "
+        f"{rec['eager_baseline_restart_s']:.6g} s, replay {rst['replay_s']:.6g} s, "
+        f"create {rec['build']['create_s']:.6g} s, checkpoint "
+        f"{rec['build']['checkpoint_s']:.6g} s; on {smi_line}")
     print(smi_line, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

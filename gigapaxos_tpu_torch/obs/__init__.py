@@ -18,8 +18,9 @@ package recreates all three for the array-world runtime:
   :class:`~gigapaxos_tpu_torch.utils.profiler.DelayProfiler`.
 * :mod:`.device` — the device-plane observatory: the signature sentinel
   every ``make_step`` instance is wrapped in, group-heat analysis for the
-  on-device activity accumulator, bounded ``torch.profiler`` captures,
-  and the provenance stamp artifacts carry.
+  on-device activity accumulator, cost attribution (bytes from shapes,
+  allocator statistics), bounded ``torch.profiler`` captures, and the
+  provenance stamp artifacts carry.
 
 This package is the ONLY place in ``gigapaxos_tpu_torch`` allowed to write to
 stderr directly (enforced by ``scripts/check_obs_hygiene.py``); every
@@ -28,9 +29,13 @@ other module routes diagnostics through :func:`gplog.get_logger`.
 
 from .device import (  # noqa: F401
     StepSentinel,
+    all_sentinels,
     capture_profile,
+    compile_stats,
+    device_memory_stats,
     heat_summary,
     provenance,
+    step_cost,
 )
 from .gplog import configure, get_logger, node_logger, warn_once  # noqa: F401
 from .metrics import Histogram, MetricsRegistry  # noqa: F401

@@ -11,7 +11,10 @@
   the device-side per-group activity accumulator into log-bucket
   histograms, a top-K table and a hot-set estimate.
 
-* :func:`capture_profile` — on-demand ``torch.profiler`` traces into a
+* cost attribution (:func:`step_cost`, :func:`device_memory_stats`,
+  :func:`capture_profile`) — the bytes a step must move, counted from its
+  shapes (eager PyTorch has no ahead-of-time cost analysis), per-device
+  allocator statistics, and on-demand ``torch.profiler`` traces into a
   bounded dump directory (the server's ``profile`` admin op).
 
 * :func:`provenance` — the torch/CUDA/device stamp every artifact carries.
@@ -30,10 +33,15 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 
 __all__ = [
     "StepSentinel",
+    "all_sentinels",
+    "compile_stats",
     "arg_fingerprint",
     "HEAT_BOUNDS",
     "heat_summary",
     "provenance",
+    "step_cost",
+    "step_bytes",
+    "device_memory_stats",
     "capture_profile",
     "ProfileBusy",
 ]
@@ -67,6 +75,13 @@ def arg_fingerprint(args: Sequence[Any], kwargs: Optional[Dict] = None):
     return fp
 
 
+# every live sentinel, in creation order — make_step memoizes instances,
+# so this is bounded by the number of distinct (cfg, N, donate, io, heat,
+# device) shapes a process ever builds, not by call volume
+_SENTINELS: List["StepSentinel"] = []
+_SENTINELS_LOCK = threading.Lock()
+
+
 class StepSentinel:
     """Transparent wrapper around a step: records every new signature.
 
@@ -98,6 +113,8 @@ class StepSentinel:
         self.n_compiles = 0
         self.n_retraces = 0
         self.warm = False
+        with _SENTINELS_LOCK:
+            _SENTINELS.append(self)
 
     # -- plumbing ---------------------------------------------------------
 
@@ -197,6 +214,22 @@ class StepSentinel:
             }
 
 
+def all_sentinels() -> List[StepSentinel]:
+    with _SENTINELS_LOCK:
+        return list(_SENTINELS)
+
+
+def compile_stats() -> Dict:
+    """Process-wide compile picture over every memoized step instance
+    (the ``engine.compile`` stats block)."""
+    sents = all_sentinels()
+    return {
+        "compiles": sum(s.n_compiles for s in sents),
+        "retraces": sum(s.n_retraces for s in sents),
+        "instances": [s.stats() for s in sents],
+    }
+
+
 # ---------------------------------------------------------------------------
 # group heat analysis (host side of the on-device [G] accumulator)
 # ---------------------------------------------------------------------------
@@ -278,6 +311,54 @@ def provenance(donate: Optional[bool] = None,
     }
     if extra:
         out.update(extra)
+    return out
+
+
+def step_bytes(G: int, W: int, K: int, R: int) -> int:
+    """Bytes one replica-step must move (all int32): the state read and
+    written (12 [G] and 7 [G, W] leaves), the R gathered blob rows, the K
+    request words, the out vector and the blob written, the want byte per
+    group and R heard bytes."""
+    words = 2 * (12 + 7 * W) + R * (4 + 4 * W) + K + (6 + 3 * W) + (4 + 4 * W)
+    return G * (4 * words + 1) + R
+
+
+def step_cost(fn: Callable, *args) -> Dict:
+    """Cost attribution for one step instance (a :class:`StepSentinel` or
+    the step it wraps, as ``make_step`` returns them): the bytes one call
+    must move, counted from the step's shapes, since eager PyTorch has no
+    ahead-of-time cost analysis.  A packed_host call runs ``N`` replica-
+    steps; a stacked call runs ``N`` steps of all R replicas.  The call's
+    arguments (``args``, as the reference takes them) add nothing the
+    shapes do not say.  The engine is integer arithmetic, so there is no
+    floating-point work (``flops`` 0)."""
+    from ..parallel.spmd import _StackedStep
+
+    target = fn.fn if isinstance(fn, StepSentinel) else fn
+    cfg = target.cfg
+    G, W, K, R = cfg.n_groups, cfg.window, cfg.req_lanes, cfg.n_replicas
+    replica_steps = target.n_steps * (R if isinstance(target, _StackedStep) else 1)
+    per = step_bytes(G, W, K, R)
+    return {
+        "flops": 0.0,
+        "bytes_accessed": float(per * replica_steps),
+        "bytes_per_replica_step": per,
+        "replica_steps": replica_steps,
+    }
+
+
+def device_memory_stats() -> Dict[str, Dict[str, int]]:
+    """Per-device ``torch.cuda.memory_stats()`` (the allocator's peak
+    among them), keyed by device index.  Empty on the CPU."""
+    import torch
+
+    out: Dict[str, Dict[str, int]] = {}
+    if not torch.cuda.is_available():
+        return out
+    for i in range(torch.cuda.device_count()):
+        ms = torch.cuda.memory_stats(i)
+        if ms:
+            out[str(i)] = {k: int(v) for k, v in ms.items() if isinstance(v, int)}
     return out
 
 

@@ -18,15 +18,18 @@ Phases, as the probe runs them:
 
 On the card every lifecycle op launches its ``gp_lifecycle.cu`` kernel;
 :func:`run_density` reports the launches of each phase.  It writes no
-artifact: the caller prints or stores the returned dict.
+artifact: the caller stores the returned dict, as the CLI does with
+``--out`` (its progress goes through ``obs/gplog``).
 
-    python -m gigapaxos_tpu_torch.testing.density --names 65536 --rows 8192
+    python -m gigapaxos_tpu_torch.testing.density --names 65536 --rows 8192 \\
+        --out DENSITY_cuda.json
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import logging
 import shutil
 import sys
 import tempfile
@@ -34,6 +37,10 @@ import time
 from typing import Callable, Dict, Optional
 
 import numpy as np
+
+from ..obs import gplog
+
+log = gplog.get_logger("density")
 
 # EngineState: 12 [G] + 7 [G, W] int32 leaves
 STATE_G_LEAVES = 12
@@ -323,16 +330,26 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
+    ap.add_argument("--out", default=None,
+                    help="write the result as JSON to this file")
     args = ap.parse_args(argv)
+    gplog.configure()
+    log.setLevel(logging.INFO)
     res = run_density(
         names=args.names, rows=args.rows, window=args.window,
         boot_chunk=args.boot_chunk, burst=args.burst,
         per_name_burst=args.per_name_burst, hot_pct=args.hot_pct,
         rounds=args.rounds, round_requests=args.round_requests,
         zipf_a=args.zipf_a, seed=args.seed, device=args.device,
-        progress=lambda msg: print(msg, file=sys.stderr, flush=True),
+        progress=log.info,
     )
-    print(json.dumps(res, indent=2))
+    text = json.dumps(res, indent=2)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(text + "\n")
+        log.info("wrote %s", args.out)
+    else:
+        log.info("%s", text)
     return 0
 
 

@@ -14,7 +14,9 @@ slice adds to the probe: the serving, HTTP, transaction, trace-merge and
 chaos modules by name, the worker module the supervisor spawns (found by
 its dotted name, as ``python -m`` finds it) and the worker's default
 ``APPLICATION``; and with no card, ``run_sharded_soak`` and the sharded
-parent refuse to run without a device.
+parent refuse to run without a device.  The recovery slice adds the
+recovery probe's module and the ``obs`` exports, and with no card
+``run_recovery`` refuses to run without a device.
 """
 
 import pathlib
@@ -83,8 +85,20 @@ assert not leaked, leaked
 # the slice's modules, each by name (a rename would drop out of the walk)
 for m in ("serving", "serving.router", "serving.supervisor", "serving.worker",
           "http_front", "txn", "txn.app", "txn.driver", "txn.recovery",
-          "txn.transactor", "obs.tracemerge", "testing.chaos"):
+          "txn.transactor", "obs.tracemerge", "testing.chaos",
+          "testing.recovery"):
     assert f"gigapaxos_tpu_torch.{m}" in mods, m
+from gigapaxos_tpu_torch.obs import (all_sentinels, compile_stats,  # noqa: F401
+                                     device_memory_stats, step_cost)
+from gigapaxos_tpu_torch.testing.recovery import run_recovery
+
+if not torch.cuda.is_available():
+    try:
+        run_recovery(g=8, names=8, active=1, tail=2)
+    except RuntimeError as e:
+        assert "no CUDA device" in str(e), e
+    else:
+        raise AssertionError("run_recovery ran without a device and without a card")
 import importlib.util
 import inspect
 
@@ -128,7 +142,7 @@ def test_port_imports_without_jax():
     )
     assert r.returncode == 0, r.stdout + r.stderr
     n = int(r.stdout.split("IMPORTED")[1].split()[0])
-    assert n >= 72, r.stdout
+    assert n >= 81, r.stdout
     assert r.stdout.split("DEFAULTS")[1].split()[:3] == [
         "gigapaxos_tpu_torch.reconfiguration.demand.DemandProfile",
         "gigapaxos_tpu_torch.reconfiguration.placement.ProximateBalancePolicy",
