@@ -157,3 +157,14 @@ def reset_for_tests() -> None:
     for name, lg in list(logging.Logger.manager.loggerDict.items()):
         if name.startswith(ROOT + ".") and isinstance(lg, logging.Logger):
             lg.setLevel(logging.NOTSET)
+
+
+def emit(text: str = "", err: bool = False) -> None:
+    """A command-line tool's output for its caller to read (a JSON result
+    line, a rendered timeline) on standard output, or on standard error
+    with ``err``: the tool's product, not a log record, so it passes no
+    level check.  The package's tools (``testing/bench.py``,
+    ``testing/probe.py``, ``gp_server.py``, ...) write through here."""
+    stream = sys.stderr if err else sys.stdout
+    stream.write(f"{text}\n")
+    stream.flush()

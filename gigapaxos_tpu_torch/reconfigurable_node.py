@@ -406,6 +406,16 @@ class ReconfigurableNode:
             s.stop()
 
 
+def check_application(path: str) -> None:
+    """Refuse an ``APPLICATION`` of the JAX package: loading it would
+    import JAX into a node of the port.  Nothing rewrites it silently."""
+    if path == "gigapaxos_tpu" or path.startswith("gigapaxos_tpu."):
+        raise ValueError(
+            f"APPLICATION={path} names the JAX package; a node of the port "
+            "loads its apps from gigapaxos_tpu_torch (for example "
+            "gigapaxos_tpu_torch.models.apps.NoopPaxosApp)")
+
+
 def app_class() -> type:
     """The Replicable class the ``APPLICATION`` setting names (a dotted
     path; default: this package's ``NoopPaxosApp``)."""
@@ -413,6 +423,7 @@ def app_class() -> type:
 
     path = Config.get("APPLICATION") or \
         "gigapaxos_tpu_torch.models.apps.NoopPaxosApp"
+    check_application(path)
     mod, _, cls = path.rpartition(".")
     return getattr(importlib.import_module(mod), cls)
 

@@ -16,7 +16,9 @@ its dotted name, as ``python -m`` finds it) and the worker's default
 ``APPLICATION``; and with no card, ``run_sharded_soak`` and the sharded
 parent refuse to run without a device.  The recovery slice adds the
 recovery probe's module and the ``obs`` exports, and with no card
-``run_recovery`` refuses to run without a device.
+``run_recovery`` refuses to run without a device.  The operating and
+measuring slice adds the scripted clock, the footprint probe, the bench,
+the capacity probe, the trace collector and the cluster launcher.
 """
 
 import pathlib
@@ -86,7 +88,8 @@ assert not leaked, leaked
 for m in ("serving", "serving.router", "serving.supervisor", "serving.worker",
           "http_front", "txn", "txn.app", "txn.driver", "txn.recovery",
           "txn.transactor", "obs.tracemerge", "testing.chaos",
-          "testing.recovery"):
+          "testing.recovery", "testing.clock", "testing.footprint",
+          "testing.bench", "testing.probe", "testing.gp_trace", "gp_server"):
     assert f"gigapaxos_tpu_torch.{m}" in mods, m
 from gigapaxos_tpu_torch.obs import (all_sentinels, compile_stats,  # noqa: F401
                                      device_memory_stats, step_cost)
@@ -142,7 +145,7 @@ def test_port_imports_without_jax():
     )
     assert r.returncode == 0, r.stdout + r.stderr
     n = int(r.stdout.split("IMPORTED")[1].split()[0])
-    assert n >= 81, r.stdout
+    assert n >= 87, r.stdout
     assert r.stdout.split("DEFAULTS")[1].split()[:3] == [
         "gigapaxos_tpu_torch.reconfiguration.demand.DemandProfile",
         "gigapaxos_tpu_torch.reconfiguration.placement.ProximateBalancePolicy",

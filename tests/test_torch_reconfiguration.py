@@ -22,8 +22,6 @@ scenario ends with the reference test's own assertions, on the port.
 
 import contextlib
 import random
-import sys
-import time as _time
 
 import numpy as np
 import pytest
@@ -48,6 +46,8 @@ from gigapaxos_tpu_torch.reconfiguration import RCState
 from gigapaxos_tpu_torch.reconfiguration import ReconfigurationRecord as TRecord
 from gigapaxos_tpu_torch.reconfiguration import active_replica as t_ar
 from gigapaxos_tpu_torch.reconfiguration import reconfigurator as t_rc
+from gigapaxos_tpu_torch.testing.clock import ScriptedClock
+from gigapaxos_tpu_torch.testing.clock import patch_clocks as _patch_clocks
 from gigapaxos_tpu_torch.testing.rc_cluster import ReconfigurableCluster as TCluster
 
 DT = 0.02          # scripted seconds per cluster step
@@ -55,37 +55,9 @@ SEED = 1234        # both clusters' `random` state
 PACKAGES = ("gigapaxos_tpu.", "gigapaxos_tpu_torch.")
 
 
-class ScriptedClock:
-    """Stands in for the ``time`` module: ``time``, ``monotonic`` and
-    ``perf_counter`` read the scripted instant, ``sleep`` advances it;
-    everything else is the real module's."""
-
-    def __init__(self, t0: float = 1_000_000.0):
-        self.t = t0
-
-    def time(self) -> float:
-        return self.t
-
-    monotonic = perf_counter = time
-
-    def time_ns(self) -> int:
-        return int(self.t * 1e9)
-
-    monotonic_ns = perf_counter_ns = time_ns
-
-    def sleep(self, s: float) -> None:
-        self.t += max(0.0, float(s))
-
-    def __getattr__(self, name):
-        return getattr(_time, name)
-
-
 def patch_clocks(mp, clock: ScriptedClock) -> None:
     """The same scripted clock in every loaded module of both packages."""
-    for name, mod in list(sys.modules.items()):
-        t = getattr(mod, "time", None)
-        if name.startswith(PACKAGES) and (t is _time or isinstance(t, ScriptedClock)):
-            mp.setattr(mod, "time", clock)
+    _patch_clocks(mp, clock, PACKAGES)
 
 
 class Twin:

@@ -5,7 +5,8 @@ failure detection) and its settle deadlines read ``time.time()``, so on
 the wall clock two runs of one seed replay different schedules: a seed
 can pass in one run and fail in the next, and the two packages cannot be
 compared.  :func:`scripted` replaces the ``time`` module of every loaded
-module of both packages with one :class:`ScriptedClock`, which advances
+module of both packages with one :class:`ScriptedClock` (the port's
+``testing/clock.py``), which advances
 by :data:`TICK_DT` each time any manager ticks (``PaxosManager.tick`` and
 ``tick_host``) and nowhere else, and seeds the global ``random`` state
 (node-minted request ids draw from it).  A soak run inside it is a pure
@@ -24,7 +25,6 @@ pinned, so a pinned seed replays one schedule on every run.
 import contextlib
 import json
 import os
-import random
 import subprocess
 import sys
 
@@ -35,18 +35,18 @@ if __name__ == "__main__":
 
     jax.config.update("jax_platforms", "cpu")
 
-import pytest
-
 # imported before the clock is patched in, so that it reaches them too
 # (the soaks import these lazily)
+import gigapaxos_tpu.failure_detection  # noqa: F401
 import gigapaxos_tpu.manager as j_manager
 import gigapaxos_tpu.obs.tracemerge  # noqa: F401
+import gigapaxos_tpu.reconfiguration.demand  # noqa: F401
 import gigapaxos_tpu.reconfiguration.placement  # noqa: F401
 import gigapaxos_tpu.serving  # noqa: F401
 import gigapaxos_tpu.testing.chaos as j_chaos
 import gigapaxos_tpu.testing.cluster  # noqa: F401
 import gigapaxos_tpu.txn  # noqa: F401
-import gigapaxos_tpu_torch.manager as t_manager
+import gigapaxos_tpu_torch.manager  # noqa: F401
 import gigapaxos_tpu_torch.obs.tracemerge  # noqa: F401
 import gigapaxos_tpu_torch.reconfiguration.placement  # noqa: F401
 import gigapaxos_tpu_torch.serving  # noqa: F401
@@ -57,10 +57,8 @@ from gigapaxos_tpu.ops.engine import EngineConfig as JConfig
 from gigapaxos_tpu.utils.config import Config as JaxConfig
 from gigapaxos_tpu_torch.ops.engine import EngineConfig as TConfig
 from gigapaxos_tpu_torch.utils.config import Config as TorchConfig
-from test_torch_reconfiguration import ScriptedClock, patch_clocks
-
-TICK_DT = 0.01     # scripted seconds per manager tick
-SEED = 1234        # the global `random` state at the start of a soak
+from gigapaxos_tpu_torch.testing import clock as clock_mod
+from gigapaxos_tpu_torch.testing.clock import HASH_SEED, SEED, TICK_DT  # noqa: F401
 
 # each package's soaks, config and engine shape; the port on the CPU
 JAX = {"chaos": j_chaos, "Config": JaxConfig, "EngineConfig": JConfig, "kw": {}}
@@ -70,39 +68,21 @@ PORT = {"chaos": t_chaos, "Config": TorchConfig, "EngineConfig": TConfig,
 
 @contextlib.contextmanager
 def scripted():
-    """A fresh scripted clock in both packages for the duration."""
-    mp = pytest.MonkeyPatch()
-    clock = ScriptedClock()
-    clock.closed = []
+    """A fresh scripted clock in both packages for the duration (the
+    port's :func:`gigapaxos_tpu_torch.testing.clock.scripted`, reaching
+    the JAX package's modules and manager too); every manager that closes
+    leaves its snapshot in ``clock.closed``."""
+    closed = []
     try:
-        patch_clocks(mp, clock)
-        for mgr in (j_manager.PaxosManager, t_manager.PaxosManager):
-            for name in ("tick", "tick_host"):
-                orig = getattr(mgr, name)
-
-                def advance(self, *a, _orig=orig, **kw):
-                    clock.t += TICK_DT
-                    return _orig(self, *a, **kw)
-
-                mp.setattr(mgr, name, advance)
-        for mgr in (j_manager.PaxosManager, t_manager.PaxosManager):
-            orig_close = mgr.close
-
-            def close(self, *a, _orig=orig_close, **kw):
-                clock.closed.append(manager_snapshot(self))
-                return _orig(self, *a, **kw)
-
-            mp.setattr(mgr, "close", close)
-        saved = random.getstate()
-        random.seed(SEED)
-        try:
+        with clock_mod.scripted(
+            TICK_DT, SEED, prefixes=("gigapaxos_tpu.",),
+            managers=(j_manager.PaxosManager,),
+            on_close=lambda m: closed.append(manager_snapshot(m)),
+        ) as clock:
+            clock.closed = closed
             yield clock
-        finally:
-            random.setstate(saved)
     finally:
-        mp.undo()
         JaxConfig.clear()
-        TorchConfig.clear()
 
 
 def manager_snapshot(m) -> dict:
@@ -144,8 +124,6 @@ def parity(family: str, seed: int, **kw):
         assert a == b, (a, b)
     return port
 
-
-HASH_SEED = "0"    # PYTHONHASHSEED of every child run
 
 
 def in_child(mode: str, family: str, seed: int, timeout: float = 900, **kw):
