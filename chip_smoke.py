@@ -155,7 +155,26 @@ Phases (any failure exits nonzero):
              gp_step and gp_make_blob; restart-to-serving, first-serve,
              full-hydration, eager, replay, create and checkpoint seconds
              and the directory's bytes.
-14. ops    — the operating faces on the card: the port's scenario
+14. mesh   — the mesh faces of make_step at the headline shape
+             (G=1,048,576, W=32, K=16, R=3), every logical device on this
+             card: the ('g',) face over 4 shards, also at G=1,048,573
+             (padded), and the (g, r) face over 2 x 3, three steps (the
+             first with an election pulse) bit for bit against the stacked
+             face (which phase 3 holds against the plain version); a fault
+             step of the (g, r) face (replica 2 unheard, replica 0
+             pulsing) against its plain version; N=4 against four N=1
+             calls; the golden cases of tests/test_unified_step.py (G=13
+             over 8 shards and over 2 x 3) and the dry run's shapes on the
+             card against the same meshes on the CPU.  Then, the counts
+             from 0 before each, 20 steps of each face under the bench's
+             load (dec/s beside the stacked face's; each logical device's
+             own launches: one gp_make_blob and one gp_step a step), the
+             (g, r) blob exchange's ms per step against its bound
+             (r(r-1) G 528 B read and written at the card's memory rate),
+             peak memory; the bench's multichip arm over the physical cards
+             and graft_entry.dryrun_multichip(8) on the card.  One card
+             measures no multi-card speed.
+15. ops    — the operating faces on the card: the port's scenario
              (gigapaxos_tpu_torch/scenarios/loopback_3ar_3rc.properties on
              free loopback ports, at the nodes' default ENGINE_ROWS of
              65,536) booted by `gigapaxos_tpu_torch.gp_server start all`
@@ -171,14 +190,15 @@ Phases (any failure exits nonzero):
              processes at 64 rows), and, while the call has spent less
              than 650 s since the build, its --in-process ramps with and
              without consensus (--unreplicated).
-15. report — the kernels line, then the device line (last).
+16. report — the kernels line, then the device line (last).
 
 Kernel launch counts are reset to 0 just before each main-path run
-(phases 3 to 8 and 10 to 13) and read just after; parity and timing
+(phases 3 to 8, 10 to 13 and 14's timed runs and entry points) and read
+just after; parity and timing
 launches do not count.  Phase 10's launches are its worker processes'
 counts (read through the stats admin op at the phase's end) plus this
 process's (the reconfigurators); phase 12's scripted soaks' are their
-child's; phase 14's are its node processes' own (each process counts
+child's; phase 15's are its node processes' own (each process counts
 from 0 when it starts), read through the stats admin op.  ``--phases a,b`` runs a subset and prints no report (for
 iterating); the contract run takes no arguments.  Imports nothing of JAX
 or of the JAX package.
@@ -226,7 +246,7 @@ SERVER = dict(G=65_536, W=16, K=8, R=3)
 # reconfigurators' record engine (64 rows, 3 reconfigurators)
 AR = dict(G=65_536, W=16, K=8, R=4)
 RC = dict(G=64, W=16, K=8, R=3)
-# the actives of the launcher's scenario (its ENGINE_ROWS; phase 14 boots
+# the actives of the launcher's scenario (its ENGINE_ROWS; phase 15 boots
 # it at the nodes' default instead, but a user starts it as committed)
 SCENARIO = dict(G=256, W=16, K=8, R=3)
 # the sharded deployment's worker processes per active, and a worker's
@@ -304,7 +324,7 @@ TXN_SOAK_SEED = 786083501
 # the chaos families' pinned seeds (tests/test_chaos.py,
 # tests/test_serving_workers.py; run_density_soak's default seed)
 CHAOS_SEED, CHAOS_SHARDED_SEED, CHAOS_DENSITY_SEED = 1234, 20260804, 1
-# the operating faces (phase 14): the port's scenario booted at the nodes'
+# the operating faces (phase 15): the port's scenario booted at the nodes'
 # default rows (the server shape), the probe's ramp against it (an init load
 # the 65,536-row ticks sustain; the reference's factor, thresholds and
 # window; at most 8 rounds), and the probe's own defaults (64 rows)
@@ -313,9 +333,25 @@ OPS_SCENARIO = os.path.join("gigapaxos_tpu_torch", "scenarios",
 OPS_ROWS = SERVER["G"]
 OPS_INIT_LOAD, OPS_MAX_ROUNDS = 10.0, 8
 OPS_ANSWERED = 0.9    # the probe's response-rate threshold (probe.py)
-# 14.6 (the in-process ramps, about 120 s) runs only when the call has
+# 15.6 (the in-process ramps, about 120 s) runs only when the call has
 # spent less than this since the build
 OPS_INPROC_BUDGET_S = 650.0
+
+# the mesh faces (phase 14): the headline shape, one card holding every
+# logical device; a G that does not divide over 4 shards; the ('g',)
+# shards and the (g, r) mesh; steps of the rate runs; the dry run's
+# logical devices; the golden cases of tests/test_unified_step.py and the
+# dry run's shapes ((g, r) at W=4, K=2, R=2 and ('g',) at G=35, R=3),
+# held on the card against the same meshes on the CPU
+MESH = dict(HEADLINE)
+MESH_G_PADDED = 1_048_573
+MESH_G_SHARDS, MESH_GR = 4, (2, 3)
+MESH_WARM_STEPS, MESH_TIMED_STEPS = 10, 20
+MESH_DRYRUN_DEVICES = 8
+MESH_SMALL = [("golden_g8", dict(G=13, W=8, K=4, R=3), "g", 8),
+              ("golden_gr", dict(G=13, W=8, K=4, R=3), "gr", 2),
+              ("dryrun_gr", dict(G=16, W=4, K=2, R=2), "gr", 4),
+              ("dryrun_g8", dict(G=35, W=4, K=2, R=3), "g", 8)]
 
 # the lifecycle kernels: name, function of ops/lifecycle.py, the JAX
 # function it replaces, and the path whose launches count ("parity" for
@@ -2752,7 +2788,281 @@ def phase_recovery(device) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 14: the operating faces (launcher, capacity probe, trace collector)
+# phase 14: the mesh faces
+# ---------------------------------------------------------------------------
+
+
+def mesh_views(st, ref):
+    """(shard, the global tensor's matching block) for every shard of the
+    sharded tensor ``st``, its pad rows left out (see ShardedTensor)."""
+    import numpy as np
+
+    from gigapaxos_tpu_torch.parallel.mesh import GROUP_AXIS, REPLICA_AXIS
+
+    gdim, Gs = st.gdim, st.shard_groups
+    rdim = st.spec.index(REPLICA_AXIS) if REPLICA_AXIS in st.spec else None
+    for idx in np.ndindex(*st.mesh.devices.shape):
+        pos = dict(zip(st.mesh.axis_names, idx))
+        g0 = pos[GROUP_AXIS] * Gs
+        n = max(0, min(st.n_groups, g0 + Gs) - g0)
+        if not n:
+            continue
+        block = ref.narrow(gdim, g0, n)
+        if rdim is not None:
+            block = block.narrow(rdim, pos[REPLICA_AXIS], 1)
+        yield idx, st.shards[idx].narrow(gdim, 0, n), block
+
+
+def mesh_held(diff: Diff, kernel: str, what: str, sharded, ref) -> None:
+    """Every leaf of a sharded tree against a global tree, shard by shard."""
+    for f in sharded._fields:
+        for idx, a, b in mesh_views(getattr(sharded, f), getattr(ref, f)):
+            diff.eq(kernel, f"{what}.{f}{list(idx)}", a, b)
+
+
+def mesh_same(diff: Diff, kernel: str, what: str, a, b, i=None) -> None:
+    """Two sharded trees on one mesh, shard for shard (``i``: substep i
+    of ``a``'s [N, ...] leaves)."""
+    import numpy as np
+
+    for f in a._fields:
+        x, y = getattr(a, f), getattr(b, f)
+        for idx in np.ndindex(*x.mesh.devices.shape):
+            sa = x.shards[idx] if i is None else x.shards[idx][i]
+            diff.eq(kernel, f"{what}.{f}{list(idx)}", sa, y.shards[idx])
+
+
+def mesh_rate(fn, states, req, want, steps: int, committed_of) -> tuple:
+    """``steps`` steps of ``fn`` under the bench's load; replica 0's
+    committed count summed on the device, one sync at the end.  Returns
+    (committed, seconds, states)."""
+    import torch
+
+    total = torch.zeros((), dtype=torch.int64, device=want.device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        states, out = fn(states, req, want)
+        total += committed_of(out)
+        del out
+    n = int(total)
+    return n, time.perf_counter() - t0, states
+
+
+def phase_mesh(diff: Diff, device, bw: float) -> dict:
+    """The mesh faces of make_step at the headline shape, every logical
+    device on this card: the ('g',) face over 4 shards (and at a G that
+    does not divide, padded) and the (g, r) face over 2 x 3, three steps
+    (the first with an election pulse) bit for bit against the stacked
+    face; a fault step of the (g, r) face against its plain version; N=4
+    against four N=1 calls; the small shapes of the golden cases and the
+    dry run against the CPU.  Then each face's committed dec/s beside the
+    stacked face's, the (g, r) exchange's time against its bound, peak
+    memory, and the entry points: the bench's multichip arm over the
+    physical cards and ``dryrun_multichip(8)``."""
+    import numpy as np
+    import torch
+
+    from gigapaxos_tpu_torch import graft_entry
+    from gigapaxos_tpu_torch.ops import engine as te
+    from gigapaxos_tpu_torch.parallel import mesh as tmesh
+    from gigapaxos_tpu_torch.parallel import spmd as tspmd
+    from gigapaxos_tpu_torch.testing import bench
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    G, W, K, R = (MESH[k] for k in ("G", "W", "K", "R"))
+    ng, nr = MESH_GR
+    gmesh = tmesh.make_group_mesh(MESH_G_SHARDS, devices=[device] * MESH_G_SHARDS)
+    grmesh = tmesh.make_mesh(nr, ng, devices=[device] * (ng * nr))
+    res = {"shape": MESH, "g_mesh": dict(gmesh.shape), "gr_mesh": dict(grmesh.shape),
+           "physical_devices": grmesh.physical_devices}
+
+    def load(cfg):
+        req = torch.arange(1, K + 1, dtype=torch.int32, device=device)
+        req = req[None, None, :].expand(R, cfg.n_groups, K).contiguous()
+        pulse = torch.zeros((R, cfg.n_groups), dtype=torch.bool, device=device)
+        pulse[1, ::16] = True
+        return req, pulse, torch.zeros_like(pulse)
+
+    # 1. three steps of each face against the stacked face
+    for G_run, faces in ((G, ("g", "gr")), (MESH_G_PADDED, ("g",))):
+        cfg = te.EngineConfig(G_run, W, K, R)
+        req, pulse, no_want = load(cfg)
+        stacked = tspmd.make_step(cfg, None, 1, donate=False, device=device)
+        fns = {"g": tspmd.make_step(cfg, gmesh, 1, donate=False),
+               "gr": tspmd.make_step(cfg, grmesh, 1, donate=False)}
+        ref = tspmd.build_replica_states(cfg, device=device)
+        sts = {f: ref for f in faces}
+        for t in range(3):
+            want = pulse if t == 0 else no_want
+            ref, ref_o = stacked(ref, req, want)
+            for f in faces:
+                sts[f], o = fns[f](sts[f], req, want)
+                tag = f"mesh.{f}.G{G_run}.{t}"
+                mesh_held(diff, "gp_step", tag + ".state", sts[f], ref)
+                mesh_held(diff, "gp_step", tag + ".out", o, ref_o)
+                del o
+            del ref_o
+        log(f"mesh G={G_run}: faces {faces} bit-equal to the stacked face over 3 "
+            f"steps ({time.perf_counter() - t_phase:.1f} s)")
+        if G_run != G:
+            del sts, ref
+            continue
+        # 2. the (g, r) fault step against its plain version: replica 2
+        # unheard, replica 0 pulsing for every group
+        heard = torch.ones((R, R), dtype=torch.bool)
+        heard[2, :] = False
+        heard[:, 2] = False
+        elect = torch.zeros((R, G), dtype=torch.bool, device=device)
+        elect[0, :] = True
+        gr = fns["gr"]
+        k_st, k_o = gr(sts["gr"], req, elect, heard)
+        p_st, p_o = gr.plain(sts["gr"], req, elect, heard)
+        mesh_same(diff, "gp_step", "mesh.gr.fault.state", k_st, p_st)
+        mesh_same(diff, "gp_step", "mesh.gr.fault.out", k_o, p_o)
+        del p_st, p_o, k_o
+        # 3. N=4 against four N=1 calls
+        gr4 = tspmd.make_step(cfg, grmesh, 4, donate=False)
+        ring = req[None].expand(4, R, G, K).contiguous()
+        s4, o4 = gr4(k_st, ring, pulse)
+        s1 = k_st
+        for i in range(4):
+            s1, o1 = gr(s1, req, pulse if i == 0 else no_want)
+            mesh_same(diff, "gp_step", f"mesh.gr.n4.out{i}", o4, o1, i)
+            del o1
+        mesh_same(diff, "gp_step", "mesh.gr.n4.state", s4, s1)
+        del s4, o4, s1, k_st, sts, ref, ring
+        log(f"mesh: the (g, r) fault step bit-equal to its plain version, N=4 to "
+            f"four N=1 calls ({time.perf_counter() - t_phase:.1f} s)")
+    torch.cuda.empty_cache()
+
+    # 4. the small shapes, on the card against the same meshes on the CPU
+    cpu = torch.device("cpu")
+    for name, d, kind, n_dev in MESH_SMALL:
+        cfg = te.EngineConfig(d["G"], d["W"], d["K"], d["R"])
+        meshes = []
+        for dev in (device, cpu):
+            if kind == "g":
+                meshes.append(tmesh.make_group_mesh(n_dev, devices=[dev] * n_dev))
+            else:
+                meshes.append(tmesh.make_mesh(d["R"], n_dev, devices=[dev] * (n_dev * d["R"])))
+        rng = np.random.default_rng(len(name))
+        for N in (1, 4):
+            k_fn, c_fn = (tspmd.make_step(cfg, m, N, donate=False) for m in meshes)
+            k_st = c_st = tspmd.build_replica_states(cfg, device=cpu)
+            for t in range(3):
+                shape = (N, d["R"], d["G"], d["K"]) if N > 1 else (d["R"], d["G"], d["K"])
+                req = np.where(rng.random(shape) < 0.6, rng.integers(1, 10 ** 6, shape),
+                               -1).astype(np.int32)
+                want = rng.random((d["R"], d["G"])) < (0.3 if t == 0 else 0.02)
+                heard = rng.random((d["R"], d["R"])) < 0.85
+                k_st, k_o = k_fn(k_st, req, want, heard)
+                c_st, c_o = c_fn(c_st, req, want, heard)
+                for f in k_st._fields:
+                    diff.eq("gp_step", f"mesh.{name}.N{N}.{t}.{f}",
+                            getattr(k_st, f).gather(cpu), getattr(c_st, f).gather())
+                for f in k_o._fields:
+                    diff.eq("gp_step", f"mesh.{name}.N{N}.{t}.out.{f}",
+                            getattr(k_o, f).gather(cpu), getattr(c_o, f).gather())
+    log(f"mesh small shapes {[m[0] for m in MESH_SMALL]}: card equal to the CPU "
+        f"at N in (1, 4) ({time.perf_counter() - t_phase:.1f} s)")
+
+    # 5. the main path: each face's rate under the bench's load, the counts
+    # from 0 just before each timed run
+    cfg = te.EngineConfig(G, W, K, R)
+    req, _pulse, no_want = load(cfg)
+    rates, launches = {}, {}
+    stacked = tspmd.make_step(cfg, None, 1, donate=True, device=device)
+    faces = {
+        "stacked": (stacked, lambda o: o.n_committed[0].sum()),
+        "g": (tspmd.make_step(cfg, gmesh, 1, donate=True),
+              lambda o: sum(x[0].sum() for x in o.n_committed.shards.flat)),
+        "gr": (tspmd.make_step(cfg, grmesh, 1, donate=True),
+               lambda o: sum(o.n_committed.shards[gi, 0].sum() for gi in range(ng))),
+    }
+    for face, (fn, committed_of) in faces.items():
+        states = tspmd.build_replica_states(cfg, device=device)
+        f_req, f_want = req, no_want
+        if face == "g":
+            states, f_req, f_want = tspmd.shard_group_inputs(gmesh, cfg, states, req, no_want)
+        elif face == "gr":
+            states, f_req, f_want = tspmd.replicate_inputs(grmesh, states, req, no_want)
+        _, _, states = mesh_rate(fn, states, f_req, f_want, MESH_WARM_STEPS, committed_of)
+        te.reset_launch_counts()
+        if face != "stacked":
+            fn.reset_launches()
+        n, sec, states = mesh_rate(fn, states, f_req, f_want, MESH_TIMED_STEPS,
+                                   committed_of)
+        launches[face] = dict(te.LAUNCHES)
+        rates[face] = {"committed": n, "seconds": sec, "dec_per_s": n / sec}
+        if face != "stacked":
+            per = {str(list(k)): dict(v) for k, v in fn.launches.items()}
+            want_per = {"gp_make_blob": MESH_TIMED_STEPS, "gp_step": MESH_TIMED_STEPS}
+            if any(v != want_per for v in fn.launches.values()):
+                fail(f"mesh {face}: per-device launches {per}, expected {want_per} each")
+            launches[face]["per_device"] = per
+        if n <= 0:
+            fail(f"mesh {face}: no decisions committed")
+        if face == "gr":
+            assert_rsm(te.EngineState(*(x.gather() for x in states)))
+            gr_states = states
+        del states, f_req, f_want
+    log(f"mesh rates over {MESH_TIMED_STEPS} steps (dec/s): "
+        + ", ".join(f"{k} {v['dec_per_s']:.6g}" for k, v in rates.items())
+        + f"; launches {launches}")
+
+    # 6. the exchange: r(r-1) copies of a shard's blob rows per g-row, from
+    # the (g, r) face's loaded states; each device's gp_make_blob held
+    # against the plain version
+    gr, states = faces["gr"][0], gr_states
+    del gr_states
+    Gs = states.bal.shard_groups
+    NB = te.blob_vec_len(cfg._replace(n_groups=Gs))
+    bufs = {}
+    for idx in np.ndindex(ng, nr):
+        bufs[idx] = torch.empty((R, NB), dtype=torch.int32, device=device)
+        shard = te.EngineState(*(x.shards[idx][0] for x in states))
+        gr.blob_into(shard, bufs[idx][idx[1]], idx)
+        diff.eq("gp_make_blob", f"mesh.gr.blob{list(idx)}", bufs[idx][idx[1]],
+                te.pack_blob(te.make_blob_plain(shard)))
+    ex_ms = cuda_ms(lambda: gr.exchange(bufs), 10)
+    ex_bytes = nr * (nr - 1) * ng * NB * 4
+    ex_bound = 2 * ex_bytes / bw * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    del bufs, states
+    torch.cuda.empty_cache()
+    log(f"mesh exchange: {ex_ms:.6g} ms per step for {ex_bytes} B of peer rows "
+        f"(r(r-1) G 528 B), {100 * ex_bound / ex_ms:.4g}% of its bound {ex_bound:.6g} ms "
+        f"(read and written at {bw:.3g} B/s); peak device memory {peak} B")
+
+    # 7. the entry points
+    te.reset_launch_counts()
+    mc = bench.multichip(device)
+    mc_launches = dict(te.LAUNCHES)
+    te.reset_launch_counts()
+    dry = graft_entry.dryrun_multichip(MESH_DRYRUN_DEVICES, device)
+    dry_launches = dict(te.LAUNCHES)
+    if mc_launches["gp_step"] <= 0 or dry_launches["gp_step"] <= 0:
+        fail(f"mesh entry points: launches {mc_launches} {dry_launches}")
+    n_dry = MESH_DRYRUN_DEVICES
+    if dry["group_sharded"]["padded_groups"] != tspmd.padded_group_count(4 * n_dry + 3, n_dry) \
+            or dry["dec_per_s"] <= 0:
+        fail(f"mesh dry run: {dry}")
+    seconds = time.perf_counter() - t_phase
+    log(f"mesh entry points: bench multichip {json.dumps(mc['curve'])}; dry run "
+        f"{json.dumps(dry)}; launches {mc_launches} {dry_launches}; phase "
+        f"{seconds:.1f} s")
+    res.update({"rates": rates, "launches": launches, "exchange_ms": ex_ms,
+                "exchange_bytes": ex_bytes, "exchange_bound_ms": ex_bound,
+                "peak_bytes": peak, "multichip": mc, "multichip_launches": mc_launches,
+                "dryrun": dry, "dryrun_launches": dry_launches, "seconds": seconds})
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the operating faces (launcher, capacity probe, trace collector)
 # ---------------------------------------------------------------------------
 
 
@@ -2957,18 +3267,31 @@ def phase_ops(device, t_start: float) -> dict:
 
 def kernels_line(diff: Diff, head: dict, step_t: dict, life: dict, dens: dict,
                  xfer: dict, srv: dict, pack: dict, rcs: dict, rcn: dict,
-                 shd: dict, txn: dict, chs: dict, rec: dict, ops: dict) -> list:
+                 shd: dict, txn: dict, chs: dict, rec: dict, mesh: dict,
+                 ops: dict) -> list:
     """The kernels line's entries, from the phases' results."""
     srv_t, den_t = step_t["server"], step_t["density"]
     cap, abl = head["capacity"], head["ablation"]
     # the bench's capacity and ablation arms; the probe at its defaults
     # (its node processes' counts); the launcher's deployment (its six)
     bench_l = {k: cap["launches"][k] + abl["launches"][k] for k in cap["launches"]}
+    # the mesh faces' timed runs and the entry points built on them
+    mesh_runs = [mesh["launches"]["g"], mesh["launches"]["gr"],
+                 mesh["multichip_launches"], mesh["dryrun_launches"]]
+    mesh_l = {k: sum(r[k] for r in mesh_runs) for k in mesh["dryrun_launches"]}
+    mesh_rec = lambda name: {
+        "launches_g": mesh["launches"]["g"][name],
+        "launches_gr": mesh["launches"]["gr"][name],
+        "launches_multichip": mesh["multichip_launches"][name],
+        "launches_dryrun": mesh["dryrun_launches"][name],
+        "shape": mesh["shape"], "g_mesh": mesh["g_mesh"], "gr_mesh": mesh["gr_mesh"],
+        "checked_small": [m[:2] for m in MESH_SMALL],
+    }
     per_path = {"density": dens["launches_total"], "state_transfer": xfer["launches"],
                 "server": srv["launches"], "rc_stepped": rcs["launches"],
                 "reconfiguration": rcn["launches"], "sharded": shd["launches"],
                 "txn": txn["launches"], "chaos": chs["launches"],
-                "recovery": rec["launches"], "bench": bench_l,
+                "recovery": rec["launches"], "bench": bench_l, "mesh": mesh_l,
                 "probe": ops["probe"]["launches"], "ops": ops["launches"]}
     on_paths = lambda name: {p: per_path[p].get(name, 0) for p in per_path}
     at_shape = lambda t, *keys: {k: t[k] for k in ("shape",) + keys}
@@ -3012,6 +3335,11 @@ def kernels_line(diff: Diff, head: dict, step_t: dict, life: dict, dens: dict,
                 **{k: den_t[k] for k in ("ms", "ms_events", "ms_fresh", "bound_ms",
                                          "plain_ms", "share")},
             },
+            "mesh": {**mesh_rec("gp_step"), "dec_per_s": {
+                k: v["dec_per_s"] for k, v in mesh["rates"].items()},
+                "exchange_ms": mesh["exchange_ms"],
+                "exchange_bound_ms": mesh["exchange_bound_ms"],
+                "exchange_bytes": mesh["exchange_bytes"]},
             **{f"{p}_shape": at_shape(step_t[p], "ms", "ms_events", "ms_fresh",
                                       "bound_ms", "plain_ms", "share")
                for p in ("ar", "rc", "worker", "recovery")},
@@ -3040,6 +3368,7 @@ def kernels_line(diff: Diff, head: dict, step_t: dict, life: dict, dens: dict,
                 "ms": den_t["make_blob_ms"], "plain_ms": den_t["make_blob_plain_ms"],
                 "bound_ms": den_t["make_blob_bound_ms"],
             },
+            "mesh": mesh_rec("gp_make_blob"),
             **{f"{p}_shape": at_shape(step_t[p], "make_blob_ms", "make_blob_ms_events",
                                       "make_blob_plain_ms", "make_blob_bound_ms")
                for p in ("ar", "rc", "worker", "recovery")},
@@ -3165,6 +3494,7 @@ def main() -> int:
         ("txn", lambda: phase_txn(device)),
         ("chaos", lambda: phase_chaos(device)),
         ("recovery", lambda: phase_recovery(device)),
+        ("mesh", lambda: phase_mesh(diff, device, bw)),
         ("ops", lambda: phase_ops(device, t_start)),
     ]
     only = [p for p in (args.phases or "").split(",") if p]
@@ -3188,7 +3518,7 @@ def main() -> int:
                            out["density"], out["state_transfer"], out["server"],
                            out["pack_rows"], out["rc_stepped"], out["reconfiguration"],
                            out["sharded"], out["txn"], out["chaos"],
-                           out["recovery"], out["ops"])
+                           out["recovery"], out["mesh"], out["ops"])
     for k in kernels:
         if k["launches"] <= 0:
             fail(f"{k['name']}: no launch on the "
@@ -3249,6 +3579,13 @@ def main() -> int:
         f"rows {ops['attach']['capacity_rps']} req/s, probe at its defaults "
         f"{ops['probe']['capacity_rps']} req/s, in-process {inproc or 'left out'}; "
         f"trace hops, mean ms {hops}; on {smi_line}")
+    mesh = out["mesh"]
+    log(f"summary: mesh faces at G={MESH['G']} on one card (logical devices; no "
+        f"multi-card speed): dec/s "
+        + ", ".join(f"{k} {v['dec_per_s']:.6g}" for k, v in mesh["rates"].items())
+        + f"; exchange {mesh['exchange_ms']:.6g} ms per step vs bound "
+        f"{mesh['exchange_bound_ms']:.6g} ms ({mesh['exchange_bytes']} B); peak "
+        f"{mesh['peak_bytes']} B; phase {mesh['seconds']:.1f} s; on {smi_line}")
     print(smi_line, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

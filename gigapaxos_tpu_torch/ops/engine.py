@@ -68,6 +68,7 @@ or raise.  Each kernel launch adds one to :data:`LAUNCHES`.
 from __future__ import annotations
 
 import functools
+import threading
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -387,7 +388,24 @@ def step_plain(
     The caller journals the accepted-window delta of state' *before*
     publishing blob(state') — the reference's log-before-send rule
     (``AbstractPaxosLogger.logAndMessage``, ``AbstractPaxosLogger.java:157``).
+
+    The plain steps of one process run one at a time (:data:`_PLAIN_LOCK`).
     """
+    with _PLAIN_LOCK:
+        return _step_plain(state, g, heard, req_vid, want_coord, my_id, cfg)
+
+
+# A plain step is a few hundred small tensor operations, and each releases
+# and retakes the interpreter lock.  Several nodes of one process stepping
+# at once (a loopback cluster on the CPU) then hand that lock back and
+# forth between every operation: 7 threads stepping at once cost 59 ms of
+# thread CPU a step against 6.5 ms alone on an 8-core host
+# (testing/contention.py --no-lock), and the nodes' ticks slowed until a
+# side request took seconds.  One step at a time: 7.6 ms.
+_PLAIN_LOCK = threading.Lock()
+
+
+def _step_plain(state, g, heard, req_vid, want_coord, my_id, cfg):
     G, W, K, R = cfg.n_groups, cfg.window, cfg.req_lanes, cfg.n_replicas
     kbits = _check_shape(cfg)
     dev = state.bal.device

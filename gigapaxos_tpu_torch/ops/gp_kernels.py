@@ -307,13 +307,15 @@ def step(state: EngineState, gvec: torch.Tensor, heard: torch.Tensor,
          heat: Optional[torch.Tensor] = None,
          heat_out: Optional[torch.Tensor] = None,
          out_vec: Optional[torch.Tensor] = None,
+         out_blob: Optional[torch.Tensor] = None,
          launch_log: Optional[dict] = None):
     """One ``gp_step`` launch for one replica: returns (state', out_vec
     [M], blob_vec [NB] or None).  ``out_state`` (optional) receives
     state' and must share no storage with ``state``; ``heat`` (optional)
     is read and ``heat_out`` (default: a new tensor; may be ``heat``
-    itself) gets ``heat + n_committed + n_admitted``.  ``out_vec``
-    (optional) is a preallocated out vector.  ``launch_log``
+    itself) gets ``heat + n_committed + n_admitted``.  ``out_vec`` and
+    ``out_blob`` (optional) are a preallocated out vector and blob
+    vector (the blob must not overlap ``gvec``).  ``launch_log``
     (optional) is a caller's own launch counter, bumped beside
     :data:`LAUNCHES` (a manager's per-node count)."""
     _check_cfg(cfg)
@@ -342,8 +344,12 @@ def step(state: EngineState, gvec: torch.Tensor, heard: torch.Tensor,
     a.out_vec = _check(out_vec, "out_vec", (M,), torch.int32, dev)
     blob = None
     if with_blob:
-        blob = torch.empty((NB,), dtype=torch.int32, device=dev)
-        a.blob = blob.data_ptr()
+        if out_blob is None:
+            out_blob = torch.empty((NB,), dtype=torch.int32, device=dev)
+        a.blob = _check(out_blob, "out_blob", (NB,), torch.int32, dev)
+        if a.blob < a.gathered + 4 * gvec.numel() and a.gathered < a.blob + 4 * NB:
+            raise ValueError("out_blob overlaps the gathered blobs")
+        blob = out_blob
     if heat is not None:
         a.heat_in = _check(heat, "heat", (G,), torch.int32, dev)
         if heat_out is None:
@@ -361,12 +367,13 @@ def step_stacked(states: EngineState, blobs: torch.Tensor, heard: torch.Tensor,
                  req_vid: torch.Tensor, want_coord: torch.Tensor,
                  cfg: EngineConfig, *, out_states: Optional[EngineState] = None,
                  out_blobs: Optional[torch.Tensor] = None,
-                 out_mat: Optional[torch.Tensor] = None):
+                 out_mat: Optional[torch.Tensor] = None,
+                 launch_log: Optional[dict] = None):
     """One ``gp_step`` launch for ALL R replicas (work items (tile,
     replica), the replica fastest): stacked ``[R, G, ...]`` states, the
     ``[R, NB]`` blob matrix as the gather, ``heard [R, R]``, ``req [R, G,
     K]``, ``want [R, G]``.  Returns (states', out matrix [R, M], blobs'
-    [R, NB] or None)."""
+    [R, NB] or None).  ``launch_log``: as :func:`step`'s."""
     _check_cfg(cfg)
     G, W, K, R = cfg.n_groups, cfg.window, cfg.req_lanes, cfg.n_replicas
     dev = states.bal.device
@@ -397,13 +404,17 @@ def step_stacked(states: EngineState, blobs: torch.Tensor, heard: torch.Tensor,
     a.G, a.W, a.K, a.R, a.my_id, a.stacked = G, W, K, R, 0, 1
     _launch(lib().gp_step_launch, a)
     LAUNCHES["gp_step"] += 1
+    if launch_log is not None:
+        launch_log["gp_step"] = launch_log.get("gp_step", 0) + 1
     return out_states, out_mat, out_blobs
 
 
 def make_blob_rows(states: EngineState, n_rep: Optional[int] = None,
-                   launch_log: Optional[dict] = None) -> torch.Tensor:
+                   launch_log: Optional[dict] = None,
+                   out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``gp_make_blob`` over ``n_rep`` stacked replica states (``None``:
-    one unstacked state) -> ``[n_rep, NB]`` (or ``[NB]``)."""
+    one unstacked state) -> ``[n_rep, NB]`` (or ``[NB]``), into ``out``
+    when it is given."""
     G, W = (int(x) for x in states.acc_bal.shape[-2:])
     if W <= 0 or W & (W - 1):
         raise ValueError(f"window must be a power of two, got {W}")
@@ -414,8 +425,9 @@ def make_blob_rows(states: EngineState, n_rep: Optional[int] = None,
     a = _BlobArgs()
     a.st_in[:] = _state_ptrs(states, lead, G, W, dev, "state")
     NB = 4 * G + 4 * G * W
-    out = torch.empty(lead + (NB,), dtype=torch.int32, device=dev)
-    a.blob = out.data_ptr()
+    if out is None:
+        out = torch.empty(lead + (NB,), dtype=torch.int32, device=dev)
+    a.blob = _check(out, "out", lead + (NB,), torch.int32, dev)
     a.G, a.W, a.n_rep = G, W, 1 if n_rep is None else int(n_rep)
     _launch(lib().gp_make_blob_launch, a)
     LAUNCHES["gp_make_blob"] += 1

@@ -1,4 +1,4 @@
-"""The unified consensus step factory (single device).
+"""The unified consensus step factory.
 
 ONE factory — :func:`make_step` — builds both execution faces of
 :func:`gigapaxos_tpu_torch.ops.engine.step`:
@@ -30,23 +30,50 @@ caller still holds is overwritten (PyTorch's caching allocator hands back
 the blocks of states the caller has dropped).  ``donate=True`` only lets
 the packed face update the heat accumulator in place.
 
-Multi-device meshes are not part of this port yet (ROADMAP item A10):
-a non-``None`` mesh raises :class:`NotImplementedError`.
+The mesh is data (:mod:`.mesh`), and ONE process drives every device of
+it.  The stacked face takes a ``mesh``:
+
+* ``None``: one device;
+* a ``('g',)`` mesh (``make_group_mesh``): the state is split over G,
+  every shard holding all R replica rows, and each shard runs the stacked
+  face above on its own device (one ``gp_make_blob`` and one stacked
+  ``gp_step`` per substep); no exchange, no host sync between shards;
+* a ``(g, r)`` mesh (``make_mesh``): device (gi, ri) holds replica ri's
+  rows of g-shard gi.  Each substep every device's compact blob
+  (``gp_make_blob`` at substep 0, then ``gp_step``'s fresh blob, written
+  into its own row of its ``[R, NB]`` gather buffer) is copied into the
+  same row of the buffer of every other device of its g-row (between
+  cards a peer copy; on one card a copy all the same, each logical device
+  owning its buffers), and one ``gp_step`` per device folds the buffer
+  for its replica with its row of ``heard``.  This copy is the
+  reference's GSPMD ``all_gather`` over 'r'.
+
+Either way a call takes a global ``EngineState`` (tensors or numpy, split
+on entry as the reference's ``_constrain`` does) or one of
+:class:`~.mesh.ShardedTensor` leaves on the same mesh, and returns a
+sharded state and sharded outputs.  A G that does not divide over 'g' is
+padded with inert rows (member mask 0), bit-equal to
+:func:`pad_group_states`, and the pad never leaves the shards.  Results
+are bit-identical across meshes (all-int32 arithmetic).  The packed face
+on a mesh is not ported (ROADMAP item 17).
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 import torch
 
 from ..ops import engine as _engine
 from ..ops.engine import (
+    NULL,
     EngineConfig,
     EngineState,
     StepOutputs,
+    blob_vec_len,
     make_blob_plain,
     out_vec_len,
     pack_blob,
@@ -56,6 +83,7 @@ from ..ops.engine import (
     unpack_gathered,
     unpack_out,
 )
+from .mesh import GROUP_AXIS, REPLICA_AXIS, Mesh, ShardedTensor
 
 
 def stack_states(states: List[EngineState]) -> EngineState:
@@ -151,7 +179,10 @@ class _StackedStep:
         mat = torch.stack(mats) if self.n_steps > 1 else mats[0]
         return st, self._outs(mat)
 
-    def __call__(self, states: EngineState, req_vid, want_coord, heard=None):
+    def __call__(self, states: EngineState, req_vid, want_coord, heard=None,
+                 *, launch_log=None):
+        """``launch_log`` (optional): the caller's own kernel-launch
+        counter (see :func:`gigapaxos_tpu_torch.ops.gp_kernels.step`)."""
         cfg, N, dev = self.cfg, self.n_steps, self.device
         R = cfg.n_replicas
         req, want, no_want, h = self._prep(states, req_vid, want_coord, heard)
@@ -161,7 +192,7 @@ class _StackedStep:
 
         mat = torch.empty((N, R, out_vec_len(cfg)), dtype=torch.int32,
                           device=dev)
-        blobs = gp_kernels.make_blob_rows(states, R)
+        blobs = gp_kernels.make_blob_rows(states, R, launch_log)
         blobs_next = torch.empty_like(blobs) if N > 1 else None
         st = states
         for i in range(N):
@@ -169,6 +200,7 @@ class _StackedStep:
                 st, blobs, h, req[i], want if i == 0 else no_want, cfg,
                 out_mat=mat[i],
                 out_blobs=blobs_next if i < N - 1 else None,
+                launch_log=launch_log,
             )
             if i < N - 1:
                 blobs, blobs_next = blobs_next, blobs
@@ -276,41 +308,316 @@ def _replace_row(leaf: torch.Tensor, r: int, row: torch.Tensor) -> torch.Tensor:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the mesh faces
+# ---------------------------------------------------------------------------
+
+
+def _mesh_spec(mesh: Mesh, *lead) -> tuple:
+    """Spec over the leading dims, keeping only names the mesh has — a
+    ``(g, r)`` mesh yields ``('r', 'g')`` where a ``('g',)`` mesh yields
+    ``(None, 'g')`` from the same request."""
+    return tuple(a if (a is not None and a in mesh.axis_names) else None
+                 for a in lead)
+
+
+@functools.lru_cache(maxsize=None)
+def _state_fill() -> dict:
+    """Each leaf's value in an inert row (``init_state``'s fills)."""
+    from ..ops.engine import init_state
+
+    st = init_state(EngineConfig(1, 2, 1, 1), "cpu")
+    return {f: int(x.reshape(-1)[0]) for f, x in zip(EngineState._fields, st)}
+
+
+def _global(x, dtype=None) -> torch.Tensor:
+    """A sharded tensor's global value, a tensor as it is, numpy or
+    python data as a CPU tensor."""
+    if isinstance(x, ShardedTensor):
+        x = x.gather()
+    elif not isinstance(x, torch.Tensor):
+        x = torch.as_tensor(np.asarray(x))
+    return x if dtype is None else x.to(dtype)
+
+
+def _shard(x: torch.Tensor, mesh: Mesh, spec: tuple, fill) -> ShardedTensor:
+    """Split a global tensor over ``mesh`` by ``spec``: each shard a fresh
+    copy on its logical device, G padded with ``fill`` to a multiple of
+    the 'g' axis."""
+    gdim = spec.index(GROUP_AXIS)
+    rdim = spec.index(REPLICA_AXIS) if REPLICA_AXIS in spec else None
+    G = int(x.shape[gdim])
+    Gs = -(-G // mesh.shape[GROUP_AXIS])
+    if rdim is not None and x.shape[rdim] != mesh.shape[REPLICA_AXIS]:
+        raise ValueError(f"{x.shape[rdim]} replica rows over an 'r' axis "
+                         f"of {mesh.shape[REPLICA_AXIS]}")
+    shards = np.empty(mesh.devices.shape, dtype=object)
+    for idx in np.ndindex(*mesh.devices.shape):
+        pos = dict(zip(mesh.axis_names, idx))
+        part = x if rdim is None else x.narrow(rdim, pos[REPLICA_AXIS], 1)
+        g0 = pos[GROUP_AXIS] * Gs
+        n = max(0, min(G, g0 + Gs) - g0)
+        shape = list(part.shape)
+        shape[gdim] = Gs
+        out = torch.empty(shape, dtype=x.dtype, device=mesh.devices[idx])
+        if n:
+            out.narrow(gdim, 0, n).copy_(part.narrow(gdim, g0, n))
+        if n < Gs:
+            out.narrow(gdim, n, Gs - n).fill_(fill)
+        shards[idx] = out
+    return ShardedTensor(mesh, spec, shards, G)
+
+
+def _place(x, mesh: Mesh, spec: tuple, dtype, fill) -> ShardedTensor:
+    """``x`` as shards of ``mesh`` by ``spec``: a sharded tensor already
+    laid out so is used as it is; anything else is split (a sharded one
+    after a gather)."""
+    if (isinstance(x, ShardedTensor) and x.mesh == mesh and x.spec == spec
+            and x.dtype == dtype):
+        return x
+    return _shard(_global(x, dtype), mesh, spec, fill)
+
+
+def _place_state(states: EngineState, mesh: Mesh, spec: tuple) -> EngineState:
+    fill = _state_fill()
+    return EngineState(*(
+        _place(x, mesh, spec, torch.int32, fill[f])
+        for f, x in zip(EngineState._fields, states)
+    ))
+
+
+def _on(dev: torch.device):
+    """The device's context: its current stream is the one a kernel
+    wrapper launches on."""
+    return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
+
+
+class _MeshStep:
+    """The stacked face over a ``('g',)`` or ``(g, r)`` mesh (module
+    docstring).  ``launches`` holds each logical device's own kernel-launch
+    counts (keyed by its mesh index), counted where each kernel launches."""
+
+    def __init__(self, cfg: EngineConfig, mesh: Mesh, n_steps: int):
+        self.cfg, self.mesh, self.n_steps = cfg, mesh, n_steps
+        self.gr = REPLICA_AXIS in mesh.axis_names
+        if self.gr and mesh.shape[REPLICA_AXIS] != cfg.n_replicas:
+            raise ValueError(
+                f"a (g, r) mesh holds one replica per device: 'r' is "
+                f"{mesh.shape[REPLICA_AXIS]}, n_replicas {cfg.n_replicas}")
+        self.spec = _mesh_spec(mesh, REPLICA_AXIS, GROUP_AXIS)
+        self.index = list(np.ndindex(*mesh.devices.shape))
+        self.launches = {idx: {} for idx in self.index}
+        self._shard_steps = {}
+
+    def reset_launches(self) -> None:
+        for log in self.launches.values():
+            log.clear()
+
+    def _place_inputs(self, states, req_vid, want_coord):
+        lead = (None,) if self.n_steps > 1 else ()
+        st = _place_state(states, self.mesh, self.spec)
+        req = _place(req_vid, self.mesh, lead + self.spec, torch.int32, NULL)
+        want = _place(want_coord, self.mesh, self.spec, torch.bool, False)
+        for what, x in (("req_vid", req), ("want_coord", want)):
+            if (x.n_groups, x.shard_groups) != (st.bal.n_groups,
+                                                st.bal.shard_groups):
+                raise ValueError(
+                    f"{what}: {x.n_groups} groups in shards of "
+                    f"{x.shard_groups}, states {st.bal.n_groups} in "
+                    f"{st.bal.shard_groups}")
+        return st, req, want
+
+    def __call__(self, states, req_vid, want_coord, heard=None):
+        return self._run(states, req_vid, want_coord, heard, kernels=True)
+
+    def plain(self, states, req_vid, want_coord, heard=None):
+        """The same orchestration with every device's step and blob by
+        the plain PyTorch version (the kernel path's yardstick)."""
+        return self._run(states, req_vid, want_coord, heard, kernels=False)
+
+    def _run(self, states, req_vid, want_coord, heard, kernels: bool):
+        st, req, want = self._place_inputs(states, req_vid, want_coord)
+        h = _heard_matrix(heard, self.cfg.n_replicas, "cpu")
+        run = self._run_gr if self.gr else self._run_g
+        new, outs, G = run(st, req, want, h, kernels)
+        lead = (None,) if self.n_steps > 1 else ()
+        wrap = lambda shards, spec: ShardedTensor(self.mesh, spec, shards, G)
+        return (
+            EngineState(*(wrap(x, self.spec) for x in new)),
+            StepOutputs(*(wrap(x, lead + self.spec) for x in outs)),
+        )
+
+    def _grid(self, fields) -> list:
+        return [np.empty(self.mesh.devices.shape, dtype=object) for _ in fields]
+
+    def _run_g(self, st, req, want, h, kernels):
+        """('g',): the stacked face on every shard, on its own device."""
+        cfg, G, Gs = self.cfg, st.bal.n_groups, st.bal.shard_groups
+        new, outs = self._grid(EngineState._fields), self._grid(StepOutputs._fields)
+        for idx in self.index:
+            dev = self.mesh.devices[idx]
+            key = (Gs, str(dev))
+            if key not in self._shard_steps:
+                self._shard_steps[key] = _StackedStep(
+                    cfg._replace(n_groups=Gs), self.n_steps, dev)
+            fn = self._shard_steps[key]
+            shard = EngineState(*(x.shards[idx] for x in st))
+            with _on(dev):
+                if kernels:
+                    ns, o = fn(shard, req.shards[idx], want.shards[idx], h,
+                               launch_log=self.launches[idx])
+                else:
+                    ns, o = fn.plain(shard, req.shards[idx], want.shards[idx], h)
+            for grid, x in zip(new, ns):
+                grid[idx] = x
+            for grid, x in zip(outs, o):
+                grid[idx] = x
+        return new, outs, G
+
+    def exchange(self, bufs: dict) -> None:
+        """The blob exchange over 'r': row ri of device (gi, ri)'s ``[R,
+        NB]`` buffer (its own blob) copied into row ri of every other
+        device of g-row gi.  Each logical device owns its buffers, so
+        every copy is a real one, between cards a peer copy."""
+        for gi, ri in self.index:
+            src = bufs[gi, ri][ri]
+            for rj in range(self.cfg.n_replicas):
+                if rj != ri:
+                    bufs[gi, rj][ri].copy_(src)
+
+    def blob_into(self, state: EngineState, out: torch.Tensor, idx,
+                  kernels: bool = True) -> None:
+        """Device ``idx``'s compact blob of ``state`` into ``out`` [NB]."""
+        if kernels and _engine.on_card(state.bal):
+            from ..ops import gp_kernels
+
+            gp_kernels.make_blob_rows(state, None, self.launches[idx], out=out)
+        else:
+            out.copy_(pack_blob(make_blob_plain(state)))
+
+    def _replica_step(self, idx, state, gathered, heard_row, req, want, cfg,
+                      out_vec, out_blob, kernels):
+        my_id = idx[1]
+        if kernels and _engine.on_card(state.bal):
+            from ..ops import gp_kernels
+
+            st, _, _, _ = gp_kernels.step(
+                state, gathered, heard_row, req, want, my_id, cfg,
+                with_blob=out_blob is not None, out_vec=out_vec,
+                out_blob=out_blob, launch_log=self.launches[idx])
+            return st
+        st, out = step_plain(state, unpack_gathered(gathered, cfg), heard_row,
+                             req, want, my_id, cfg)
+        out_vec.copy_(pack_out(out))
+        if out_blob is not None:
+            out_blob.copy_(pack_blob(make_blob_plain(st)))
+        return st
+
+    def _run_gr(self, st, req, want, h, kernels):
+        """(g, r): one replica per device, the blob exchange each substep."""
+        cfg, N, R = self.cfg, self.n_steps, self.cfg.n_replicas
+        G, Gs = st.bal.n_groups, st.bal.shard_groups
+        cfg_s = cfg._replace(n_groups=Gs)
+        NB, M = blob_vec_len(cfg_s), out_vec_len(cfg_s)
+        dev = {idx: self.mesh.devices[idx] for idx in self.index}
+        state = {idx: EngineState(*(x.shards[idx][0] for x in st))
+                 for idx in self.index}
+        heard_row = {idx: h[idx[1]].to(dev[idx]) for idx in self.index}
+        no_want = {idx: torch.zeros((Gs,), dtype=torch.bool, device=dev[idx])
+                   for idx in self.index}
+        rings = {idx: torch.empty((N, M), dtype=torch.int32, device=dev[idx])
+                 for idx in self.index}
+        buf = lambda idx: torch.empty((R, NB), dtype=torch.int32, device=dev[idx])
+        cur = {idx: buf(idx) for idx in self.index}
+        nxt = {idx: buf(idx) for idx in self.index} if N > 1 else None
+        for idx in self.index:
+            with _on(dev[idx]):
+                self.blob_into(state[idx], cur[idx][idx[1]], idx, kernels)
+        self.exchange(cur)
+        for i in range(N):
+            last = i == N - 1
+            for idx in self.index:
+                r_i = req.shards[idx][i, 0] if N > 1 else req.shards[idx][0]
+                with _on(dev[idx]):
+                    state[idx] = self._replica_step(
+                        idx, state[idx], cur[idx], heard_row[idx], r_i,
+                        want.shards[idx][0] if i == 0 else no_want[idx], cfg_s,
+                        rings[idx][i], None if last else nxt[idx][idx[1]],
+                        kernels)
+            if not last:
+                self.exchange(nxt)
+                cur, nxt = nxt, cur
+        new, outs = self._grid(EngineState._fields), self._grid(StepOutputs._fields)
+        for idx in self.index:
+            for grid, x in zip(new, state[idx]):
+                grid[idx] = x.unsqueeze(0)
+            o = unpack_out(rings[idx] if N > 1 else rings[idx][0], cfg_s)
+            for grid, x in zip(outs, o):
+                grid[idx] = x.unsqueeze(1 if N > 1 else 0)
+        return new, outs, G
+
+
+# ---------------------------------------------------------------------------
+# the factory
+# ---------------------------------------------------------------------------
+
+
+def _label(io, n, donate, heat, where, cfg) -> str:
+    return (f"make_step[{io} N={n} donate={donate} heat={heat} {where} "
+            f"G={cfg.n_groups} R={cfg.n_replicas} W={cfg.window} "
+            f"K={cfg.req_lanes}]")
+
+
+def _check_flavor(steps_per_dispatch: int, io: str, heat: bool) -> None:
+    if steps_per_dispatch < 1:
+        raise ValueError("steps_per_dispatch must be >= 1")
+    if io not in ("stacked", "packed_host"):
+        raise ValueError(f"unknown io flavor: {io!r}")
+    if io == "stacked" and heat:
+        raise ValueError(
+            "heat accumulation is a packed_host feature (the "
+            "stacked face reads StepOutputs directly)"
+        )
+
+
 @functools.lru_cache(maxsize=None)
 def _make_step_cached(cfg, steps_per_dispatch, donate, io, heat, device):
     from ..obs.device import StepSentinel
 
-    if steps_per_dispatch < 1:
-        raise ValueError("steps_per_dispatch must be >= 1")
+    _check_flavor(steps_per_dispatch, io, heat)
     if io == "stacked":
-        if heat:
-            raise ValueError(
-                "heat accumulation is a packed_host feature (the "
-                "stacked face reads StepOutputs directly)"
-            )
         fn = _StackedStep(cfg, steps_per_dispatch, device)
-    elif io == "packed_host":
-        fn = _PackedStep(cfg, steps_per_dispatch, donate, heat, device)
     else:
-        raise ValueError(f"unknown io flavor: {io!r}")
-    label = (
-        f"make_step[{io} N={steps_per_dispatch} donate={donate} "
-        f"heat={heat} device={device} G={cfg.n_groups} "
-        f"R={cfg.n_replicas} W={cfg.window} K={cfg.req_lanes}]"
-    )
-    return StepSentinel(fn, label=label)
+        fn = _PackedStep(cfg, steps_per_dispatch, donate, heat, device)
+    return StepSentinel(fn, label=_label(io, steps_per_dispatch, donate, heat,
+                                         f"device={device}", cfg))
 
 
-def make_step(cfg: EngineConfig, mesh=None, steps_per_dispatch: int = 1, *,
-              donate: bool = True, io: str = "stacked", heat: bool = False,
-              device=None):
+@functools.lru_cache(maxsize=None)
+def _make_mesh_step_cached(cfg, mesh, steps_per_dispatch, donate, io, heat):
+    from ..obs.device import StepSentinel
+
+    _check_flavor(steps_per_dispatch, io, heat)
+    if io == "packed_host":
+        raise NotImplementedError(
+            "the packed_host face on a mesh is not ported (ROADMAP item 17); "
+            "no caller of the JAX package uses it")
+    fn = _MeshStep(cfg, mesh, steps_per_dispatch)
+    return StepSentinel(fn, label=_label(io, steps_per_dispatch, donate, heat,
+                                         f"mesh={mesh.tag}", cfg))
+
+
+def make_step(cfg: EngineConfig, mesh: Optional[Mesh] = None,
+              steps_per_dispatch: int = 1, *, donate: bool = True,
+              io: str = "stacked", heat: bool = False, device=None):
     """Build THE consensus step.
 
     Parameters
     ----------
     cfg : EngineConfig
-    mesh : must be ``None`` (one device).  Multi-GPU faces are ROADMAP
-        item A10 and raise :class:`NotImplementedError`.
+    mesh : ``None`` for one device; a ``('g',)`` or ``(g, r)``
+        :class:`~.mesh.Mesh` for the mesh faces of the stacked face
+        (module docstring; results are bit-identical across meshes).
     steps_per_dispatch : N >= 1 consensus rounds per host call
         (``ENGINE_STEPS_PER_DISPATCH``).
     donate : the caller gives up its heat accumulator, which the packed
@@ -318,20 +625,26 @@ def make_step(cfg: EngineConfig, mesh=None, steps_per_dispatch: int = 1, *,
         tensors; ``False`` keeps every input valid.
     io : ``"stacked"`` ([R, ...] bench face) or ``"packed_host"`` (one
         replica + packed [R, NB] gathered vectors — the deployed
-        runtime's face).
+        runtime's face; one device only).
     heat : (``packed_host`` only) carry a ``[G]`` int32 activity
         accumulator: the step takes it as a trailing argument and returns
         ``heat + n_committed + n_admitted`` over every substep.
-    device : ``None`` = the CUDA card (raises when there is none);
-        ``"cpu"`` runs the plain PyTorch engine.
+    device : without a mesh, ``None`` = the CUDA card (raises when there
+        is none) and ``"cpu"`` runs the plain PyTorch engine.  A mesh
+        names its own devices, so ``device`` must be ``None`` with one.
 
-    Instances are memoized per (cfg, N, donate, io, heat, device), and
-    each is wrapped in a :class:`gigapaxos_tpu_torch.obs.device.StepSentinel`.
+    Instances are memoized per (cfg, N, donate, io, heat, device or mesh),
+    and each is wrapped in a
+    :class:`gigapaxos_tpu_torch.obs.device.StepSentinel`.
     """
     if mesh is not None:
-        raise NotImplementedError(
-            "multi-device meshes are not ported yet (ROADMAP A10: "
-            "multi-GPU faces over NCCL); pass mesh=None"
+        if not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a parallel.mesh.Mesh, got {type(mesh)}")
+        if device is not None:
+            raise ValueError("a mesh names its devices; pass device=None")
+        return _make_mesh_step_cached(
+            cfg, mesh, int(steps_per_dispatch), bool(donate), str(io),
+            bool(heat),
         )
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:
@@ -339,3 +652,107 @@ def make_step(cfg: EngineConfig, mesh=None, steps_per_dispatch: int = 1, *,
     return _make_step_cached(
         cfg, int(steps_per_dispatch), bool(donate), str(io), bool(heat), dev,
     )
+
+
+# ---------------------------------------------------------------------------
+# deprecated thin aliases over the factory (pre-factory entry points)
+# ---------------------------------------------------------------------------
+
+
+def single_chip_step(cfg: EngineConfig, donate: bool = True, device=None):
+    """Deprecated alias: ``make_step(cfg, None, 1, donate=donate)``: all R
+    replica states stacked on one device."""
+    return make_step(cfg, None, 1, donate=donate, device=device)
+
+
+def spmd_step(cfg: EngineConfig, mesh: Mesh):
+    """Deprecated alias: ``make_step(cfg, mesh, 1)`` over the (g, r) mesh.
+
+    Keeps the historical divisibility contract: the (g, r) deployment
+    pins G/gs groups per device, so a non-divisible G is a config error
+    here (the factory itself pads any G)."""
+    if cfg.n_groups % mesh.shape[GROUP_AXIS]:
+        raise ValueError("n_groups must divide evenly over the group axis")
+    return make_step(cfg, mesh, 1)
+
+
+def group_sharded_step(cfg: EngineConfig, mesh: Mesh, donate: bool = True):
+    """Deprecated alias: ``make_step(cfg, mesh, 1, donate=donate)`` over
+    the 1-D ('g',) mesh.  Pad G to a mesh multiple first
+    (``pad_group_states`` / ``shard_group_inputs``) to keep per-device
+    slices even."""
+    return make_step(cfg, mesh, 1, donate=donate)
+
+
+# ---------------------------------------------------------------------------
+# input placement helpers (the reference's layouts)
+# ---------------------------------------------------------------------------
+
+
+def replicate_inputs(mesh: Mesh, states: EngineState, req_vid, want_coord):
+    """Global inputs split with the canonical (g, r) layout: states and
+    want ``('r', 'g')``, requests ``('r', 'g', None)``."""
+    spec = _mesh_spec(mesh, REPLICA_AXIS, GROUP_AXIS)
+    return (_place_state(states, mesh, spec),
+            _place(req_vid, mesh, spec, torch.int32, NULL),
+            _place(want_coord, mesh, spec, torch.bool, False))
+
+
+def padded_group_count(n_groups: int, n_shards: int) -> int:
+    """Smallest shard-divisible G' >= n_groups (ceil to a multiple)."""
+    return -(-n_groups // n_shards) * n_shards
+
+
+def pad_group_states(cfg: EngineConfig, states: EngineState,
+                     n_shards: int) -> EngineState:
+    """Pad stacked [R, G, ...] states to a shard-divisible G with INERT
+    rows (member_mask 0): the step freezes non-member rows, so padding
+    changes no real group's transition and the padded tail stays at its
+    init values bit-for-bit."""
+    from ..ops.engine import init_state
+
+    states = EngineState(*(_global(x) for x in states))
+    Gp = padded_group_count(cfg.n_groups, n_shards)
+    if Gp == cfg.n_groups:
+        return states
+    pad_cfg = cfg._replace(n_groups=Gp - cfg.n_groups)
+    pad = stack_states([init_state(pad_cfg, states.bal.device)
+                        for _ in range(cfg.n_replicas)])
+    return EngineState(*(torch.cat([a, b], dim=1) for a, b in zip(states, pad)))
+
+
+def pad_group_inputs(cfg: EngineConfig, n_shards: int, req_vid, want_coord):
+    """Pad [R, G, K] requests (NULL) and [R, G] election pulses (False)
+    to the shard-divisible G."""
+    req, want = _global(req_vid, torch.int32), _global(want_coord, torch.bool)
+    Gp = padded_group_count(cfg.n_groups, n_shards)
+    G = cfg.n_groups
+    if Gp == G:
+        return req, want
+    R, K = cfg.n_replicas, cfg.req_lanes
+    req = torch.cat([req, torch.full((R, Gp - G, K), NULL, dtype=torch.int32,
+                                     device=req.device)], dim=1)
+    want = torch.cat([want, torch.zeros((R, Gp - G), dtype=torch.bool,
+                                        device=want.device)], dim=1)
+    return req, want
+
+
+def strip_group_pad(tree, n_groups: int):
+    """Slice the padded G axis (axis 1) back to the real group count —
+    global tensors for readback; keep the persistent state padded."""
+    return type(tree)(*(_global(x)[:, :n_groups] for x in tree))
+
+
+def shard_group_inputs(mesh: Mesh, cfg: EngineConfig, states: EngineState,
+                       req_vid, want_coord):
+    """Pad to the mesh's shard count and split with the group-sharded
+    layout: states and want ``(None, 'g')``, requests ``(None, 'g',
+    None)``.  Returns (states, req_vid, want_coord) ready for the
+    group-sharded step."""
+    n_shards = mesh.shape[GROUP_AXIS]
+    states = pad_group_states(cfg, states, n_shards)
+    req_vid, want_coord = pad_group_inputs(cfg, n_shards, req_vid, want_coord)
+    spec = (None, GROUP_AXIS)
+    return (_place_state(states, mesh, spec),
+            _place(req_vid, mesh, spec, torch.int32, NULL),
+            _place(want_coord, mesh, spec, torch.bool, False))

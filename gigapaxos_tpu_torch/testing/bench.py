@@ -30,8 +30,19 @@ Modes (environment, as the reference's):
   identical load and 480 substeps, best of 5 interleaved trials; per-step
   parity across N must be bit-exact.  On the card N=8 is 8 ``gp_step``
   launches per dispatch.
-* ``BENCH_MULTICHIP=1``: raises :class:`NotImplementedError` (multi-GPU
-  meshes are not ported; ROADMAP item 17).
+* ``BENCH_MULTICHIP=1``: the weak-scaling curve of the group-sharded
+  mesh face (``make_group_mesh``, one stacked ``gp_step`` per shard a
+  step): n in {1, 2, 4, 8} devices, at most the number of physical cards,
+  with groups per device held constant (1,048,576 at W=32, K=16, R=3 on
+  the card; the load made on each device), 2 chunks of warm-up and 5
+  timed chunks; aggregate and per-device dec/s and each card's peak
+  memory.  On one card the curve has one point: it measures no
+  multi-card speed.  With ``--device cpu``: 8 logical CPU devices
+  (``BENCH_MULTICHIP_DEVICES``) at 8,192 groups each, W=8, K=4, 3 timed
+  chunks, under the reference's host-serialized model (one process runs
+  the logical devices in turn, so linear scaling is a flat aggregate).
+  ``BENCH_G_PER_DEVICE`` and ``BENCH_MULTICHIP_CHUNKS`` override.  It
+  writes only to ``--out`` or ``BENCH_MULTICHIP_OUT``.
 
 ``BENCH_W``, ``BENCH_K``, ``BENCH_DISPATCH_SUBSTEPS``,
 ``BENCH_DISPATCH_PARITY_SUBSTEPS`` and ``BENCH_DISPATCH_TRIALS`` override
@@ -375,10 +386,165 @@ def ablation_ok(result: Dict) -> bool:
             and result["dispatch_count_ratio"] >= 7.5)
 
 
-def multichip_main() -> int:
-    raise NotImplementedError(
-        "BENCH_MULTICHIP: multi-device meshes are not ported yet (ROADMAP "
-        "item 17: multi-GPU faces over NCCL); the port runs one card")
+# ---------------------------------------------------------------------------
+# the multichip arm: weak scaling of the group-sharded mesh face
+# ---------------------------------------------------------------------------
+
+
+class ShardedLoad:
+    """The bench's load on a ``('g',)`` mesh, made on each device: every
+    shard's states created full-membership (coordinators round-robin by
+    global group index), K constant vids at every replica's lanes."""
+
+    def __init__(self, cfg, mesh):
+        import numpy as np
+        import torch
+
+        from ..ops.engine import EngineState
+        from ..parallel.mesh import ShardedTensor
+        from ..parallel.spmd import build_replica_states, make_step
+
+        n = mesh.size
+        G, K, R_ = cfg.n_groups, cfg.req_lanes, cfg.n_replicas
+        Gs = G // n
+        shard_cfg = cfg._replace(n_groups=Gs)
+        grid = lambda: np.empty(mesh.devices.shape, dtype=object)
+        leaves = [grid() for _ in EngineState._fields]
+        req, want = grid(), grid()
+        for i, dev in enumerate(mesh.devices.flat):
+            coord0 = ((i * Gs + np.arange(Gs)) % R_).astype(np.int32)
+            st = build_replica_states(shard_cfg, coord0, device=dev)
+            for leaf, x in zip(leaves, st):
+                leaf[i] = x
+            vids = torch.arange(1, K + 1, dtype=torch.int32, device=dev)
+            req[i] = vids[None, None, :].expand(R_, Gs, K).contiguous()
+            want[i] = torch.zeros((R_, Gs), dtype=torch.bool, device=dev)
+        spec = (None, "g")
+        self.states = EngineState(*(ShardedTensor(mesh, spec, x, G) for x in leaves))
+        self.req = ShardedTensor(mesh, spec, req, G)
+        self.want = ShardedTensor(mesh, spec, want, G)
+        self.mesh = mesh
+        self.step_fn = make_step(cfg, mesh, 1, donate=True)
+
+    def chunk(self, n: int = CHUNK) -> int:
+        """``n`` steps; replica 0's committed count summed on each device
+        and read once."""
+        import torch
+
+        committed = [torch.zeros((), dtype=torch.int64, device=d)
+                     for d in self.mesh.devices.flat]
+        for _ in range(n):
+            self.states, out = self.step_fn(self.states, self.req, self.want)
+            for c, x in zip(committed, out.n_committed.shards.flat):
+                c += x[0].sum()
+            del out
+        return sum(int(c) for c in committed)
+
+
+def group_sharded_point(devices, g_per_dev: int, W: int, K: int,
+                        n_chunks: int) -> Dict:
+    """One weak-scaling point: the group-sharded step over ``devices`` at
+    G = g_per_dev x len(devices), warm-up timed apart, then ``n_chunks``
+    timed chunks; aggregate and per-device dec/s and peak memory."""
+    import torch
+
+    from ..ops.engine import EngineConfig
+    from ..parallel.mesh import make_group_mesh
+
+    n = len(devices)
+    mesh = make_group_mesh(n, devices=devices)
+    cfg = EngineConfig(n_groups=g_per_dev * n, window=W, req_lanes=K, n_replicas=R)
+    for d in {str(d): d for d in devices if d.type == "cuda"}.values():
+        torch.cuda.reset_peak_memory_stats(d)
+    load = ShardedLoad(cfg, mesh)
+    tw = time.perf_counter()
+    for _ in range(WARM_CHUNKS):
+        load.chunk()
+    warmup_s = time.perf_counter() - tw
+    t0 = time.perf_counter()
+    total = sum(load.chunk() for _ in range(n_chunks))
+    dt = time.perf_counter() - t0
+    peaks = [torch.cuda.max_memory_allocated(d) if d.type == "cuda" else None
+             for d in devices]
+    known = [p for p in peaks if p is not None]
+    rate = total / dt
+    del load
+    return {
+        "n_devices": n,
+        "mesh_shape": {"g": n},
+        "G": cfg.n_groups,
+        "groups_per_device": g_per_dev,
+        "aggregate_dec_per_s": round(rate, 1),
+        "per_device_dec_per_s": round(rate / n, 1),
+        "per_device_hbm_peak_bytes": max(known) if known else None,
+        "hbm_peak_bytes_by_device": peaks,
+        "steps_timed": n_chunks * CHUNK,
+        "warmup_s": round(warmup_s, 2),
+        "wall_s": round(dt, 2),
+        "physical_devices": mesh.physical_devices,
+    }
+
+
+def multichip(device) -> Dict:
+    """The weak-scaling curve (module docstring); the reference's result
+    object, with ``physical_devices`` and the card's stamp."""
+    import torch
+
+    t_start = time.perf_counter()
+    env = os.environ.get
+    on_cpu = device.type != "cuda"
+    if on_cpu:
+        n_avail = int(env("BENCH_MULTICHIP_DEVICES", "8"))
+        pool = [device] * n_avail
+        physical = 1
+    else:
+        pool = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+        n_avail = physical = len(pool)
+    counts = [n for n in (1, 2, 4, 8) if n <= n_avail]
+    g_per_dev = int(env("BENCH_G_PER_DEVICE", 8_192 if on_cpu else 1_048_576))
+    W = int(env("BENCH_W", 8 if on_cpu else 32))
+    K = int(env("BENCH_K", 4 if on_cpu else 16))
+    n_chunks = int(env("BENCH_MULTICHIP_CHUNKS", 3 if on_cpu else TIMED_CHUNKS))
+    curve = []
+    for n in counts:
+        pt = group_sharded_point(pool[:n], g_per_dev, W, K, n_chunks)
+        emit(f"BENCH multichip point: {json.dumps(pt)}", err=True)
+        curve.append(pt)
+    base = curve[0]["aggregate_dec_per_s"]
+    top = curve[-1]
+    n_max = top["n_devices"]
+    eff_parallel = top["aggregate_dec_per_s"] / (n_max * base)
+    eff_serialized = top["aggregate_dec_per_s"] / base
+    host_cores = os.cpu_count() or 1
+    # logical devices of one process on the CPU run in turn: linear weak
+    # scaling is then a flat aggregate; on distinct cards it is n x n=1
+    serialized = on_cpu
+    return {
+        "metric": "multichip_weak_scaling",
+        "platform": _platform(device),
+        "host_cores": host_cores,
+        "n_devices_available": n_avail,
+        "physical_devices": physical,
+        "mode": "group-sharded mesh (one process drives every device; no "
+                "exchange between devices, all R replica rows device-local)",
+        "shape": {"groups_per_device": g_per_dev, "W": W, "K": K, "R": R},
+        "curve": curve,
+        "scaling": {
+            "at_n_devices": n_max,
+            "efficiency_vs_linear": round(
+                eff_serialized if serialized else eff_parallel, 3),
+            "linear_model": (
+                f"host-serialized: {n_max} logical devices run in turn in one "
+                f"process on {host_cores} core(s); linear = flat aggregate vs n=1"
+            ) if serialized else (
+                "parallel devices: linear = n x the n=1 aggregate"
+            ),
+            "efficiency_parallel_model": round(eff_parallel, 3),
+            "efficiency_serialized_model": round(eff_serialized, 3),
+        },
+        "provenance": bench_provenance(device),
+        "wall_s": round(time.perf_counter() - t_start, 1),
+    }
 
 
 def main(argv=None) -> int:
@@ -389,15 +555,21 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     env = os.environ.get
     out = args.out
+    multi = env("BENCH_MULTICHIP", "") not in ("", "0")
     if env("BENCH_DISPATCH_ABLATION", "") not in ("", "0"):
         out = out or env("BENCH_DISPATCH_OUT")
+    if multi:
+        out = out or env("BENCH_MULTICHIP_OUT")
     check_out(out)
-    if env("BENCH_MULTICHIP", "") not in ("", "0"):
-        return multichip_main()
 
     from ..ops.engine import resolve_device
 
     device = resolve_device(args.device)
+    if multi:
+        result = multichip(device)
+        write_out(out, result)
+        emit(json.dumps(result))
+        return 0
     if env("BENCH_DISPATCH_ABLATION", "") not in ("", "0"):
         result = dispatch_ablation(device)
         write_out(out, result)

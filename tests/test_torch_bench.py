@@ -9,9 +9,11 @@ JAX package, on the CPU.
 * The dispatch ablation's parity at its CPU shape (G=512, W=8, K=4):
   bit-exact across N on the port, and the same decided counts as the
   root ``bench.py``'s ``_dispatch_parity`` (loaded with ``runpy``).
-* The CLI: the reference's JSON keys, ``BENCH_MULTICHIP=1`` raising
-  ``NotImplementedError``, no card and no ``--device cpu`` raising, and
-  the JAX package's artifact names refused.
+* The multichip arm on ``--device cpu`` (8 logical devices): the
+  reference's JSON keys, and its load on a ``('g',)`` mesh equal to the
+  JAX package's group-sharded step under the root ``bench.py``'s load.
+* The CLI: the reference's JSON keys, no card and no ``--device cpu``
+  raising, and the JAX package's artifact names refused.
 """
 
 import json
@@ -136,10 +138,77 @@ def test_capacity_record_on_the_cpu():
     assert cap["footprint_estimate_bytes"] > cap["footprint_state_bytes"] > 0
 
 
-def test_multichip_raises(monkeypatch):
+# the keys of the reference's multichip result and of a curve point
+# (bench.py:238-250, :508-533)
+MULTICHIP_KEYS = {"metric", "platform", "host_cores", "n_devices_available", "mode",
+                  "shape", "curve", "scaling", "provenance", "wall_s"}
+POINT_KEYS = {"n_devices", "mesh_shape", "G", "groups_per_device",
+              "aggregate_dec_per_s", "per_device_dec_per_s",
+              "per_device_hbm_peak_bytes", "hbm_peak_bytes_by_device",
+              "steps_timed", "warmup_s", "wall_s"}
+
+
+def test_multichip_raises(monkeypatch, capsys, tmp_path):
+    """``BENCH_MULTICHIP=1`` raises with no card and no ``--device cpu``;
+    on ``--device cpu`` it runs the curve over 8 logical devices under the
+    host-serialized model, with the reference's keys plus
+    ``physical_devices``, written only to ``--out``."""
     monkeypatch.setenv("BENCH_MULTICHIP", "1")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 17"):
-        bench.main(["--device", "cpu"])
+    monkeypatch.setenv("BENCH_G_PER_DEVICE", "32")
+    monkeypatch.setenv("BENCH_MULTICHIP_CHUNKS", "1")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            bench.main([])
+    path = tmp_path / "multichip_cpu.json"
+    assert bench.main(["--device", "cpu", "--out", str(path)]) == 0
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert json.loads(path.read_text()) == line
+    assert set(line) == MULTICHIP_KEYS | {"physical_devices"}
+    assert line["platform"] == "cpu" and line["physical_devices"] == 1
+    assert line["n_devices_available"] == 8
+    assert [p["n_devices"] for p in line["curve"]] == [1, 2, 4, 8]
+    for p in line["curve"]:
+        assert set(p) == POINT_KEYS | {"physical_devices"}
+        assert p["G"] == 32 * p["n_devices"] and p["aggregate_dec_per_s"] > 0
+        assert p["hbm_peak_bytes_by_device"] == [None] * p["n_devices"]
+    sc = line["scaling"]
+    assert sc["at_n_devices"] == 8
+    assert sc["linear_model"].startswith("host-serialized")
+    assert sc["efficiency_vs_linear"] == sc["efficiency_serialized_model"]
+
+
+def test_multichip_load_matches_the_reference():
+    """The multichip arm's load on a ('g',) mesh of 4 logical devices
+    against the JAX package's group-sharded step under the root
+    ``bench.py``'s load (``_run_group_sharded_point``): the same committed
+    count per chunk and bit-equal states."""
+    from gigapaxos_tpu.parallel import mesh as jmesh
+    from gigapaxos_tpu.parallel import spmd as jspmd
+    from gigapaxos_tpu_torch.ops.engine import EngineConfig
+    from gigapaxos_tpu_torch.parallel import mesh as tmesh
+
+    n, gpd, W_, K_ = 4, 64, 8, 4
+    G_ = n * gpd
+    jcfg = JConfig(n_groups=G_, window=W_, req_lanes=K_, n_replicas=R)
+    jm = jmesh.make_group_mesh(n)
+    sj, _r, _w = jspmd.shard_group_inputs(
+        jm, jcfg, j_build(jcfg), np.full((R, G_, K_), -1, np.int32),
+        np.zeros((R, G_), bool))
+    j_step = j_make_step(jcfg, jm, 1)
+    req = jnp.broadcast_to(jnp.arange(1, K_ + 1, dtype=jnp.int32)[None, None, :],
+                           (R, G_, K_))
+    want = jnp.zeros((R, G_), bool)
+    load = bench.ShardedLoad(EngineConfig(G_, W_, K_, R),
+                             tmesh.make_group_mesh(n, devices=["cpu"] * n))
+    for c in range(3):
+        committed = 0
+        for _ in range(bench.CHUNK):
+            sj, out = j_step(sj, req, want)
+            committed += int(np.asarray(out.n_committed)[0].sum())
+        assert load.chunk() == committed > 0, c
+    for f in sj._fields:
+        np.testing.assert_array_equal(np.asarray(getattr(sj, f)),
+                                      np.asarray(getattr(load.states, f)), err_msg=f)
 
 
 def test_no_card_and_no_device_raises(monkeypatch):

@@ -154,6 +154,8 @@ def _loopback(pkg):
                          eng["counters"].get("engine_retraces", 0)),
             "heat": (heat["total"] > 0, heat["active_groups"] >= 1,
                      heat["top_groups"][0]["heat"] > 0),
+            # the reference's keys of the mesh descriptor
+            "mesh": {k: eng["mesh"][k] for k in ("n_devices", "shape", "platform")},
         }
         import tempfile
 
@@ -180,6 +182,7 @@ def test_hot_dispatch_compiles_exactly_once_loopback():
     assert r["sentinels"] == [(True, 1, 0, 0)] * 3
     assert r["compile"] == (1, 0) and r["counters"] == (True, 0)
     assert r["heat"] == (True, True, True)
+    assert r["mesh"] == {"n_devices": 1, "shape": {}, "platform": "cpu"}
     assert r["profile"] == (True, True, True, True)
 
 

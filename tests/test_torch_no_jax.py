@@ -18,7 +18,10 @@ parent refuse to run without a device.  The recovery slice adds the
 recovery probe's module and the ``obs`` exports, and with no card
 ``run_recovery`` refuses to run without a device.  The operating and
 measuring slice adds the scripted clock, the footprint probe, the bench,
-the capacity probe, the trace collector and the cluster launcher.
+the capacity probe, the trace collector and the cluster launcher.  The
+mesh slice adds the entry points' module (``graft_entry``) and, with no
+card, the mesh constructors and the dry run refusing to run without
+devices.
 """
 
 import pathlib
@@ -89,8 +92,20 @@ for m in ("serving", "serving.router", "serving.supervisor", "serving.worker",
           "http_front", "txn", "txn.app", "txn.driver", "txn.recovery",
           "txn.transactor", "obs.tracemerge", "testing.chaos",
           "testing.recovery", "testing.clock", "testing.footprint",
-          "testing.bench", "testing.probe", "testing.gp_trace", "gp_server"):
+          "testing.bench", "testing.probe", "testing.gp_trace", "gp_server",
+          "graft_entry", "parallel.mesh", "testing.contention"):
     assert f"gigapaxos_tpu_torch.{m}" in mods, m
+if not torch.cuda.is_available():
+    from gigapaxos_tpu_torch.graft_entry import dryrun_multichip
+    from gigapaxos_tpu_torch.parallel.mesh import make_group_mesh, make_mesh
+
+    for call in (make_group_mesh, lambda: make_mesh(1), lambda: dryrun_multichip(2)):
+        try:
+            call()
+        except RuntimeError as e:
+            assert "no CUDA device" in str(e), e
+        else:
+            raise AssertionError("a mesh was built without devices and without a card")
 from gigapaxos_tpu_torch.obs import (all_sentinels, compile_stats,  # noqa: F401
                                      device_memory_stats, step_cost)
 from gigapaxos_tpu_torch.testing.recovery import run_recovery
@@ -145,7 +160,7 @@ def test_port_imports_without_jax():
     )
     assert r.returncode == 0, r.stdout + r.stderr
     n = int(r.stdout.split("IMPORTED")[1].split()[0])
-    assert n >= 87, r.stdout
+    assert n >= 88, r.stdout
     assert r.stdout.split("DEFAULTS")[1].split()[:3] == [
         "gigapaxos_tpu_torch.reconfiguration.demand.DemandProfile",
         "gigapaxos_tpu_torch.reconfiguration.placement.ProximateBalancePolicy",

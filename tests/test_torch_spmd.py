@@ -22,6 +22,7 @@ from gigapaxos_tpu.ops import engine as je
 from gigapaxos_tpu.parallel import spmd as jspmd
 from gigapaxos_tpu_torch.ops import engine as te
 from gigapaxos_tpu_torch.ops import gp_kernels
+from gigapaxos_tpu_torch.parallel import mesh as tmesh
 from gigapaxos_tpu_torch.parallel import spmd as tspmd
 from gigapaxos_tpu_torch.utils.config import Config as TorchConfig
 
@@ -148,7 +149,7 @@ def _emulate_kernels(monkeypatch):
 
     def step(state, gvec, heard, req_vid, want_coord, my_id, cfg, *,
              with_blob=True, out_state=None, heat=None, heat_out=None,
-             out_vec=None, blob=None, launch_log=None):
+             out_vec=None, out_blob=None, launch_log=None):
         if out_state is not None:
             ptrs = lambda st: {x.untyped_storage().data_ptr() for x in st}
             assert not ptrs(out_state) & ptrs(state)
@@ -156,8 +157,9 @@ def _emulate_kernels(monkeypatch):
                                     heard, req_vid, want_coord, my_id, cfg)
         new = _fill_state(out_state, p_st)
         out_vec = _fill(out_vec, te.pack_out(p_out))
+        blob = None
         if with_blob:
-            blob = _fill(blob, te.pack_blob(te.make_blob_plain(new)))
+            blob = _fill(out_blob, te.pack_blob(te.make_blob_plain(new)))
         if heat is not None:
             heat_out = _fill(heat_out, heat + p_out.n_committed + p_out.n_admitted)
         te.LAUNCHES["gp_step"] += 1
@@ -166,7 +168,8 @@ def _emulate_kernels(monkeypatch):
         return new, out_vec, blob, heat_out
 
     def step_stacked(states, blobs, heard, req_vid, want_coord, cfg, *,
-                     out_states=None, out_blobs=None, out_mat=None):
+                     out_states=None, out_blobs=None, out_mat=None,
+                     launch_log=None):
         g = te.unpack_gathered(blobs, cfg)
         news, outs = [], []
         for r in range(cfg.n_replicas):
@@ -179,6 +182,8 @@ def _emulate_kernels(monkeypatch):
         if out_blobs is not None:
             out_blobs.copy_(_blob_rows(new, cfg.n_replicas))
         te.LAUNCHES["gp_step"] += 1
+        if launch_log is not None:
+            launch_log["gp_step"] = launch_log.get("gp_step", 0) + 1
         return new, out_mat, out_blobs
 
     def _blob_rows(states, n_rep):
@@ -189,11 +194,11 @@ def _emulate_kernels(monkeypatch):
             for r in range(n_rep)
         ])
 
-    def make_blob_rows(states, n_rep=None, launch_log=None):
+    def make_blob_rows(states, n_rep=None, launch_log=None, out=None):
         te.LAUNCHES["gp_make_blob"] += 1
         if launch_log is not None:
             launch_log["gp_make_blob"] = launch_log.get("gp_make_blob", 0) + 1
-        return _blob_rows(states, n_rep)
+        return _fill(out, _blob_rows(states, n_rep))
 
     def make_blob_vec(state, launch_log=None):
         return make_blob_rows(state, None, launch_log)
@@ -267,8 +272,10 @@ def test_make_step_validates_and_memoizes():
         tspmd.make_step(cfg, None, 1, io="nope", device="cpu")
     with pytest.raises(ValueError):
         tspmd.make_step(cfg, None, 1, io="stacked", heat=True, device="cpu")
-    with pytest.raises(NotImplementedError):
-        tspmd.make_step(cfg, object(), 1, device="cpu")
+    mesh = tmesh.make_group_mesh(2, devices=["cpu"] * 2)
+    assert tspmd.make_step(cfg, mesh, 1) is tspmd.make_step(cfg, mesh, 1)
+    with pytest.raises(NotImplementedError, match="ROADMAP item 17"):
+        tspmd.make_step(cfg, mesh, 1, io="packed_host")
     a = tspmd.make_step(cfg, None, 2, device="cpu")
     assert a is tspmd.make_step(cfg, None, 2, device="cpu")
     if not torch.cuda.is_available():
