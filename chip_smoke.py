@@ -33,14 +33,15 @@ Phases (any failure exits nonzero):
              chaos and transaction soaks' (G in {24, 8, 16, 48}, W=8; N in
              {1, 7, G}) and the recovery path's (G=262,144, W=8; N in
              {1, 32,768}) and the launcher scenario's actives' (G=256, W=16;
-             N=1); the input state unchanged, untouched leaves the input's own
+             N=1) and the bank ledger's (G=131,072, W=4; N in {1, 1,696,
+             32,768}, timed at 32,768); the input state unchanged, untouched leaves the input's own
              tensors, bad row batches refused; then each op's launch time
              (on the device: a CUDA graph of launches; and by events
              around a loop), full call time, plain and index_copy times.
    pack_rows — gp_pack_rows against pack_rows_plain, bit for bit, at
              (G=65,536, W=16, R=3), (65,536, 16, 4), (64, 16, 3),
-             (64, 16, 4) and the soaks' (24, 8, 4), (8, 8, 3) and
-             (16, 8, 3) on seeded and fuzzed blobs with numpy, card and
+             (64, 16, 4), the soaks' (24, 8, 4), (8, 8, 3) and
+             (16, 8, 3) and the bank ledger's (131,072, 4, 3) on seeded and fuzzed blobs with numpy, card and
              CPU leaves mixed; then its launch time (device and events),
              the full call and its staging on the host's clock, the plain
              version and torch.cat of card-resident leaves, beside its
@@ -61,7 +62,9 @@ Phases (any failure exits nonzero):
              module's estimate) and its dispatch ablation at G=262,144
              (the N=8 and N=1 faces held against the plain version; per-
              step parity across N bit-exact, 480 against 60 host
-             dispatches, both throughputs).
+             dispatches, both throughputs).  The steady arm's bench line
+             and the ablation's result go to a temporary results directory
+             (phase 15b folds them).
    step shapes — the manager's dispatch step (heat in place and fresh)
              and gp_make_blob against the plain version, bit for bit, for
              every replica id, at the server's shape (G=65,536, W=16, K=8,
@@ -70,14 +73,15 @@ Phases (any failure exits nonzero):
              (G=64, W=16, K=8, R=3), a sharded worker's (G=32,768, W=16,
              K=8, R=3) and the soaks' (G, W, K, R) = (24, 8, 4, 4),
              (8, 8, 4, 3), (16, 8, 4, 3) and (48, 8, 4, 1) and the
-             recovery path's (262,144, 8, 4, 1) and the launcher
-             scenario's actives' (256, 16, 8, 3): every shape
+             recovery path's (262,144, 8, 4, 1), the launcher
+             scenario's actives' (256, 16, 8, 3) and the bank ledger's
+             (131,072, 4, 2, 3), the generic instantiation: every shape
              that a later phase launches a kernel at; then their times (device and events),
              each step's share of its bound and its launch plan.
 4. density — testing/density.py on the card: 1,048,576 names on 65,536
              rows (W=16, K=4, one replica, packed spill in a temporary
              directory): boot by batched create + hibernate, the per-name
-             against the batched wake of 4,096 names, 20 rounds of Zipfian
+             wake of 1,024 names against the batched wake of 4,096, 10 rounds of Zipfian
              churn; every request answered, every name accounted for.
 5. state transfer — 3 managers (ManagerCluster) at the server shape,
              batching off: replica 2 dies, the others run more than 5W
@@ -98,8 +102,8 @@ Phases (any failure exits nonzero):
 8. reconfiguration — ReconfigurableNode AR0..AR3 and RC0..RC2 on loopback
              ports in this process, configured by properties alone (the
              nodes' own engine defaults, the card as their default
-             device), HashChainApp, ReconfigurableAppClient: 256 batched
-             creates (cut from 1,024), 16 single ones, 8 requests on each
+             device), HashChainApp, ReconfigurableAppClient: 128 batched
+             creates (cut from 1,024), 8 single ones, 4 requests on each
              of 64 names (every response the next link of the name's hash
              chain, every member's state equal), 16 migrations onto a set
              with an outside active plus a stale-cache request each, 16
@@ -111,7 +115,7 @@ Phases (any failure exits nonzero):
              32,768 rows a worker, W=16, K=8, R=3, HashChainApp by
              APPLICATION; the parent builds the kernels before it spawns),
              and RC0..RC2 in this process, on loopback ports, configured by
-             properties alone: 64 batched creates, 8 requests on each name
+             properties alone: 64 batched creates, 4 requests on each name
              (every response the next link of its hash chain), every
              member's state equal (the admin plane's app_state op, sent to
              the name's shard), names on both shards as shard_of_name
@@ -125,13 +129,23 @@ Phases (any failure exits nonzero):
              65,536 rows (ENGINE_ROWS=131,072), so that ticks/s per
              process stand beside phase 6's at equal rows per engine.
 11. txn    — ManagerCluster of 3 managers on the card with
-             TxnApp(StatefulAdderApp()) at the server shape: 32
+             TxnApp(StatefulAdderApp()) at the server shape: 16
              transactions over 2-4 of 16 groups each, 8 at once (balances
              equal on every member, conserved, equal to the committed
              history, no lock left); the coordinator-crash commit arm
              (journals in a temporary directory, all members restart, the
              resolver re-drives the commit); run_txn_soak(786083501) at its
-             own shape.
+             own shape through the chaos sweep's main (testing/chaos_sweep.py
+             --family txn --count 1: the seed run, failed_seeds empty).
+11b. ledger — the bank-ledger workload (scenarios/bank_ledger.py) through
+             its main on the card at its published shape: 100,000 accounts
+             on 131,072 rows (W=4, K=2, R=3), Zipf 1.05, amounts up to 9,
+             32 in flight, seed 1; only the transaction count cut (128, from
+             the artifact's 400).  All four audits pass (replicas agree, no
+             lock or staged op left, conservation, per-name ledger), at
+             least one transaction commits, and the path launched gp_step,
+             gp_make_blob, gp_create_groups and gp_pack_rows; boot s, txn/s,
+             commit p50/p99, steps and ms per cluster step.
 12. chaos  — one pinned seed each, at the harness's own shapes, on the
              card: run_soak(1234) and run_density_soak(1) on the scripted
              clock of testing/clock.py in a child interpreter with
@@ -172,7 +186,8 @@ Phases (any failure exits nonzero):
              (g, r) blob exchange's ms per step against its bound
              (r(r-1) G 528 B read and written at the card's memory rate),
              peak memory; the bench's multichip arm over the physical cards
-             and graft_entry.dryrun_multichip(8) on the card.  One card
+             (its result to the results directory) and
+             graft_entry.dryrun_multichip(8) on the card.  One card
              measures no multi-card speed.
 15. ops    — the operating faces on the card: the port's scenario
              (gigapaxos_tpu_torch/scenarios/loopback_3ar_3rc.properties on
@@ -180,20 +195,24 @@ Phases (any failure exits nonzero):
              65,536) booted by `gigapaxos_tpu_torch.gp_server start all`
              as six processes with their request tracers on; `status all`
              6 up; testing/probe.py --attach, the reference's ramp from 10
-             req/s for at most 8 rounds (round 0 must be answered at the
+             req/s for at most 4 rounds (round 0 must be answered at the
              reference's 0.9; its latency is recorded);
              testing/gp_trace.py --props over the actives (a merged
              timeline with a consensus hop; mean and p99 per hop); every
              node's launches (each launched gp_step) and card memory;
              `stop all`, then `status all` 6 down with no pid file and no
              process left.  Then testing/probe.py at its own defaults (6
-             processes at 64 rows), and, while the call has spent less
-             than 650 s since the build, its --in-process ramps with and
+             processes at 64 rows; its capacity record to the results
+             directory), and, while the call has spent less
+             than 550 s since the build, its --in-process ramps with and
              without consensus (--unreplicated).
+15b. baseline — testing/perf_baseline.py over the results directory:
+             every required series and sane bands (validate), the steady
+             headline in its card's band, --check-only reading it back.
 16. report — the kernels line, then the device line (last).
 
 Kernel launch counts are reset to 0 just before each main-path run
-(phases 3 to 8, 10 to 13 and 14's timed runs and entry points) and read
+(phases 3 to 8, 10 to 13, 11b and 14's timed runs and entry points) and read
 just after; parity and timing
 launches do not count.  Phase 10's launches are its worker processes'
 counts (read through the stats admin op at the phase's end) plus this
@@ -261,7 +280,8 @@ CHAOS_ENGINES = {"soak_ar": dict(G=24, W=8, K=4, R=4),
                  "soak_rc": dict(G=8, W=8, K=4, R=3),
                  "soak_g16": dict(G=16, W=8, K=4, R=3),
                  "soak_density": dict(G=48, W=8, K=4, R=1)}
-SERVER_NAMES, SERVER_REQS_PER_NAME = 32, 10
+# requests a name halved (from 10) to make room for the ledger phase
+SERVER_NAMES, SERVER_REQS_PER_NAME = 32, 5
 TIMING_ITERS = 30
 WATCHDOG_S = 1140.0
 # the recovery probe's published defaults (scripts/recovery_probe.py:75-96),
@@ -270,6 +290,16 @@ RECOVERY = dict(g=262_144, names=262_144, active=2048, tail=32_768,
                 pad_bytes=256, state_bytes=512, window=8, shards=16, workers=4,
                 hot=1024, journal_file_mb=4.0)
 RECOVERY_ENGINE = dict(G=RECOVERY["g"], W=RECOVERY["window"], K=4, R=1)
+# the bank-ledger workload (scenarios/bank_ledger.py, the JAX package's
+# TXN_r01.json parameters): 100,000 accounts at its published Zipf, amount
+# and replicas, 32 in flight (PC.TXN_MAX_INFLIGHT), seed 1; the one cut is
+# the transaction count (the artifact ran 400).  Its engine: build_cluster
+# sizes 1 << max(10, bit_length(accounts + 1)) rows at W=4, K=2
+LEDGER = dict(accounts=100_000, txns=128, inflight=32, zipf=1.05, amount_max=9,
+              replicas=3, seed=1)
+LEDGER_ENGINE = dict(G=1 << max(10, (LEDGER["accounts"] + 1).bit_length()), W=4,
+                     K=2, R=LEDGER["replicas"])
+LEDGER_CREATE_CHUNK = 32_768     # bank_ledger.CREATE_CHUNK
 # lifecycle parity and timing: (G, W, batch sizes)
 # (16,384 is the density path's boot chunk)
 LIFE_SHAPES = {"server": (65_536, 16, (1, 7, 4096, 16_384)),
@@ -284,11 +314,18 @@ LIFE_SHAPES = {"server": (65_536, 16, (1, 7, 4096, 16_384)),
                             (1, 32_768)),
                # the launcher scenario's actives create, kill and restore
                # one name at a time (the probe's 64-row actives are "rc")
-               "scenario": (SCENARIO["G"], SCENARIO["W"], (1,))}
+               "scenario": (SCENARIO["G"], SCENARIO["W"], (1,)),
+               # the ledger's boot: its coordinator, then 32,768-name
+               # chunks and the last chunk's rest (1,696 names)
+               "ledger": (LEDGER_ENGINE["G"], LEDGER_ENGINE["W"],
+                          (1, LEDGER["accounts"] % LEDGER_CREATE_CHUNK,
+                           LEDGER_CREATE_CHUNK))}
 LIFE_TIMING_N = 4096
+# shapes timed at another batch than LIFE_TIMING_N: the ledger's chunk
+LIFE_TIMING_N_AT = {"ledger": LEDGER_CREATE_CHUNK}
 DENSITY = dict(names=1_048_576, rows=65_536, window=16, req_lanes=4,
-               boot_chunk=16_384, burst=4096, per_name_burst=None,
-               hot_pct=1.0, rounds=20, round_requests=512, zipf_a=1.2,
+               boot_chunk=16_384, burst=4096, per_name_burst=1024,
+               hot_pct=1.0, rounds=10, round_requests=512, zipf_a=1.2,
                seed=0)
 # the step's shapes on the server, density and reconfiguration paths (the
 # density manager runs one replica)
@@ -296,30 +333,36 @@ STEP_SHAPES = {"server": SERVER,
                "density": dict(G=DENSITY["rows"], W=DENSITY["window"],
                                K=DENSITY["req_lanes"], R=1),
                "ar": AR, "rc": RC, "worker": WORKER, **CHAOS_ENGINES,
-               "recovery": RECOVERY_ENGINE, "scenario": SCENARIO}
+               "recovery": RECOVERY_ENGINE, "scenario": SCENARIO,
+               # the generic gp_step (W=4 has no fixed instantiation)
+               "ledger": LEDGER_ENGINE}
 # gp_pack_rows parity and timing: (G, W, R) of every tick that packs (the
 # density soak runs one replica and packs nothing)
 PACK_SHAPES = {"ar3": (65_536, 16, 3), "ar4": (65_536, 16, 4), "rc": (64, 16, 3),
                "rc4": (64, 16, 4),
+               "ledger": (LEDGER_ENGINE["G"], LEDGER_ENGINE["W"], LEDGER_ENGINE["R"]),
                **{k: (d["G"], d["W"], d["R"]) for k, d in CHAOS_ENGINES.items()
                   if d["R"] > 1}}
 PACK_TURNS = 3   # kernel and torch.cat timed in turns at the small shapes
 # the socket deployment: names created in one batch (1,024 cut to 256:
-# on an H100 host the batch alone took 941 s for 1,024 names), then one
-# by one; names that take requests and requests each; names migrated;
-# deleted
-RC_BATCH_NAMES, RC_SINGLE_NAMES = 256, 16
-RC_REQ_NAMES, RC_REQS_PER_NAME = 64, 8
+# on an H100 host the batch alone took 941 s for 1,024 names; to 128 and
+# the singles and requests a name halved to make room for the ledger
+# phase), then one by one; names that take requests and requests each;
+# names migrated; deleted
+RC_BATCH_NAMES, RC_SINGLE_NAMES = 128, 8
+RC_REQ_NAMES, RC_REQS_PER_NAME = 64, 4
 RC_MOVES, RC_DELETES = 16, 16
 ST_BATCHES, ST_BATCH_REQS = 10, 10   # slots driven past the straggler
 SERVER_HIBERNATE, SERVER_POST_REQS_PER_NAME = 8, 2
-# the sharded deployment: names created in one batch, requests on each,
-# names deleted
-SH_NAMES, SH_REQS_PER_NAME, SH_DELETES = 64, 8, 8
+# the sharded deployment: names created in one batch, requests on each
+# (halved from 8 for the ledger phase), names deleted
+SH_NAMES, SH_REQS_PER_NAME, SH_DELETES = 64, 4, 8
 # transactions at the server shape: accounts (each starting at the
-# balance), transactions and how many run at once; then the soak's seed
+# balance), transactions (32 halved for the ledger phase, which takes the
+# transaction plane to 100,000 groups) and how many run at once; then the
+# soak's seed
 TXN_SEED, TXN_ACCOUNTS, TXN_BALANCE = 20260804, 16, 1000
-TXN_COUNT, TXN_INFLIGHT = 32, 8
+TXN_COUNT, TXN_INFLIGHT = 16, 8
 TXN_SOAK_SEED = 786083501
 # the chaos families' pinned seeds (tests/test_chaos.py,
 # tests/test_serving_workers.py; run_density_soak's default seed)
@@ -327,15 +370,16 @@ CHAOS_SEED, CHAOS_SHARDED_SEED, CHAOS_DENSITY_SEED = 1234, 20260804, 1
 # the operating faces (phase 15): the port's scenario booted at the nodes'
 # default rows (the server shape), the probe's ramp against it (an init load
 # the 65,536-row ticks sustain; the reference's factor, thresholds and
-# window; at most 8 rounds), and the probe's own defaults (64 rows)
+# window; at most 4 rounds, 8 until the ledger phase came), and the
+# probe's own defaults (64 rows)
 OPS_SCENARIO = os.path.join("gigapaxos_tpu_torch", "scenarios",
                             "loopback_3ar_3rc.properties")
 OPS_ROWS = SERVER["G"]
-OPS_INIT_LOAD, OPS_MAX_ROUNDS = 10.0, 8
+OPS_INIT_LOAD, OPS_MAX_ROUNDS = 10.0, 4
 OPS_ANSWERED = 0.9    # the probe's response-rate threshold (probe.py)
 # 15.6 (the in-process ramps, about 120 s) runs only when the call has
-# spent less than this since the build
-OPS_INPROC_BUDGET_S = 650.0
+# spent less than this since the build (650 s until the ledger phase came)
+OPS_INPROC_BUDGET_S = 550.0
 
 # the mesh faces (phase 14): the headline shape, one card holding every
 # logical device; a G that does not divide over 4 shards; the ('g',)
@@ -788,7 +832,8 @@ def library_fn(name: str, state, want, idx_t):
 
 def phase_lifecycle(diff: Diff, device, bw: float) -> dict:
     """Every lifecycle kernel against its plain version on the card at
-    both shapes (module docstring), then its times at N=4,096."""
+    both shapes (module docstring), then its times at N=4,096 (the
+    ledger's at its 32,768-name chunk)."""
     import numpy as np
     import torch
 
@@ -850,13 +895,14 @@ def phase_lifecycle(diff: Diff, device, bw: float) -> dict:
         torch.cuda.synchronize()
         for name, *_ in LIFE_KERNELS:
             times[name]["parity_launches"] += te.LAUNCHES[name]
-        # times at N=4,096 (the shape's largest batch if smaller): the
+        # times at N=4,096 (the shape's largest batch if smaller, the
+        # ledger's create chunk at its shape): the
         # staged launch alone (copy + row pass, or the gather) on the
         # device (a CUDA graph of launches) and by the events around a
         # loop of launches, the full call (checks, staging upload,
         # outputs, launch), the plain version and the per-leaf library
         # calls
-        N = min(LIFE_TIMING_N, max(Ns))
+        N = LIFE_TIMING_N_AT.get(shape, min(LIFE_TIMING_N, max(Ns)))
         for name, fn, _ref, _path in LIFE_KERNELS:
             args, kw = life_args(name, rng, G, W, N, other)
             staged = gp_kernels.stage(name, state, *args, **kw)
@@ -1573,11 +1619,13 @@ def assert_rsm(states) -> int:
     return cells
 
 
-def phase_headline(diff: Diff, device, bw: float) -> dict:
+def phase_headline(diff: Diff, device, bw: float, results: str) -> dict:
     """The bench's headline arms through ``testing/bench.py`` (its load,
     warm-up and timed chunks), each with the plain version beside the
     kernel at full width after the warm-up; then gp_step's times at this
-    shape; then the bench's capacity arm and its dispatch ablation."""
+    shape; then the bench's capacity arm and its dispatch ablation.  The
+    steady arm's bench line and the ablation's result go to ``results``
+    (the baseline phase folds them)."""
     import torch
 
     from gigapaxos_tpu_torch.ops import engine as te
@@ -1628,6 +1676,7 @@ def phase_headline(diff: Diff, device, bw: float) -> dict:
             f"{res['warmup_s']:.4f} s), launches {launches}, RSM ok on {cells} "
             f"equal-frontier cells; bench line {json.dumps(line)}")
         del res
+    bench.write_out(os.path.join(results, "headline.json"), arms["steady"]["bench_line"])
     peak = torch.cuda.max_memory_allocated()
     # kernel timing at this shape: one stacked gp_step launch = R
     # replica-steps; one gp_make_blob launch over R replicas
@@ -1686,7 +1735,7 @@ def phase_headline(diff: Diff, device, bw: float) -> dict:
         "make_blob_bound_ms": blob_bytes(G, W) / bw * 1e3,
         "peak_bytes": peak, "shape": HEADLINE,
         "capacity": bench_capacity(diff, device, bw),
-        "ablation": bench_ablation(diff, device),
+        "ablation": bench_ablation(diff, device, results),
     }
 
 
@@ -1777,7 +1826,7 @@ def bench_capacity(diff: Diff, device, bw: float) -> dict:
     return out
 
 
-def bench_ablation(diff: Diff, device) -> dict:
+def bench_ablation(diff: Diff, device, results: str) -> dict:
     """The bench's dispatch ablation (``BENCH_DISPATCH_ABLATION=1``) at its
     card shape: first the N=8 and N=1 faces held against the plain version
     from warmed states, then the ablation itself (per-step parity across N
@@ -1824,6 +1873,7 @@ def bench_ablation(diff: Diff, device) -> dict:
         f"{a8['host_dispatches']}; N=1 {a1['decided_per_s']:.6g} decided/s, N=8 "
         f"{a8['decided_per_s']:.6g} ({res['throughput_ratio_n8_vs_n1']}x); "
         f"launches {launches}")
+    bench.write_out(os.path.join(results, "ablation.json"), res)
     return {"result": res, "launches": launches, "shape": ABLATION}
 
 
@@ -2512,13 +2562,14 @@ def phase_txn(device) -> dict:
     balances on every member, no lock left); the coordinator-crash commit
     arm (journals in a temporary directory, every member crash-restarts,
     the resolver re-drives the commit); then one pinned seed of
-    ``run_txn_soak`` at its own shape."""
+    ``run_txn_soak`` at its own shape through the chaos sweep's ``main``."""
     import random
     import shutil
 
     from gigapaxos_tpu_torch.models.apps import StatefulAdderApp
     from gigapaxos_tpu_torch.ops import engine as te
-    from gigapaxos_tpu_torch.testing.chaos import run_txn_soak
+    from gigapaxos_tpu_torch.testing import chaos_sweep
+    from gigapaxos_tpu_torch.testing.clock import count_steps
     from gigapaxos_tpu_torch.testing.cluster import ManagerCluster
     from gigapaxos_tpu_torch.txn import (COMMITTED, TXN_COORD, Transaction, TxnApp,
                                          TxnDriver, TxnResolver, tx_op, txc_op)
@@ -2672,14 +2723,73 @@ def phase_txn(device) -> dict:
         if launches[k] <= 0:
             fail(f"txn: {k} never launched: {launches}")
 
-    # 3. one pinned seed of the transaction soak at its own shape
+    # 3. one pinned seed of the transaction soak at its own shape, through
+    # the chaos sweep (one seed of the txn family)
+    sweep_out = os.path.join(tempfile.mkdtemp(prefix="gp_sweep_"), "sweep.json")
     t0 = time.perf_counter()
-    soak = run_txn_soak(TXN_SOAK_SEED, device=device)
-    soak["seconds"] = time.perf_counter() - t0
-    log(f"txn: run_txn_soak({TXN_SOAK_SEED}) on the card: {soak}")
+    with count_steps() as counts:
+        rc = chaos_sweep.main(["--family", "txn", "--base", str(TXN_SOAK_SEED),
+                               "--count", "1", "--device", device.type,
+                               "--out", sweep_out])
+    with open(sweep_out) as f:
+        sweep = json.load(f)
+    shutil.rmtree(os.path.dirname(sweep_out), ignore_errors=True)
+    seeds = [(e["family"], e["seed"], e["ok"]) for e in sweep["seeds"]]
+    if rc != 0 or sweep["failed_seeds"] or seeds != [("txn", TXN_SOAK_SEED, True)]:
+        fail(f"txn: the sweep of run_txn_soak({TXN_SOAK_SEED}): rc {rc}, "
+             f"{json.dumps(sweep)[:3000]}")
+    soak = {**sweep["seeds"][0], **counts, "platform": sweep["platform"],
+            "seconds": time.perf_counter() - t0}
+    log(f"txn: run_txn_soak({TXN_SOAK_SEED}) on the card through the chaos sweep: "
+        f"{soak}; failed_seeds {sweep['failed_seeds']}")
     total = dict(te.LAUNCHES)
     return {"transfers": transfers, "restart_seconds": t_restart, "soak": soak,
             "launches": total, "seconds": time.perf_counter() - t_phase}
+
+
+def phase_ledger(device) -> dict:
+    """The bank-ledger workload through its ``main`` on the card at its
+    published shape (``LEDGER``: 100,000 accounts on 131,072 rows, W=4,
+    K=2, R=3; the transaction count cut): all four audits pass, at least
+    one transaction commits, and the path launched gp_step (the generic
+    instantiation), gp_make_blob, gp_create_groups and gp_pack_rows."""
+    from gigapaxos_tpu_torch.ops import engine as te
+    from gigapaxos_tpu_torch.scenarios import bank_ledger
+
+    out = os.path.join(tempfile.mkdtemp(prefix="gp_ledger_"), "ledger.json")
+    argv = ["--accounts", LEDGER["accounts"], "--txns", LEDGER["txns"],
+            "--inflight", LEDGER["inflight"], "--zipf", LEDGER["zipf"],
+            "--amount-max", LEDGER["amount_max"], "--replicas", LEDGER["replicas"],
+            "--seed", LEDGER["seed"], "--device", device.type, "--out", out]
+    te.reset_launch_counts()
+    t0 = time.perf_counter()
+    rc = bank_ledger.main([str(a) for a in argv])
+    seconds = time.perf_counter() - t0
+    launches = dict(te.LAUNCHES)
+    if not os.path.exists(out):
+        fail(f"ledger: main returned {rc} and wrote no document (stalled)")
+    with open(out) as f:
+        doc = json.load(f)
+    shutil.rmtree(os.path.dirname(out), ignore_errors=True)
+    shape = LEDGER_ENGINE
+    if rc != 0 or doc["audit"] != "pass" or doc["committed"] < 1:
+        fail(f"ledger: rc {rc}, audit {doc['audit']}, {doc['committed']} committed: "
+             f"{json.dumps(doc)[:3000]}")
+    if doc["params"]["n_groups"] != shape["G"]:
+        fail(f"ledger: ran on {doc['params']['n_groups']} rows, not {shape['G']}")
+    for k in ("gp_step", "gp_make_blob", "gp_create_groups", "gp_pack_rows"):
+        if launches[k] <= 0:
+            fail(f"ledger: {k} never launched: {launches}")
+    lat = doc["commit_latency_s"]
+    log(f"ledger: {LEDGER['accounts']} accounts on {shape['G']} rows (W={shape['W']}, "
+        f"K={shape['K']}, R={shape['R']}), {LEDGER['txns']} transactions at "
+        f"{LEDGER['inflight']} in flight: {doc['committed']} committed, "
+        f"{doc['aborted']} aborted, audit {doc['audit']}; boot {doc['boot_s']:.6g} s, "
+        f"{doc['steps']} steps at {doc['ms_per_step']:.6g} ms a cluster step, "
+        f"{doc['txns_per_s']} txn/s, commit p50 {lat['p50']:.6g} s p99 "
+        f"{lat['p99']:.6g} s; launches {launches} (boot {doc['launches']['boot']}); "
+        f"phase {seconds:.1f} s")
+    return {"doc": doc, "launches": launches, "shape": shape, "seconds": seconds}
 
 
 def phase_chaos(device) -> dict:
@@ -2849,7 +2959,7 @@ def mesh_rate(fn, states, req, want, steps: int, committed_of) -> tuple:
     return n, time.perf_counter() - t0, states
 
 
-def phase_mesh(diff: Diff, device, bw: float) -> dict:
+def phase_mesh(diff: Diff, device, bw: float, results: str) -> dict:
     """The mesh faces of make_step at the headline shape, every logical
     device on this card: the ('g',) face over 4 shards (and at a G that
     does not divide, padded) and the (g, r) face over 2 x 3, three steps
@@ -2859,7 +2969,7 @@ def phase_mesh(diff: Diff, device, bw: float) -> dict:
     dry run against the CPU.  Then each face's committed dec/s beside the
     stacked face's, the (g, r) exchange's time against its bound, peak
     memory, and the entry points: the bench's multichip arm over the
-    physical cards and ``dryrun_multichip(8)``."""
+    physical cards (its result to ``results``) and ``dryrun_multichip(8)``."""
     import numpy as np
     import torch
 
@@ -3040,6 +3150,7 @@ def phase_mesh(diff: Diff, device, bw: float) -> dict:
     # 7. the entry points
     te.reset_launch_counts()
     mc = bench.multichip(device)
+    bench.write_out(os.path.join(results, "multichip.json"), mc)
     mc_launches = dict(te.LAUNCHES)
     te.reset_launch_counts()
     dry = graft_entry.dryrun_multichip(MESH_DRYRUN_DEVICES, device)
@@ -3095,7 +3206,7 @@ def probe_summary(r: subprocess.CompletedProcess, what: str) -> dict:
             "curve": curve}
 
 
-def phase_ops(device, t_start: float) -> dict:
+def phase_ops(device, t_start: float, results: str) -> dict:
     """The deployment the way the README starts it, on the card: the
     port's scenario (free loopback ports, the nodes' default ENGINE_ROWS)
     booted by ``gigapaxos_tpu_torch.gp_server start all`` with the nodes'
@@ -3106,8 +3217,8 @@ def phase_ops(device, t_start: float) -> dict:
     hop); every node's launches and card memory (stats admin op: each
     launched gp_step); ``stop all`` and ``status all`` 6 down, no pid file
     and no process left.  Then the probe at its own defaults (6 processes
-    at 64 rows), and, when the call has time left, its in-process ramps
-    with and without consensus."""
+    at 64 rows; its capacity record to ``results``), and, when the call has
+    time left, its in-process ramps with and without consensus."""
     from pathlib import Path
 
     from gigapaxos_tpu_torch.clients import PaxosClientAsync
@@ -3117,6 +3228,15 @@ def phase_ops(device, t_start: float) -> dict:
     from gigapaxos_tpu_torch.utils.config import Config
 
     on_card = device.type == "cuda"
+    # the host the six node processes share with this one: its load, and
+    # this process's own CPU over an idle 2 s and its live threads (a
+    # thread left busy by an earlier phase slows every node's tick)
+    cpu0, t0 = time.process_time(), time.perf_counter()
+    time.sleep(2.0)
+    idle_cpus = (time.process_time() - cpu0) / (time.perf_counter() - t0)
+    threads = sorted(t.name for t in threading.enumerate())
+    log(f"ops: host load {os.getloadavg()}; this process busy {idle_cpus:.4f} CPUs "
+        f"while idle, {len(threads)} threads {threads}")
     work = tempfile.mkdtemp(prefix="gp_ops_")
     ports = node_ports(6, (0, Config.get_int(PC.HTTP_PORT_OFFSET)))
     text = open(os.path.join(HERE, OPS_SCENARIO)).read()
@@ -3132,7 +3252,7 @@ def phase_ops(device, t_start: float) -> dict:
     dev = ["--device", device.type]
     gp = ["gigapaxos_tpu_torch.gp_server", "--config", cfg, "--run-dir", run_dir]
     nodes = load_nodes(Path(cfg))
-    out = {"ports": ports}
+    out = {"ports": ports, "idle_cpus": idle_cpus, "threads": threads}
     started = False
     try:
         t0 = time.perf_counter()
@@ -3234,7 +3354,9 @@ def phase_ops(device, t_start: float) -> dict:
         f"no process left")
 
     t0 = time.perf_counter()
-    r = run_module(["gigapaxos_tpu_torch.testing.probe"] + dev, 900)
+    r = run_module(["gigapaxos_tpu_torch.testing.probe"] + dev +
+                   ["--capacity-out", os.path.join(results, "probe_capacity.json"),
+                    "--label", "defaults"], 900)
     dft = probe_summary(r, "probe at its defaults")
     dft["seconds"] = time.perf_counter() - t0
     out["probe"] = dft
@@ -3265,10 +3387,48 @@ def phase_ops(device, t_start: float) -> dict:
     return out
 
 
+def phase_baseline(device, results: str) -> dict:
+    """The port's perf-baseline reader over the bench results phases 3,
+    14 and 15 wrote to ``results`` (the steady headline, the dispatch
+    ablation, the multichip arm, the probe's capacity record at its
+    defaults): the baseline document has every required series and sane
+    bands (``validate``), the steady headline checked against its card's
+    band is in band, and ``--check-only`` reads the document back."""
+    from gigapaxos_tpu_torch.testing import perf_baseline as pb
+
+    names = ("headline.json", "ablation.json", "multichip.json", "probe_capacity.json")
+    missing = [n for n in names if not os.path.exists(os.path.join(results, n))]
+    if missing:
+        fail(f"baseline: no {missing} from the earlier phases (run headline, mesh "
+             "and ops with it)")
+    out = os.path.join(results, "baseline.json")
+    rc = pb.main(["--root", results, "--out", out, "--fresh",
+                  os.path.join(results, "headline.json"), "--device", device.type])
+    with open(out) as f:
+        doc = json.load(f)
+    errs = pb.validate(doc)
+    fc = doc.get("fresh_check") or {}
+    if rc != 0 or errs or not fc.get("in_band"):
+        fail(f"baseline: rc {rc}, problems {errs}, fresh check {fc}")
+    if pb.main(["--check-only", out]) != 0:
+        fail("baseline: --check-only refused the document it wrote")
+    series = doc["series"]
+    heads = series["committed_decisions_per_s"]
+    log(f"baseline: {len(doc['sources'])} sources {doc['sources']}; headline bands "
+        + ", ".join(f"{k}: {v['values']} lower {v['band']['lower']}"
+                    for k, v in heads.items())
+        + f"; capacity {list(series['system_capacity_requests_per_s'])}; ablation and "
+        f"multichip cards {list(series['dispatch_ablation'].get('cards', {}))} "
+        f"{list(series['multichip_weak_scaling'].get('cards', {}))}; state "
+        f"{series['engine_state_bytes_per_group']['bytes_per_group']} B a group; "
+        f"fresh check {fc['value']} >= {fc['band_lower']} ({fc['platform']}): in band")
+    return {"fresh_check": fc, "sources": doc["sources"], "headline": heads}
+
+
 def kernels_line(diff: Diff, head: dict, step_t: dict, life: dict, dens: dict,
                  xfer: dict, srv: dict, pack: dict, rcs: dict, rcn: dict,
-                 shd: dict, txn: dict, chs: dict, rec: dict, mesh: dict,
-                 ops: dict) -> list:
+                 shd: dict, txn: dict, ledger: dict, chs: dict, rec: dict,
+                 mesh: dict, ops: dict) -> list:
     """The kernels line's entries, from the phases' results."""
     srv_t, den_t = step_t["server"], step_t["density"]
     cap, abl = head["capacity"], head["ablation"]
@@ -3290,7 +3450,8 @@ def kernels_line(diff: Diff, head: dict, step_t: dict, life: dict, dens: dict,
     per_path = {"density": dens["launches_total"], "state_transfer": xfer["launches"],
                 "server": srv["launches"], "rc_stepped": rcs["launches"],
                 "reconfiguration": rcn["launches"], "sharded": shd["launches"],
-                "txn": txn["launches"], "chaos": chs["launches"],
+                "txn": txn["launches"], "ledger": ledger["launches"],
+                "chaos": chs["launches"],
                 "recovery": rec["launches"], "bench": bench_l, "mesh": mesh_l,
                 "probe": ops["probe"]["launches"], "ops": ops["launches"]}
     on_paths = lambda name: {p: per_path[p].get(name, 0) for p in per_path}
@@ -3341,8 +3502,8 @@ def kernels_line(diff: Diff, head: dict, step_t: dict, life: dict, dens: dict,
                 "exchange_bound_ms": mesh["exchange_bound_ms"],
                 "exchange_bytes": mesh["exchange_bytes"]},
             **{f"{p}_shape": at_shape(step_t[p], "ms", "ms_events", "ms_fresh",
-                                      "bound_ms", "plain_ms", "share")
-               for p in ("ar", "rc", "worker", "recovery")},
+                                      "bound_ms", "plain_ms", "share", "plan")
+               for p in ("ar", "rc", "worker", "recovery", "ledger")},
             "checked_shapes": {k: step_t[k]["shape"] for k in step_t},
         },
         {
@@ -3371,7 +3532,7 @@ def kernels_line(diff: Diff, head: dict, step_t: dict, life: dict, dens: dict,
             "mesh": mesh_rec("gp_make_blob"),
             **{f"{p}_shape": at_shape(step_t[p], "make_blob_ms", "make_blob_ms_events",
                                       "make_blob_plain_ms", "make_blob_bound_ms")
-               for p in ("ar", "rc", "worker", "recovery")},
+               for p in ("ar", "rc", "worker", "recovery", "ledger")},
             "checked_shapes": {k: step_t[k]["shape"] for k in step_t},
         },
     ]
@@ -3396,7 +3557,7 @@ def kernels_line(diff: Diff, head: dict, step_t: dict, life: dict, dens: dict,
             **{p: {k: life[name][p][k] for k in
                    ("G", "W", "N", "ms", "ms_events", "ms_call", "ms_stage",
                     "plain_ms", "library_ms", "bound_ms")}
-               for p in ("headline", "rc", "recovery")},
+               for p in ("headline", "rc", "recovery", "ledger")},
             "checked_shapes": {k: LIFE_SHAPES[k][:2] for k in LIFE_SHAPES},
         })
     t_pack = pack["ar4"]
@@ -3413,7 +3574,7 @@ def kernels_line(diff: Diff, head: dict, step_t: dict, life: dict, dens: dict,
         "ms_call": t_pack["ms_call"], "ms_stage": t_pack["ms_stage"],
         "shape": {k: t_pack[k] for k in ("G", "W", "R")},
         "comparisons": diff.checked["gp_pack_rows"],
-        **{p: pack[p] for p in ("ar3", "rc", "rc4")},
+        **{p: pack[p] for p in ("ar3", "rc", "rc4", "ledger")},
         "checked_shapes": dict(PACK_SHAPES),
     })
     return kernels
@@ -3467,6 +3628,8 @@ def main() -> int:
                 f"loads, {k['smem']} B static shared memory")
 
     diff = Diff()
+    # the bench results phases 3, 14 and 15 write, for the baseline phase
+    results = tempfile.mkdtemp(prefix="gp_smoke_results_")
     t_start = time.perf_counter()
     stamp = lambda name: log(
         f"[{time.perf_counter() - t_start:.1f} s] phase {name}"
@@ -3477,7 +3640,7 @@ def main() -> int:
         ("parity", lambda: phase_parity(diff, device)),
         ("lifecycle", lambda: phase_lifecycle(diff, device, bw)),
         ("pack_rows", lambda: phase_pack_rows(diff, device, bw)),
-        ("headline", lambda: phase_headline(diff, device, bw)),
+        ("headline", lambda: phase_headline(diff, device, bw, results)),
         ("step_shapes", lambda: phase_step_shapes(diff, device, bw)),
         ("density", lambda: phase_density(device)),
         ("state_transfer", lambda: phase_state_transfer(device)),
@@ -3492,10 +3655,12 @@ def main() -> int:
             device, out.get("server"), rows=SHARDED_WORKERS * SERVER["G"],
             label="sharded_rows")),
         ("txn", lambda: phase_txn(device)),
+        ("ledger", lambda: phase_ledger(device)),
         ("chaos", lambda: phase_chaos(device)),
         ("recovery", lambda: phase_recovery(device)),
-        ("mesh", lambda: phase_mesh(diff, device, bw)),
-        ("ops", lambda: phase_ops(device, t_start)),
+        ("mesh", lambda: phase_mesh(diff, device, bw, results)),
+        ("ops", lambda: phase_ops(device, t_start, results)),
+        ("baseline", lambda: phase_baseline(device, results)),
     ]
     only = [p for p in (args.phases or "").split(",") if p]
     unknown = set(only) - {name for name, _ in phases}
@@ -3507,6 +3672,7 @@ def main() -> int:
             continue
         stamp(name)
         out[name] = run()
+    shutil.rmtree(results, ignore_errors=True)
     stamp("report")
     if only:
         # a partial run (for iterating on some phases) reports nothing
@@ -3517,7 +3683,7 @@ def main() -> int:
     kernels = kernels_line(diff, out["headline"], out["step_shapes"], out["lifecycle"],
                            out["density"], out["state_transfer"], out["server"],
                            out["pack_rows"], out["rc_stepped"], out["reconfiguration"],
-                           out["sharded"], out["txn"], out["chaos"],
+                           out["sharded"], out["txn"], out["ledger"], out["chaos"],
                            out["recovery"], out["mesh"], out["ops"])
     for k in kernels:
         if k["launches"] <= 0:
@@ -3541,8 +3707,17 @@ def main() -> int:
         f"{[[round(t, 4) for t in per] for per in ctl['ticks_per_s']]}; "
         f"txn {txn['transfers']['txns']} transactions "
         f"({txn['transfers']['committed']} committed) in "
-        f"{txn['transfers']['seconds']:.6g} s, soak {txn['soak']['steps']} steps; "
-        f"chaos {chaos_s}")
+        f"{txn['transfers']['seconds']:.6g} s, soak {txn['soak']['manager_ticks']} "
+        f"manager ticks; chaos {chaos_s}")
+    led = out["ledger"]["doc"]
+    log(f"summary: ledger {LEDGER['accounts']} accounts on {LEDGER_ENGINE['G']} rows, "
+        f"{LEDGER['txns']} transactions ({led['committed']} committed), audit "
+        f"{led['audit']}: boot {led['boot_s']:.6g} s, {led['steps']} steps at "
+        f"{led['ms_per_step']:.6g} ms a cluster step, {led['txns_per_s']} txn/s, "
+        f"commit p50 {led['commit_latency_s']['p50']:.6g} s p99 "
+        f"{led['commit_latency_s']['p99']:.6g} s; baseline fresh check "
+        f"{out['baseline']['fresh_check']['value']} >= "
+        f"{out['baseline']['fresh_check']['band_lower']} in band; on {smi_line}")
     log(f"summary: host stages of a tick, ms per tick over the request windows: "
         f"a phase 6 server at {SERVER['G']} rows {srv['tick_stages_ms']}; AR0's "
         f"first worker at {shd['worker_shape'][0]} rows {shd['tick_stages_ms']}, at "

@@ -25,8 +25,9 @@ The nodes run on the card unless ``--device cpu`` is given (with no card
 it raises); on the card the child nodes get ``DEVICE=cuda`` and this
 process builds the kernels before it spawns them.  ``--device cpu`` runs
 ``torch.set_num_threads(1)``: six tick loops on a small host thrash an
-intra-op thread pool.  ``--bank-ledger`` (the reference's transaction
-workload) is not ported yet.
+intra-op thread pool.  ``--bank-ledger`` runs the bank-ledger
+transaction workload (:mod:`gigapaxos_tpu_torch.scenarios.bank_ledger`)
+instead, every other argument passed to its ``main``.
 """
 
 from __future__ import annotations
@@ -57,8 +58,11 @@ def _probe_provenance(device) -> dict:
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--bank-ledger", action="store_true",
-                    help="the bank-ledger 2PC transaction workload "
-                         "(not ported yet)")
+                    help="run the Zipfian bank-ledger 2PC transaction "
+                         "workload (scenarios/bank_ledger.py) instead of "
+                         "the capacity ramp; remaining args are ITS flags "
+                         "(--accounts, --txns, --inflight, --device, --out, "
+                         "...)")
     ap.add_argument("--init-load", type=float, default=500.0,
                     help="starting request rate/s (PROBE_INIT_LOAD analog)")
     ap.add_argument("--factor", type=float, default=1.1)
@@ -154,11 +158,14 @@ def _spawn_nodes(ports, node_names, args, device):
 
 
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if "--bank-ledger" in argv:
+        # delegate to the bank-ledger transaction workload, passing every
+        # OTHER argument through (its own argparse owns the flag set)
+        from ..scenarios import bank_ledger
+
+        return bank_ledger.main([a for a in argv if a != "--bank-ledger"])
     args = _parser().parse_args(argv)
-    if args.bank_ledger:
-        raise NotImplementedError(
-            "--bank-ledger: the bank-ledger transaction workload "
-            "(scenarios/bank_ledger.py) is not ported yet (ROADMAP item 16)")
     check_out(args.capacity_out)
     if args.pin_cores:
         cores = {int(c) for c in args.pin_cores.split(",") if c != ""}

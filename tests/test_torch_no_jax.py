@@ -21,7 +21,9 @@ measuring slice adds the scripted clock, the footprint probe, the bench,
 the capacity probe, the trace collector and the cluster launcher.  The
 mesh slice adds the entry points' module (``graft_entry``) and, with no
 card, the mesh constructors and the dry run refusing to run without
-devices.
+devices.  The workload slice adds the bank-ledger scenario, the chaos
+sweep and the perf-baseline reader by name, each refusing to run
+without a device and without a card.
 """
 
 import pathlib
@@ -93,8 +95,22 @@ for m in ("serving", "serving.router", "serving.supervisor", "serving.worker",
           "txn.transactor", "obs.tracemerge", "testing.chaos",
           "testing.recovery", "testing.clock", "testing.footprint",
           "testing.bench", "testing.probe", "testing.gp_trace", "gp_server",
-          "graft_entry", "parallel.mesh", "testing.contention"):
+          "graft_entry", "parallel.mesh", "testing.contention",
+          "scenarios.bank_ledger", "testing.chaos_sweep", "testing.perf_baseline"):
     assert f"gigapaxos_tpu_torch.{m}" in mods, m
+if not torch.cuda.is_available():
+    from gigapaxos_tpu_torch.scenarios import bank_ledger
+    from gigapaxos_tpu_torch.testing import chaos_sweep, perf_baseline
+
+    for call in (lambda: bank_ledger.main(["--accounts", "10"]),
+                 lambda: chaos_sweep.main(["--family", "txn", "--count", "1"]),
+                 lambda: perf_baseline.main(["--root", "."])):
+        try:
+            call()
+        except RuntimeError as e:
+            assert "no CUDA device" in str(e), e
+        else:
+            raise AssertionError("a tool ran without a device and without a card")
 if not torch.cuda.is_available():
     from gigapaxos_tpu_torch.graft_entry import dryrun_multichip
     from gigapaxos_tpu_torch.parallel.mesh import make_group_mesh, make_mesh
@@ -160,7 +176,7 @@ def test_port_imports_without_jax():
     )
     assert r.returncode == 0, r.stdout + r.stderr
     n = int(r.stdout.split("IMPORTED")[1].split()[0])
-    assert n >= 88, r.stdout
+    assert n >= 92, r.stdout
     assert r.stdout.split("DEFAULTS")[1].split()[:3] == [
         "gigapaxos_tpu_torch.reconfiguration.demand.DemandProfile",
         "gigapaxos_tpu_torch.reconfiguration.placement.ProximateBalancePolicy",

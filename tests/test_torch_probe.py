@@ -1,9 +1,9 @@
 """The port's capacity probe (``gigapaxos_tpu_torch/testing/probe.py``) on
 the CPU: the reference's ramp (``probe.py``) over 3 actives + 3
 reconfigurators in this process at a low load, its round lines and
-summary; the unreplicated and durable modes; ``--bank-ledger``'s refusal;
-the JAX package's artifact names refused; no card and no ``--device cpu``
-raising."""
+summary; the unreplicated and durable modes; ``--bank-ledger`` running
+the bank-ledger workload; the JAX package's artifact names refused; no
+card and no ``--device cpu`` raising."""
 
 import json
 import os
@@ -65,9 +65,23 @@ def test_durable_mode_journals_to_a_temporary_directory(capsys):
     assert "durable" in _summary(lines)["unit"]
 
 
-def test_bank_ledger_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        probe.main(["--bank-ledger", "--device", "cpu"])
+@pytest.mark.timeout(120)
+def test_bank_ledger_is_not_ported_yet(capsys):
+    """``--bank-ledger`` hands every other argument to the ledger's main
+    (the test keeps the name it had while the probe refused the flag)."""
+    from gigapaxos_tpu_torch.utils.config import Config
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        assert probe.main(["--bank-ledger", "--device", "cpu", "--accounts", "200",
+                           "--txns", "6", "--inflight", "3"]) == 0
+    finally:
+        torch.set_num_threads(threads)
+        Config.clear()
+    doc = next(ln for ln in _lines(capsys) if ln.get("metric") == "bank_ledger_txn")
+    assert doc["audit"] == "pass" and doc["params"]["accounts"] == 200
+    assert doc["params"]["n_groups"] == 1024 and doc["committed"] >= 1
 
 
 def test_reference_artifact_name_refused(tmp_path):

@@ -23,10 +23,12 @@ pinned, so a pinned seed replays one schedule on every run.
 """
 
 import contextlib
+import importlib.util
 import json
 import os
 import subprocess
 import sys
+import tempfile
 
 if __name__ == "__main__":
     # a child run: JAX on the CPU before anything imports it
@@ -126,28 +128,78 @@ def parity(family: str, seed: int, **kw):
 
 
 
+def child(spec: dict) -> subprocess.Popen:
+    """A fresh interpreter with ``PYTHONHASHSEED`` pinned running
+    ``spec`` (:func:`_child`); read it with :func:`child_result`."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONHASHSEED=HASH_SEED, JAX_PLATFORMS="cpu",
+               PYTHONPATH=os.pathsep.join(
+                   [os.path.dirname(here), here, os.environ.get("PYTHONPATH", "")]))
+    return subprocess.Popen([sys.executable, os.path.abspath(__file__), json.dumps(spec)],
+                            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def child_result(proc: subprocess.Popen, what: str, timeout: float = 900):
+    """The ``RESULT`` of a :func:`child`; raises with its output when it
+    failed."""
+    try:
+        stdout, stderr = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise
+    lines = [x for x in stdout.splitlines() if x.startswith("RESULT ")]
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(
+            f"{what}: rc {proc.returncode}\n{stdout[-3000:]}\n{stderr[-6000:]}")
+    return json.loads(lines[-1][len("RESULT "):])
+
+
 def in_child(mode: str, family: str, seed: int, timeout: float = 900, **kw):
     """``soak(PORT, ...)`` (``mode="port"``) or ``parity(...)``
     (``mode="parity"``) in a fresh interpreter with ``PYTHONHASHSEED``
     pinned; returns the result dictionary, raises with the child's output
     when its soak or comparison failed."""
-    here = os.path.dirname(os.path.abspath(__file__))
-    env = dict(os.environ, PYTHONHASHSEED=HASH_SEED, JAX_PLATFORMS="cpu",
-               PYTHONPATH=os.pathsep.join(
-                   [os.path.dirname(here), here, os.environ.get("PYTHONPATH", "")]))
-    arg = json.dumps({"mode": mode, "family": family, "seed": seed, "kw": kw})
-    r = subprocess.run([sys.executable, os.path.abspath(__file__), arg],
-                       env=env, capture_output=True, text=True, timeout=timeout)
-    lines = [x for x in r.stdout.splitlines() if x.startswith("RESULT ")]
-    if r.returncode != 0 or not lines:
-        raise AssertionError(
-            f"{mode} {family} {seed}: rc {r.returncode}\n"
-            f"{r.stdout[-3000:]}\n{r.stderr[-6000:]}")
-    return json.loads(lines[-1][len("RESULT "):])
+    proc = child({"mode": mode, "family": family, "seed": seed, "kw": kw})
+    return child_result(proc, f"{mode} {family} {seed}", timeout)
+
+
+def sweep(pkg: str, argv: list) -> dict:
+    """One package's chaos sweep (``"port"``: ``testing/chaos_sweep.py``
+    on the CPU; ``"jax"``: ``scripts/chaos_sweep.py``, unedited) over
+    ``argv`` on a fresh scripted clock: its exit code and its artifact."""
+    with tempfile.TemporaryDirectory() as d:
+        out = os.path.join(d, "sweep.json")
+        if pkg == "port":
+            from gigapaxos_tpu_torch.testing import chaos_sweep
+
+            with scripted():
+                rc = chaos_sweep.main(argv + ["--device", "cpu", "--out", out])
+        else:
+            path = os.path.join(os.path.dirname(os.path.dirname(
+                os.path.abspath(__file__))), "scripts", "chaos_sweep.py")
+            spec = importlib.util.spec_from_file_location("chaos_sweep_ref", path)
+            mod = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mod)
+            saved, sys.argv = sys.argv, [path] + argv + ["--out", out]
+            rc = 0
+            try:
+                with scripted():
+                    mod.main()
+            except SystemExit as e:
+                rc = e.code
+            finally:
+                sys.argv = saved
+        with open(out) as f:
+            return {"rc": rc, "doc": json.load(f)}
 
 
 def _child(arg: str) -> None:
     spec = json.loads(arg)
+    if spec["mode"] == "sweep":
+        print("RESULT " + json.dumps(sweep(spec["pkg"], spec["argv"])), flush=True)
+        return
     kw = {k: tuple(v) if isinstance(v, list) else v for k, v in spec["kw"].items()}
     if spec["mode"] == "parity":
         out = parity(spec["family"], spec["seed"], **kw)
