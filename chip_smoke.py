@@ -169,6 +169,22 @@ Phases (any failure exits nonzero):
              gp_step and gp_make_blob; restart-to-serving, first-serve,
              full-hydration, eager, replay, create and checkpoint seconds
              and the directory's bytes.
+13b. heal  — the heal paths of the JAX package's tests at the deployed
+             shapes, on the card: the epoch-commit ack matrix and the
+             committed RESUME's heal shapes on an active's manager at the
+             server shape; the READY audit re-joining a member that lost
+             its row (ReconfigurableCluster at phase 7's shapes); both
+             frontier-stall scenarios (ManagerCluster at the server shape:
+             a straggler 2 slots behind a majority that paused and
+             resumed, and a majority blank-rejoined behind one resumed
+             member) healed by the state pull and gp_jump_rows; the
+             epoch-final-state guard; a secondary reconfigurator finishing
+             a migration after the primary dies; the demand-driven
+             migration; the placement plane moving a hot name onto the
+             idle active.  Each scenario's own checks within a step cap
+             and a wall budget; its launches; every kernel shape launched
+             must be one phases 2-3 hold against the plain version, and
+             gp_jump_rows must launch in each frontier-stall scenario.
 14. mesh   — the mesh faces of make_step at the headline shape
              (G=1,048,576, W=32, K=16, R=3), every logical device on this
              card: the ('g',) face over 4 shards, also at G=1,048,573
@@ -179,7 +195,16 @@ Phases (any failure exits nonzero):
              pulsing) against its plain version; N=4 against four N=1
              calls; the golden cases of tests/test_unified_step.py (G=13
              over 8 shards and over 2 x 3) and the dry run's shapes on the
-             card against the same meshes on the CPU.  Then, the counts
+             card against the same meshes on the CPU.  The packed face
+             (one replica's state split over 'g', heat on) over both
+             meshes at the server shape, N in {1, 4}, bit for bit against
+             the one-device packed face and its own plain version, and at
+             the headline's one replica, N=1 (also G=1,048,573 over
+             ('g',)), against the one-device face; ms a dispatch beside
+             the one-device face's, the gathered matrix's slicing and the
+             outputs' reassembly against their bound (bytes read and
+             written at the card's memory rate), each logical device's
+             launches (N gp_step a dispatch).  Then, the counts
              from 0 before each, 20 steps of each face under the bench's
              load (dec/s beside the stacked face's; each logical device's
              own launches: one gp_make_blob and one gp_step a step), the
@@ -212,7 +237,8 @@ Phases (any failure exits nonzero):
 16. report — the kernels line, then the device line (last).
 
 Kernel launch counts are reset to 0 just before each main-path run
-(phases 3 to 8, 10 to 13, 11b and 14's timed runs and entry points) and read
+(phases 3 to 8, 10 to 13, 11b, each scenario of 13b and 14's timed runs,
+packed dispatches and entry points) and read
 just after; parity and timing
 launches do not count.  Phase 10's launches are its worker processes'
 counts (read through the stats admin op at the phase's end) plus this
@@ -392,10 +418,21 @@ MESH_G_PADDED = 1_048_573
 MESH_G_SHARDS, MESH_GR = 4, (2, 3)
 MESH_WARM_STEPS, MESH_TIMED_STEPS = 10, 20
 MESH_DRYRUN_DEVICES = 8
+# the packed face over the same meshes (the deployed runtime's face, one
+# replica's state split over 'g'): (label, shape, substeps per dispatch,
+# meshes, held against the mesh face's own plain version too); heat on
+MESH_PACKED = [("server", SERVER, (1, 4), ("g", "gr"), True),
+               ("headline", HEADLINE, (1,), ("g", "gr"), False),
+               ("headline_padded", dict(HEADLINE, G=MESH_G_PADDED), (1,), ("g",), False)]
+MESH_PACKED_ITERS = 10
 MESH_SMALL = [("golden_g8", dict(G=13, W=8, K=4, R=3), "g", 8),
               ("golden_gr", dict(G=13, W=8, K=4, R=3), "gr", 2),
               ("dryrun_gr", dict(G=16, W=4, K=2, R=2), "gr", 4),
               ("dryrun_g8", dict(G=35, W=4, K=2, R=3), "g", 8)]
+
+# the heal paths (phase 13b): each scenario's wall budget (the reference
+# tests' 30-60 s deadlines, for their 16-row engines) and its step cap
+HEAL_DEADLINE_S, HEAL_MAX_STEPS = 120.0, 600
 
 # the lifecycle kernels: name, function of ops/lifecycle.py, the JAX
 # function it replaces, and the path whose launches count ("parity" for
@@ -2898,6 +2935,508 @@ def phase_recovery(device) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 13b: the heal paths
+# ---------------------------------------------------------------------------
+
+
+class ShapeLog:
+    """Every kernel shape launched while it is open: the wrappers of
+    ``gp_kernels`` wrapped to note the step's (G, W, K, R), the blob's
+    (G, W), each lifecycle op's (G, W, N) and the row pack's (NB, R)."""
+
+    def __init__(self):
+        self.step, self.blob, self.life, self.pack = set(), set(), set(), set()
+
+    def __enter__(self):
+        from gigapaxos_tpu_torch.ops import gp_kernels
+
+        self.saved = {n: getattr(gp_kernels, n) for n in
+                      ("step", "make_blob_rows", "_lifecycle_launch", "_pack_launch")}
+        sv = self.saved
+        names = {v: k for k, v in vars(gp_kernels).items()
+                 if k.startswith("OP_") and isinstance(v, int)}
+
+        def step(*a, **kw):
+            cfg = kw["cfg"] if "cfg" in kw else a[6]
+            self.step.add((cfg.n_groups, cfg.window, cfg.req_lanes, cfg.n_replicas))
+            return sv["step"](*a, **kw)
+
+        def make_blob_rows(states, *a, **kw):
+            self.blob.add(tuple(int(x) for x in states.acc_bal.shape[-2:]))
+            return sv["make_blob_rows"](states, *a, **kw)
+
+        def life(a):
+            self.life.add((names[int(a.op)], int(a.G), int(a.W), int(a.N)))
+            return sv["_lifecycle_launch"](a)
+
+        def pack(a):
+            self.pack.add((int(a.NB), int(a.R)))
+            return sv["_pack_launch"](a)
+
+        for n, f in (("step", step), ("make_blob_rows", make_blob_rows),
+                     ("_lifecycle_launch", life), ("_pack_launch", pack)):
+            setattr(gp_kernels, n, f)
+        return self
+
+    def __exit__(self, *exc):
+        from gigapaxos_tpu_torch.ops import gp_kernels
+
+        for n, f in self.saved.items():
+            setattr(gp_kernels, n, f)
+
+    def unchecked(self) -> dict:
+        """The shapes launched that the parity lists (``STEP_SHAPES``,
+        ``LIFE_SHAPES``, ``PACK_SHAPES``) do not hold against the plain
+        version."""
+        steps = {tuple(d[k] for k in "GWKR") for d in STEP_SHAPES.values()}
+        lives = {(G, W, n) for G, W, Ns in LIFE_SHAPES.values() for n in Ns}
+        packs = {(4 * G * (1 + W), R) for G, W, R in PACK_SHAPES.values()}
+        return {"step": sorted(self.step - steps),
+                "blob": sorted(self.blob - {(g, w) for g, w, _k, _r in steps}),
+                "life": sorted(x for x in self.life if x[1:] not in lives),
+                "pack": sorted(self.pack - packs)}
+
+
+def heal_commit_units(device) -> dict:
+    """``tests/test_commit_heal.py``'s ack matrix and RESUME heal shapes on
+    one active's manager at the server shape: an active acks an epoch
+    commit ok only when it runs that epoch at the winning row, and a
+    committed resume start heals each missing shape."""
+    from gigapaxos_tpu_torch.manager import PaxosManager
+    from gigapaxos_tpu_torch.models.apps import StatefulAdderApp
+    from gigapaxos_tpu_torch.ops import engine as te
+    from gigapaxos_tpu_torch.reconfiguration.active_replica import ActiveReplica
+    from gigapaxos_tpu_torch.reconfiguration.coordinator import PaxosReplicaCoordinator
+
+    cfg = te.EngineConfig(*(SERVER[k] for k in ("G", "W", "K", "R")))
+
+    def make_ar():
+        mgr = PaxosManager(0, StatefulAdderApp(), cfg, device=device)
+        sent = []
+        ar = ActiveReplica(0, PaxosReplicaCoordinator(mgr.app, mgr),
+                           lambda dst, kind, body: sent.append((dst, kind, body)))
+        return ar, mgr, sent
+
+    def commit(ar, name, epoch, row):
+        ar.handle_message("epoch_commit", {"name": name, "epoch": epoch, "row": row,
+                                           "rc": ["RC", 0]})
+
+    def last_ack(sent):
+        acks = [b for (_d, k, b) in sent if k == "ack_epoch_commit"]
+        if not acks:
+            fail("heal commit: no ack sent")
+        return acks[-1]
+
+    def check(ok, what):
+        if not ok:
+            fail(f"heal commit: {what}")
+
+    ar, mgr, sent = make_ar()
+    mgr.create_paxos_instance("a", [0, 1, 2], row=3, pending=True)
+    commit(ar, "a", 0, 3)
+    check(last_ack(sent)["ok"] and 3 not in mgr.pending_rows, "live pending row not acked")
+    mgr.create_paxos_instance("b", [0, 1, 2], row=4, pending=True)
+    commit(ar, "b", 0, 6)
+    ack = last_ack(sent)
+    check(not ack["ok"] and ack["reason"] == "missing" and 4 in mgr.pending_rows,
+          f"losing pending row: {ack}")
+    commit(ar, "ghost", 0, 7)
+    check(last_ack(sent)["reason"] == "missing", "ghost not missing")
+    mgr.create_paxos_instance("c", [0, 1, 2], row=5)
+    check(mgr.pause_group("c", 0) == "ok", "pause")
+    commit(ar, "c", 0, 5)
+    check(not last_ack(sent)["ok"], "paused member acked ok")
+    mgr.create_paxos_instance("d", [0, 1, 2], row=6)
+    mgr.propose_stop("d")
+    st = mgr.state
+    stopped = st.stopped.clone()
+    stopped[6] = 1
+    mgr.state = st._replace(stopped=stopped)
+    mgr.create_paxos_instance("d", [0, 1, 2], row=7, version=1)
+    commit(ar, "d", 0, 6)
+    check(last_ack(sent)["ok"], "historic round not acked")
+    acks = [b for (_d, k, b) in sent if k == "ack_epoch_commit"]
+    mgr.close()
+
+    ar, mgr, sent = make_ar()
+
+    def heal(name, epoch, row, initial=None):
+        ar.handle_message("start_epoch", {
+            "name": name, "epoch": epoch, "actives": [0, 1, 2], "row": row,
+            "initial_state": initial, "prev_actives": [], "prev_epoch": -1,
+            "resume": True, "committed": True, "rc": ["RC", 0]})
+
+    mgr.create_paxos_instance("x", [0, 1, 2], row=1, pending=True)
+    mgr.propose("x", "5")
+    heal("x", 0, 2)
+    check(mgr.names["x"] == 2 and 2 not in mgr.pending_rows and mgr.queues.get(2),
+          "re-home of a losing pending row")
+    mgr.create_paxos_instance("y", [0, 1, 2], row=3)
+    check(mgr.pause_group("y", 0) == "ok", "pause y")
+    heal("y", 0, 4)
+    check(mgr.names["y"] == 4 and ("y", 0) not in mgr.paused, "restore of a paused member")
+    heal("z", 0, 5, initial="7")
+    check(mgr.names["z"] == 5 and mgr.app.totals.get("z") == 7, "empty join")
+    for nm, row in (("x", 2), ("y", 4), ("z", 5)):
+        commit(ar, nm, 0, row)
+        check(last_ack(sent)["ok"], f"{nm} not acked after its heal")
+    mgr.close()
+    return {"acks": [(b["name"], b["ok"], b.get("reason")) for b in acks]}
+
+
+def heal_cluster(device):
+    """A ManagerCluster of 3 managers at the server shape, and the name
+    its scenario drives: the first of svc, svc0, svc1, ... whose row's
+    initial coordinator is replica 1, as "svc"'s is in the reference
+    tests' 8-row and 4-row engines (a stepped cluster's failure detector
+    never fires, so a scenario that cuts replica 2 off must not have it
+    coordinate)."""
+    from gigapaxos_tpu_torch.models.apps import HashChainApp
+    from gigapaxos_tpu_torch.ops import engine as te
+    from gigapaxos_tpu_torch.testing.cluster import ManagerCluster
+
+    cfg = te.EngineConfig(*(SERVER[k] for k in ("G", "W", "K", "R")))
+    c = ManagerCluster(cfg, HashChainApp, device=device)
+    name = next(nm for nm in ["svc"] + [f"svc{i}" for i in range(64)]
+                if c.managers[0].default_row_for(nm) % cfg.n_replicas == 1)
+    return c, name
+
+
+def heal_until(c, cond, what, step=None) -> int:
+    """Step ``c`` until ``cond()``, within the step cap and the wall
+    budget; returns the steps taken."""
+    step = step or c.step_all
+    t0 = time.perf_counter()
+    for n in range(HEAL_MAX_STEPS):
+        if cond():
+            return n
+        if time.perf_counter() - t0 > HEAL_DEADLINE_S:
+            break
+        step()
+    if cond():
+        return HEAL_MAX_STEPS
+    fail(f"heal: {what} not reached in {n} steps "
+         f"({time.perf_counter() - t0:.1f} s)")
+
+
+def heal_frontier(device, majority_behind: bool) -> dict:
+    """``tests/test_frontier_stall_heal.py``: a member stranded 2 slots
+    behind the majority after the decisions it needs left every ring
+    heals by the state pull and the small-gap jump (``gp_jump_rows``);
+    ``majority_behind``: the inverted shape, two members blank-rejoined
+    at frontier 0 behind one resumed member."""
+    import numpy as np
+
+    from gigapaxos_tpu_torch.testing.cluster import DELIVER, DROP
+
+    c, svc = heal_cluster(device)
+    try:
+        c.create(svc, members=[0, 1, 2])
+        row = c.managers[0].names[svc]
+        ex = lambda r: int(c.managers[r]._np("exec_slot")[row])
+        apps = lambda: [m.app.state.get(svc) for m in c.managers]
+        dead = None
+        if not majority_behind:
+            dead = np.full((3, 3), DELIVER)
+            dead[2, :] = DROP
+            dead[:, 2] = DROP
+        done = {}
+        for v in ("x1", "x2"):
+            c.managers[0].propose(svc, v, callback=lambda r, resp: done.setdefault(r, resp))
+        n_commit = heal_until(c, lambda: len(done) == 2, "two commits",
+                              lambda: c.step_all(delivery=dead))
+        epoch = c.managers[0].current_epoch(svc)
+        if majority_behind:
+            m = c.managers[2]
+            if m.pause_group(svc, epoch, force=True) != "ok" or \
+                    not m.resume_group(svc, epoch, [0, 1, 2], row, pending=False):
+                fail("heal frontier: pause/resume of member 2")
+            for r in (0, 1):
+                m = c.managers[r]
+                if not (m.kill(svc) and m.create_paxos_instance(
+                        svc, [0, 1, 2], row=row, version=epoch)):
+                    fail(f"heal frontier: blank re-join of member {r}")
+        else:
+            for m in c.managers[:2]:
+                if m.pause_group(svc, epoch, force=True) != "ok" or \
+                        not m.resume_group(svc, epoch, [0, 1, 2], row, pending=False):
+                    fail("heal frontier: majority pause/resume")
+        c.blobs = [m.blob() for m in c.managers]
+        n_heal = heal_until(
+            c, lambda: all(ex(r) >= 2 for r in range(3)) and len(set(apps())) == 1
+            and None not in apps(), "the straggler's heal")
+        done2 = {}
+        c.managers[0].propose(svc, "x3", callback=lambda r, resp: done2.setdefault(r, resp))
+        heal_until(c, lambda: bool(done2) and len(set(apps())) == 1, "new traffic")
+        return {"name": svc, "row": row, "commit_steps": n_commit, "heal_steps": n_heal,
+                "frontiers": [ex(r) for r in range(3)]}
+    finally:
+        c.close()
+
+
+def heal_final_state(device) -> dict:
+    """``tests/test_final_state_guard.py``: the epoch-final-state fallback
+    stays silent on a member whose app lags its device frontier, and the
+    caught-up coordinator serves the full history with its dedup set."""
+    from gigapaxos_tpu_torch.reconfiguration.active_replica import ActiveReplica
+    from gigapaxos_tpu_torch.reconfiguration.coordinator import PaxosReplicaCoordinator
+
+    c, svc = heal_cluster(device)
+    try:
+        c.create(svc, members=[0, 1, 2])
+        sent = []
+        ars = [ActiveReplica(r, PaxosReplicaCoordinator(c.managers[r].app, c.managers[r]),
+                             lambda dst, kind, body: sent.append((dst, kind, body)))
+               for r in range(3)]
+        coord = c.managers[0].coordinator_of_row(c.managers[0].names[svc])
+        lag = (coord + 1) % 3
+        m1 = c.managers[lag]
+        real = m1.on_host_message
+        m1.on_host_message = lambda kind, body: None if kind in (
+            "payloads", "state_reply") else real(kind, body)
+        c.submit(svc, "tail-request", entry=coord)
+        c.run(10)
+        c.submit(svc, "", entry=coord, stop=True, callback=None)
+        c.run(10)
+        row = m1.names[svc]
+        if int(m1._np("stopped")[row]) != 1 or not m1.is_stopped(svc) \
+                or m1.app_caught_up(svc):
+            fail("heal final state: the lagging member's shape")
+        ask = {"name": svc, "epoch": 0, "from": 2}
+        ars[lag]._handle_request_final_state(dict(ask))
+        if [m for m in sent if m[1] == "epoch_final_state"]:
+            fail("heal final state: a lagging member served a truncated state")
+        m0 = c.managers[coord]
+        ars[coord]._handle_request_final_state(dict(ask))
+        served = [m for m in sent if m[1] == "epoch_final_state"]
+        if not served or served[0][2]["state"] != m0.app.checkpoint(svc) \
+                or not served[0][2]["dedup"]:
+            fail(f"heal final state: the caught-up member served {served}")
+        m1.on_host_message = real
+        c.run(30)
+        caught = m1.app_caught_up(svc)
+        if caught:
+            sent.clear()
+            ars[lag]._handle_request_final_state(dict(ask))
+            s2 = [m for m in sent if m[1] == "epoch_final_state"]
+            if not s2 or s2[0][2]["state"] != served[0][2]["state"]:
+                fail("heal final state: the caught-up laggard served another state")
+        return {"name": svc, "lag": lag, "laggard_caught_up": caught}
+    finally:
+        c.close()
+
+
+def heal_rc_cluster(device, **kw):
+    """A ReconfigurableCluster at the actives' and reconfigurators' shapes
+    (phase 7's)."""
+    from gigapaxos_tpu_torch.models.apps import HashChainApp
+    from gigapaxos_tpu_torch.ops import engine as te
+    from gigapaxos_tpu_torch.testing.rc_cluster import ReconfigurableCluster
+
+    return ReconfigurableCluster(te.EngineConfig(*(AR[k] for k in ("G", "W", "K", "R"))),
+                                 te.EngineConfig(*(RC[k] for k in ("G", "W", "K", "R"))),
+                                 HashChainApp, device=device, **kw)
+
+
+def heal_create(c, name, actives) -> None:
+    c.client_request("create_service", {"name": name, "actives": actives})
+    ack = c.wait_for("create_ack", max_steps=200)
+    if not ack or not ack.get("ok"):
+        fail(f"heal: create {name}: {ack}")
+
+
+def heal_ready_audit(device) -> dict:
+    """``tests/test_commit_heal.py``'s READY audit: a member that lost its
+    row after the commit round is re-joined by the audit's committed
+    resume and converges."""
+    c = heal_rc_cluster(device)
+    try:
+        for rc in c.reconfigurators:
+            rc.REDRIVE_EVERY = 4
+            rc.ready_audit_period_s = 0.3
+        for ar in c.active_replicas:
+            ar.pause_option = False
+        heal_create(c, "pl", [0, 1, 2])
+        done = {}
+        c.ars.managers[0].propose("pl", "w", callback=lambda rid, r: done.setdefault(rid, r))
+        heal_until(c, lambda: bool(done), "the first request", c.step)
+        m2 = c.ars.managers[2]
+        if not m2.kill("pl") or m2.names.get("pl") is not None:
+            fail("heal audit: row loss")
+        n = heal_until(c, lambda: m2.names.get("pl") is not None, "the audit's re-join",
+                       c.step)
+        heal_until(c, lambda: len({m.app.state.get("pl") for m in c.ars.managers[:3]}) == 1,
+                   "convergence after the re-join", c.step)
+        return {"rejoin_steps": n}
+    finally:
+        c.close()
+
+
+def heal_failover(device) -> dict:
+    """``tests/test_failover_demand.py``: the record's primary
+    reconfigurator dies mid-migration; a secondary adopts the re-drive,
+    the migration completes and the new epoch serves."""
+    c = heal_rc_cluster(device)
+    try:
+        for rc in c.reconfigurators:
+            rc.REDRIVE_EVERY = 4
+        heal_create(c, "ha", [0, 1, 2])
+        primary = c.reconfigurators[0].primary_of("ha")
+        c.client_request("reconfigure", {"name": "ha", "new_actives": [1, 2, 3]}, rc=primary)
+        c.run(3)
+        c.dead_rcs.add(primary)
+        c.msg_filter = lambda dst, kind, body: dst != ("RC", primary)
+        dead = c.reconfigurators[primary]
+        dead.tick = lambda now=None: None
+        dead.handle_message = lambda *a, **k: None
+        other = c.reconfigurators[(primary + 1) % 3]
+        ready = lambda: (lambda r: r is not None and r.state.value == "READY"
+                         and sorted(r.actives) == [1, 2, 3])(other.rc_app.get_record("ha"))
+        n = heal_until(c, ready, "the secondary's migration", c.step)
+        done = {}
+
+        def serve():
+            c.ars.managers[1].propose("ha", "post-failover",
+                                      callback=lambda rid, r: done.setdefault(rid, r))
+            c.step()
+
+        heal_until(c, lambda: bool(done), "a request after the failover", serve)
+        return {"migration_steps": n, "primary": primary}
+    finally:
+        c.close()
+
+
+def heal_demand(device) -> dict:
+    """``tests/test_failover_demand.py``: sustained load on a name
+    auto-migrates it through the demand pipeline (a threshold profile
+    that targets actives 1-3)."""
+    from gigapaxos_tpu_torch.reconfiguration.demand import AbstractDemandProfile
+
+    class HotSpotProfile(AbstractDemandProfile):
+        THRESHOLD, TARGET = 12, [1, 2, 3]
+
+        def __init__(self, name):
+            super().__init__(name)
+            self.total = 0
+
+        def combine(self, report):
+            self.total += int(report.get("count", 0))
+
+        def reconfigure(self, cur_actives, all_actives):
+            if self.total >= self.THRESHOLD:
+                return [a for a in self.TARGET if a in all_actives]
+            return None
+
+        def just_reconfigured(self):
+            self.total = 0
+
+    c = heal_rc_cluster(device, demand_profile_cls=HotSpotProfile)
+    try:
+        for ar in c.active_replicas:
+            ar.demand_report_period_s = 0.05
+        heal_create(c, "hot", [0, 1, 2])
+        i = [0]
+
+        def load():
+            i[0] += 1
+            c.ars.managers[0].propose("hot", f"v{i[0]}")
+            c.step()
+
+        rec = lambda: c.reconfigurators[0].rc_app.get_record("hot")
+        n = heal_until(c, lambda: rec().state.value == "READY"
+                       and sorted(rec().actives) == [1, 2, 3], "the demand migration", load)
+        if rec().epoch != 1:
+            fail(f"heal demand: epoch {rec().epoch}")
+        return {"migration_steps": n}
+    finally:
+        c.close()
+
+
+def heal_placement(device) -> dict:
+    """``tests/test_placement.py``: a hot name on three loaded actives is
+    migrated by the placement plane onto the idle fourth."""
+    from gigapaxos_tpu_torch.reconfiguration.placement import ProximateBalancePolicy
+    from gigapaxos_tpu_torch.utils.config import Config
+
+    class EagerBalancePolicy(ProximateBalancePolicy):
+        MIN_REQUESTS = 24
+
+    Config.set("PLACEMENT_MIN_RATE_RPS", "0.1")
+    c = heal_rc_cluster(device, placement_policy_cls=EagerBalancePolicy)
+    try:
+        for ar in c.active_replicas:
+            ar.demand_report_period_s = 0.05
+        for rc in c.reconfigurators:
+            rc.echo_probe_period_s = 0.1
+        for name in [f"bg{i}" for i in range(6)] + ["hx"]:
+            heal_create(c, name, [0, 1, 2])
+        i = [0]
+
+        def load():
+            i[0] += 1
+            c.ars.managers[0].propose("hx", f"v{i[0]}")
+            c.step()
+
+        rec = lambda: c.reconfigurators[0].rc_app.get_record("hx")
+        n = heal_until(c, lambda: rec().state.value == "READY" and rec().epoch >= 1
+                       and 3 in rec().actives, "the placement migration", load)
+        if len(rec().actives) != 3:
+            fail(f"heal placement: {rec().to_json()}")
+        return {"migration_steps": n, "actives": list(rec().actives)}
+    finally:
+        c.close()
+        Config._cli.pop("PLACEMENT_MIN_RATE_RPS", None)
+
+
+def phase_heal(device) -> dict:
+    """The heal paths on the card at the deployed shapes: the commit-heal
+    resume shapes and the READY audit, both frontier-stall scenarios, the
+    final-state guard, the secondary reconfigurator's failover, the
+    demand-driven migration and the placement plane's hot-name migration.
+    Each scenario's own checks; its launches, the counts from 0 just
+    before it; every kernel shape launched must be one that phases 2-3
+    hold against the plain version; ``gp_jump_rows`` must launch."""
+    from gigapaxos_tpu_torch.ops import engine as te
+
+    scenarios = [
+        ("commit_units", heal_commit_units),
+        ("ready_audit", heal_ready_audit),
+        ("frontier_small_gap", lambda d: heal_frontier(d, majority_behind=False)),
+        ("frontier_majority_behind", lambda d: heal_frontier(d, majority_behind=True)),
+        ("final_state", heal_final_state),
+        ("failover", heal_failover),
+        ("demand", heal_demand),
+        ("placement", heal_placement),
+    ]
+    res, total = {}, {}
+    t_phase = time.perf_counter()
+    with ShapeLog() as shapes:
+        for name, run in scenarios:
+            t0 = time.perf_counter()
+            te.reset_launch_counts()
+            r = run(device)
+            r["launches"] = {k: v for k, v in te.LAUNCHES.items() if v}
+            r["seconds"] = time.perf_counter() - t0
+            for k, v in te.LAUNCHES.items():
+                total[k] = total.get(k, 0) + v
+            res[name] = r
+            log(f"heal {name}: {json.dumps(r)}")
+    missing = shapes.unchecked()
+    if any(missing.values()):
+        fail(f"heal: kernel shapes no parity phase checks: {missing}")
+    for name in ("frontier_small_gap", "frontier_majority_behind"):
+        if res[name]["launches"].get("gp_jump_rows", 0) < 1:
+            fail(f"heal {name}: gp_jump_rows never launched: {res[name]['launches']}")
+    res["launches"] = total
+    res["shapes"] = {"step": sorted(shapes.step), "blob": sorted(shapes.blob),
+                     "life": sorted(shapes.life), "pack": sorted(shapes.pack)}
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"heal: every scenario passed in {res['seconds']:.1f} s; launches {total}; "
+        f"shapes {res['shapes']}")
+    return res
+
+
+# ---------------------------------------------------------------------------
 # phase 14: the mesh faces
 # ---------------------------------------------------------------------------
 
@@ -2957,6 +3496,132 @@ def mesh_rate(fn, states, req, want, steps: int, committed_of) -> tuple:
         del out
     n = int(total)
     return n, time.perf_counter() - t0, states
+
+
+def mesh_packed(diff: Diff, device, bw: float, meshes: dict) -> dict:
+    """The packed face over the meshes (``MESH_PACKED``): one replica's
+    warm state, the packed gathered matrix of all R replicas (replica 2
+    unheard), a request ring and an election pulse, heat on.  Each mesh
+    face bit-equal to the one-device packed face (which phase 3's step
+    shapes hold against the plain version at the server shape) and, where
+    asked, to its own plain version; each logical device's launches (N
+    ``gp_step`` a dispatch, counted from 0 before a dispatch of the mesh
+    face); ms per dispatch beside the one-device face's; the slicing of
+    the gathered matrix and the reassembly of ``out_rings`` and
+    ``blob_vec`` timed against their bound (bytes read and written at
+    the card's memory rate)."""
+    import numpy as np
+    import torch
+
+    from gigapaxos_tpu_torch.ops import engine as te
+    from gigapaxos_tpu_torch.ops import gp_kernels
+    from gigapaxos_tpu_torch.parallel import spmd as tspmd
+
+    res = {}
+    for label, dims, Ns, faces, with_plain in MESH_PACKED:
+        t0 = time.perf_counter()
+        G, W, K, R = (dims[k] for k in ("G", "W", "K", "R"))
+        cfg = te.EngineConfig(G, W, K, R)
+        req = torch.arange(1, K + 1, dtype=torch.int32, device=device)
+        req = req[None, None, :].expand(R, G, K).contiguous()
+        want_r = torch.zeros((R, G), dtype=torch.bool, device=device)
+        stacked = tspmd.make_step(cfg, None, 1, donate=True, device=device)
+        states = tspmd.build_replica_states(cfg, device=device)
+        for _ in range(3):
+            states, _ = stacked(states, req, want_r)
+        my_id = 1
+        gvec = gp_kernels.make_blob_rows(states, R)
+        my = te.EngineState(*(x[my_id].contiguous() for x in states))
+        del states, want_r
+        heard = torch.tensor([True, True, False], device=device)[:R]
+        want = torch.zeros(G, dtype=torch.bool, device=device)
+        want[::16] = True
+        heat = torch.arange(G, dtype=torch.int32, device=device) % 7
+        out = res[label] = {"shape": dims, "faces": {}}
+        for N in Ns:
+            ring = req[my_id][None].expand(N, G, K).contiguous()
+            one = tspmd.make_step(cfg, None, N, donate=False, io="packed_host",
+                                  heat=True, device=device)
+            ref = one(my, gvec, heard, ring, want, my_id, heat)
+            out[f"one_device_ms_n{N}"] = cuda_ms(
+                lambda: one(my, gvec, heard, ring, want, my_id, heat), MESH_PACKED_ITERS)
+            for face in faces:
+                mesh = meshes[face]
+                fn = tspmd.make_step(cfg, mesh, N, donate=False, io="packed_host",
+                                     heat=True)
+                tag = f"mesh.packed.{label}.{face}.N{N}"
+                te.reset_launch_counts()
+                fn.reset_launches()
+                k = fn(my, gvec, heard, ring, want, my_id, heat)
+                torch.cuda.synchronize()
+                launches = dict(te.LAUNCHES)
+                per = {str(list(i)): dict(v) for i, v in fn.launches.items()}
+                if any(v != {"gp_step": N} for v in fn.launches.values()):
+                    fail(f"{tag}: per-device launches {per}, expected {N} gp_step each")
+                mesh_held(diff, "gp_step", tag + ".state", k[0], ref[0])
+                diff.eq("gp_step", tag + ".out_rings", k[1], ref[1])
+                diff.eq("gp_step", tag + ".blob_vec", k[2], ref[2])
+                for idx, a, b in mesh_views(k[3], ref[3]):
+                    diff.eq("gp_step", f"{tag}.heat{list(idx)}", a, b)
+                if with_plain:
+                    p = fn.plain(my, gvec, heard, ring, want, my_id, heat)
+                    mesh_same(diff, "gp_step", tag + ".plain.state", k[0], p[0])
+                    for j, what in ((1, "out_rings"), (2, "blob_vec")):
+                        diff.eq("gp_step", f"{tag}.plain.{what}", k[j], p[j])
+                    for idx in np.ndindex(*mesh.devices.shape):
+                        diff.eq("gp_step", f"{tag}.plain.heat{list(idx)}",
+                                k[3].shards[idx], p[3].shards[idx])
+                    del p
+                # a dispatch fed the sharded state and heat of the last one,
+                # as a caller keeps them
+                st_s, heat_s = k[0], k[3]
+                ms = cuda_ms(lambda: fn(st_s, gvec, heard, ring, want, my_id, heat_s),
+                             MESH_PACKED_ITERS)
+                # the data movement alone: every device's slice of the
+                # gathered matrix, and the reassembly of the outputs
+                Gs = st_s.bal.shard_groups
+                NB_s = te.blob_vec_len(cfg._replace(n_groups=Gs))
+                M_s = te.out_vec_len(cfg._replace(n_groups=Gs))
+                bufs = {i: torch.empty((R, NB_s), dtype=torch.int32, device=device)
+                        for i in np.ndindex(*mesh.devices.shape)}
+                n_of = lambda gi: max(0, min(G, gi * Gs + Gs) - gi * Gs)
+                slice_ms = cuda_ms(lambda: [fn.slice_gathered(gvec, i[0] * Gs, n_of(i[0]),
+                                                              Gs, b)
+                                            for i, b in bufs.items()], MESH_PACKED_ITERS)
+                n_g = mesh.shape["g"]
+                rings = {gi: torch.empty((N, M_s), dtype=torch.int32, device=device)
+                         for gi in range(n_g)}
+                blobs = {gi: torch.empty((NB_s,), dtype=torch.int32, device=device)
+                         for gi in range(n_g)}
+                o_r, o_b = torch.empty_like(k[1]), torch.empty_like(k[2])
+
+                def assemble():
+                    fn.assemble(te.StepOutputs._fields, rings, o_r, Gs)
+                    fn.assemble(te.Blob._fields, blobs, o_b, Gs)
+
+                asm_ms = cuda_ms(assemble, MESH_PACKED_ITERS)
+                slice_bytes = 2 * len(bufs) * R * NB_s * 4
+                asm_bytes = 2 * (k[1].numel() + k[2].numel()) * 4
+                out["faces"][f"{face}.N{N}"] = {
+                    "mesh": dict(mesh.shape), "ms": ms, "launches": launches,
+                    "per_device": per, "slice_ms": slice_ms, "slice_bytes": slice_bytes,
+                    "slice_bound_ms": slice_bytes / bw * 1e3, "assemble_ms": asm_ms,
+                    "assemble_bytes": asm_bytes, "assemble_bound_ms": asm_bytes / bw * 1e3,
+                    "plain_checked": with_plain}
+                f = out["faces"][f"{face}.N{N}"]
+                log(f"{tag}: bit-equal to the one-device face"
+                    + (" and to its plain version" if with_plain else "")
+                    + f"; {ms:.6g} ms a dispatch (one device "
+                    f"{out[f'one_device_ms_n{N}']:.6g} ms); slicing {slice_ms:.6g} ms vs "
+                    f"bound {f['slice_bound_ms']:.6g} ms ({slice_bytes} B), reassembly "
+                    f"{asm_ms:.6g} ms vs bound {f['assemble_bound_ms']:.6g} ms "
+                    f"({asm_bytes} B); launches per device {per}")
+                del k, st_s, heat_s, bufs, rings, blobs, o_r, o_b
+            del ref, ring
+        del my, gvec, req, heat, want
+        torch.cuda.empty_cache()
+        out["seconds"] = time.perf_counter() - t0
+    return res
 
 
 def phase_mesh(diff: Diff, device, bw: float, results: str) -> dict:
@@ -3078,6 +3743,16 @@ def phase_mesh(diff: Diff, device, bw: float, results: str) -> dict:
                             getattr(k_o, f).gather(cpu), getattr(c_o, f).gather())
     log(f"mesh small shapes {[m[0] for m in MESH_SMALL]}: card equal to the CPU "
         f"at N in (1, 4) ({time.perf_counter() - t_phase:.1f} s)")
+
+    # 4b. the packed face over both meshes
+    res["packed"] = mesh_packed(diff, device, bw, {"g": gmesh, "gr": grmesh})
+    res["packed_launches"] = {}
+    for shape in res["packed"].values():
+        for f in shape["faces"].values():
+            for k, v in f["launches"].items():
+                res["packed_launches"][k] = res["packed_launches"].get(k, 0) + v
+    log(f"mesh packed face: {[k for k in res['packed']]} "
+        f"({time.perf_counter() - t_phase:.1f} s)")
 
     # 5. the main path: each face's rate under the bench's load, the counts
     # from 0 just before each timed run
@@ -3428,7 +4103,7 @@ def phase_baseline(device, results: str) -> dict:
 def kernels_line(diff: Diff, head: dict, step_t: dict, life: dict, dens: dict,
                  xfer: dict, srv: dict, pack: dict, rcs: dict, rcn: dict,
                  shd: dict, txn: dict, ledger: dict, chs: dict, rec: dict,
-                 mesh: dict, ops: dict) -> list:
+                 heal: dict, mesh: dict, ops: dict) -> list:
     """The kernels line's entries, from the phases' results."""
     srv_t, den_t = step_t["server"], step_t["density"]
     cap, abl = head["capacity"], head["ablation"]
@@ -3437,13 +4112,15 @@ def kernels_line(diff: Diff, head: dict, step_t: dict, life: dict, dens: dict,
     bench_l = {k: cap["launches"][k] + abl["launches"][k] for k in cap["launches"]}
     # the mesh faces' timed runs and the entry points built on them
     mesh_runs = [mesh["launches"]["g"], mesh["launches"]["gr"],
-                 mesh["multichip_launches"], mesh["dryrun_launches"]]
+                 mesh["multichip_launches"], mesh["dryrun_launches"],
+                 mesh["packed_launches"]]
     mesh_l = {k: sum(r[k] for r in mesh_runs) for k in mesh["dryrun_launches"]}
     mesh_rec = lambda name: {
         "launches_g": mesh["launches"]["g"][name],
         "launches_gr": mesh["launches"]["gr"][name],
         "launches_multichip": mesh["multichip_launches"][name],
         "launches_dryrun": mesh["dryrun_launches"][name],
+        "launches_packed": mesh["packed_launches"][name],
         "shape": mesh["shape"], "g_mesh": mesh["g_mesh"], "gr_mesh": mesh["gr_mesh"],
         "checked_small": [m[:2] for m in MESH_SMALL],
     }
@@ -3452,7 +4129,8 @@ def kernels_line(diff: Diff, head: dict, step_t: dict, life: dict, dens: dict,
                 "reconfiguration": rcn["launches"], "sharded": shd["launches"],
                 "txn": txn["launches"], "ledger": ledger["launches"],
                 "chaos": chs["launches"],
-                "recovery": rec["launches"], "bench": bench_l, "mesh": mesh_l,
+                "recovery": rec["launches"], "heal": heal["launches"],
+                "bench": bench_l, "mesh": mesh_l,
                 "probe": ops["probe"]["launches"], "ops": ops["launches"]}
     on_paths = lambda name: {p: per_path[p].get(name, 0) for p in per_path}
     at_shape = lambda t, *keys: {k: t[k] for k in ("shape",) + keys}
@@ -3500,7 +4178,14 @@ def kernels_line(diff: Diff, head: dict, step_t: dict, life: dict, dens: dict,
                 k: v["dec_per_s"] for k, v in mesh["rates"].items()},
                 "exchange_ms": mesh["exchange_ms"],
                 "exchange_bound_ms": mesh["exchange_bound_ms"],
-                "exchange_bytes": mesh["exchange_bytes"]},
+                "exchange_bytes": mesh["exchange_bytes"],
+                "packed": {label: {"one_device_ms": {k: v for k, v in r.items()
+                                                     if k.startswith("one_device_ms")},
+                                   **{f: {k: v[k] for k in (
+                                       "ms", "slice_ms", "slice_bound_ms", "assemble_ms",
+                                       "assemble_bound_ms", "per_device")}
+                                      for f, v in r["faces"].items()}}
+                           for label, r in mesh["packed"].items()}},
             **{f"{p}_shape": at_shape(step_t[p], "ms", "ms_events", "ms_fresh",
                                       "bound_ms", "plain_ms", "share", "plan")
                for p in ("ar", "rc", "worker", "recovery", "ledger")},
@@ -3658,6 +4343,7 @@ def main() -> int:
         ("ledger", lambda: phase_ledger(device)),
         ("chaos", lambda: phase_chaos(device)),
         ("recovery", lambda: phase_recovery(device)),
+        ("heal", lambda: phase_heal(device)),
         ("mesh", lambda: phase_mesh(diff, device, bw, results)),
         ("ops", lambda: phase_ops(device, t_start, results)),
         ("baseline", lambda: phase_baseline(device, results)),
@@ -3684,7 +4370,7 @@ def main() -> int:
                            out["density"], out["state_transfer"], out["server"],
                            out["pack_rows"], out["rc_stepped"], out["reconfiguration"],
                            out["sharded"], out["txn"], out["ledger"], out["chaos"],
-                           out["recovery"], out["mesh"], out["ops"])
+                           out["recovery"], out["heal"], out["mesh"], out["ops"])
     for k in kernels:
         if k["launches"] <= 0:
             fail(f"{k['name']}: no launch on the "

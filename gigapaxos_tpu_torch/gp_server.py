@@ -16,7 +16,8 @@ gigapaxos_tpu_torch.reconfigurable_node``:
 State lives under ``--run-dir`` (default ``gp_run/`` next to the config):
 ``<name>.pid`` and ``<name>.log`` per node.  ``start`` waits until every
 booted node's listener accepts (or prints the log tail of whichever node
-died); ``stop`` sends SIGTERM, waits, then SIGKILL to stragglers.
+died, read from the child's own exit status); ``stop`` sends SIGTERM,
+waits, then SIGKILL to stragglers.
 
 The nodes run on the card (``DEVICE=cuda``; this process builds the
 kernels before it spawns them, so that the nodes booting together load
@@ -146,7 +147,7 @@ def do_start(args, nodes: Dict[str, Tuple[str, int]]) -> int:
         from .ops import gp_kernels
 
         gp_kernels.build()
-    started: List[str] = []
+    started: Dict[str, subprocess.Popen] = {}
     for name in pick(nodes, args.nodes):
         if pid_alive(read_pid(run_dir, name)):
             emit(f"{name}: already running (pid {read_pid(run_dir, name)})")
@@ -162,21 +163,26 @@ def do_start(args, nodes: Dict[str, Tuple[str, int]]) -> int:
         )
         log.close()
         pid_file(run_dir, name).write_text(str(proc.pid))
-        started.append(name)
+        started[name] = proc
         emit(f"{name}: started pid {proc.pid} -> {nodes[name]}")
     # readiness: every started node's listener accepts AND reports
     # phase=serving (recovery hydration done); a node whose phase cannot
-    # be read passes on liveness once its listener accepts
+    # be read passes on liveness once its listener accepts.  Death is the
+    # child's exit status: pid_alive's /proc cmdline is empty until the
+    # kernel has loaded the new image, which under load is a long window
+    # after Popen returns
     deadline = time.time() + args.wait_s
     pending = set(started)
     recovering: Dict[str, str] = {}
     while pending and time.time() < deadline:
         for name in sorted(pending):
-            if not pid_alive(read_pid(run_dir, name)):
+            code = started[name].poll()
+            if code is not None:
                 tail = (run_dir / f"{name}.log").read_text(
                     encoding="utf-8", errors="replace"
                 )[-2000:]
-                emit(f"{name}: DIED during startup; log tail:\n{tail}")
+                emit(f"{name}: DIED during startup (exit {code}); "
+                     f"log tail:\n{tail}")
                 return 1
             if not port_up(nodes[name]):
                 continue

@@ -54,8 +54,19 @@ on entry as the reference's ``_constrain`` does) or one of
 sharded state and sharded outputs.  A G that does not divide over 'g' is
 padded with inert rows (member mask 0), bit-equal to
 :func:`pad_group_states`, and the pad never leaves the shards.  Results
-are bit-identical across meshes (all-int32 arithmetic).  The packed face
-on a mesh is not ported (ROADMAP item 17).
+are bit-identical across meshes (all-int32 arithmetic).
+
+The packed face takes a mesh too, as the reference's ``_constrain(mesh,
+state, 'g')`` does: one replica's state (and the heat accumulator) split
+over 'g', replicated over 'r' on a ``(g, r)`` mesh (every device of a
+g-row runs the same shard, as GSPMD runs a ``P('g')`` program).  Each
+device takes its rows of the packed ``[R, NB]`` gathered matrix (one
+slice per leaf: the layout is leaf-major), runs the one-device packed
+face on its shard (N ``gp_step`` launches, heat fused, MY row refreshed
+from substep 1), and the shards' ``out_rings`` and blobs are reassembled
+into the global leaf-major ``[N, M]`` and ``[NB]`` vectors on the mesh's
+first device, bit-equal to ``mesh=None``.  Pad rows get the inert blob
+in the gathered slices and never reach the outputs.
 """
 
 from __future__ import annotations
@@ -70,6 +81,7 @@ import torch
 from ..ops import engine as _engine
 from ..ops.engine import (
     NULL,
+    Blob,
     EngineConfig,
     EngineState,
     StepOutputs,
@@ -386,6 +398,11 @@ def _place_state(states: EngineState, mesh: Mesh, spec: tuple) -> EngineState:
     ))
 
 
+def _grid(mesh: Mesh, fields) -> list:
+    """One empty object array shaped like the mesh per field."""
+    return [np.empty(mesh.devices.shape, dtype=object) for _ in fields]
+
+
 def _on(dev: torch.device):
     """The device's context: its current stream is the one a kernel
     wrapper launches on."""
@@ -447,13 +464,11 @@ class _MeshStep:
             StepOutputs(*(wrap(x, lead + self.spec) for x in outs)),
         )
 
-    def _grid(self, fields) -> list:
-        return [np.empty(self.mesh.devices.shape, dtype=object) for _ in fields]
-
     def _run_g(self, st, req, want, h, kernels):
         """('g',): the stacked face on every shard, on its own device."""
         cfg, G, Gs = self.cfg, st.bal.n_groups, st.bal.shard_groups
-        new, outs = self._grid(EngineState._fields), self._grid(StepOutputs._fields)
+        new = _grid(self.mesh, EngineState._fields)
+        outs = _grid(self.mesh, StepOutputs._fields)
         for idx in self.index:
             dev = self.mesh.devices[idx]
             key = (Gs, str(dev))
@@ -547,7 +562,8 @@ class _MeshStep:
             if not last:
                 self.exchange(nxt)
                 cur, nxt = nxt, cur
-        new, outs = self._grid(EngineState._fields), self._grid(StepOutputs._fields)
+        new = _grid(self.mesh, EngineState._fields)
+        outs = _grid(self.mesh, StepOutputs._fields)
         for idx in self.index:
             for grid, x in zip(new, state[idx]):
                 grid[idx] = x.unsqueeze(0)
@@ -555,6 +571,143 @@ class _MeshStep:
             for grid, x in zip(outs, o):
                 grid[idx] = x.unsqueeze(1 if N > 1 else 0)
         return new, outs, G
+
+
+@functools.lru_cache(maxsize=None)
+def _blob_fill() -> dict:
+    """Each blob leaf's value for an inert row (what a pad row publishes)."""
+    from ..ops.engine import init_state
+
+    blob = make_blob_plain(init_state(EngineConfig(1, 2, 1, 1), "cpu"))
+    return {f: int(x.reshape(-1)[0]) for f, x in zip(blob._fields, blob)}
+
+
+def _leaf_spans(fields, cfg: EngineConfig, Gs: int):
+    """Per leaf of a leaf-major packed vector: (name, width per group,
+    offset in the global vector, offset in a shard's vector of ``Gs``
+    groups)."""
+    G, W = cfg.n_groups, cfg.window
+    off = off_s = 0
+    spans = []
+    for name in fields:
+        w = 1 if name in _engine._G_LEAVES else W
+        spans.append((name, w, off, off_s))
+        off += G * w
+        off_s += Gs * w
+    return spans
+
+
+class _PackedMeshStep:
+    """The packed face over a ``('g',)`` or ``(g, r)`` mesh (module
+    docstring).  ``launches`` holds each logical device's own kernel-launch
+    counts (keyed by its mesh index), counted where each kernel launches."""
+
+    def __init__(self, cfg: EngineConfig, mesh: Mesh, n_steps: int,
+                 donate: bool, heat: bool):
+        self.cfg, self.mesh, self.n_steps = cfg, mesh, n_steps
+        self.donate, self.heat = donate, heat
+        self.spec = _mesh_spec(mesh, GROUP_AXIS)
+        self.index = list(np.ndindex(*mesh.devices.shape))
+        self.launches = {idx: {} for idx in self.index}
+        self._shard_steps = {}
+
+    def reset_launches(self) -> None:
+        for log in self.launches.values():
+            log.clear()
+
+    def __call__(self, state, gvec, heard, req_ring, want_coord, my_id,
+                 heat_acc=None):
+        return self._run(state, gvec, heard, req_ring, want_coord, my_id,
+                         heat_acc, kernels=True)
+
+    def plain(self, state, gvec, heard, req_ring, want_coord, my_id,
+              heat_acc=None):
+        """The same slicing and reassembly around every shard's plain
+        packed face (the kernel path's yardstick)."""
+        return self._run(state, gvec, heard, req_ring, want_coord, my_id,
+                         heat_acc, kernels=False)
+
+    def slice_gathered(self, gvec: torch.Tensor, g0: int, n: int, Gs: int,
+                       out: torch.Tensor) -> None:
+        """Rows ``g0 .. g0 + n`` of every leaf of the global ``[R, NB]``
+        gathered matrix into ``out`` ``[R, NB_s]`` (a shard of ``Gs``
+        groups), its pad rows the inert blob."""
+        fill = _blob_fill()
+        for name, w, off, off_s in _leaf_spans(Blob._fields, self.cfg, Gs):
+            if n:
+                out[:, off_s:off_s + n * w].copy_(
+                    gvec[:, off + g0 * w:off + (g0 + n) * w])
+            if n < Gs:
+                out[:, off_s + n * w:off_s + Gs * w].fill_(fill[name])
+
+    def assemble(self, fields, parts: dict, out: torch.Tensor, Gs: int) -> None:
+        """Each g-shard's ``[..., V_s]`` packed vector (``parts[gi]``, its
+        real rows only) into the global leaf-major ``out`` ``[..., V]``."""
+        G = self.cfg.n_groups
+        for _name, w, off, off_s in _leaf_spans(fields, self.cfg, Gs):
+            for gi, part in parts.items():
+                g0 = gi * Gs
+                n = max(0, min(G, g0 + Gs) - g0)
+                if n:
+                    out[..., off + g0 * w:off + (g0 + n) * w].copy_(
+                        part[..., off_s:off_s + n * w])
+
+    def _run(self, state, gvec, heard, req_ring, want_coord, my_id, heat_acc,
+             kernels: bool):
+        cfg, mesh, spec, N = self.cfg, self.mesh, self.spec, self.n_steps
+        if self.heat and heat_acc is None:
+            raise TypeError("heat=True step needs the heat accumulator")
+        st = _place_state(state, mesh, spec)
+        G, Gs = st.bal.n_groups, st.bal.shard_groups
+        if G != cfg.n_groups:
+            raise ValueError(f"state of {G} groups, step of {cfg.n_groups}")
+        req = _place(req_ring, mesh, (None,) + spec, torch.int32, NULL)
+        want = _place(want_coord, mesh, spec, torch.bool, False)
+        ht = _place(heat_acc, mesh, spec, torch.int32, 0) if self.heat else None
+        dev0 = mesh.devices.flat[0]
+        g_all = _as(gvec, torch.int32, gvec.device if isinstance(
+            gvec, torch.Tensor) else dev0)
+        h_all = _global(heard, torch.bool)
+        cfg_s = cfg._replace(n_groups=Gs)
+        NB_s = blob_vec_len(cfg_s)
+        new = _grid(mesh, EngineState._fields)
+        heat_out = np.empty(mesh.devices.shape, dtype=object)
+        rings, blobs = {}, {}
+        for idx in self.index:
+            dev = mesh.devices[idx]
+            key = (Gs, str(dev))
+            if key not in self._shard_steps:
+                self._shard_steps[key] = _PackedStep(
+                    cfg_s, N, self.donate, self.heat, dev)
+            fn = self._shard_steps[key]
+            g0 = idx[0] * Gs
+            n = max(0, min(G, g0 + Gs) - g0)
+            with _on(dev):
+                g_s = torch.empty((cfg.n_replicas, NB_s), dtype=torch.int32,
+                                  device=dev)
+                self.slice_gathered(g_all, g0, n, Gs, g_s)
+                args = (EngineState(*(x.shards[idx] for x in st)), g_s,
+                        h_all.to(dev), req.shards[idx], want.shards[idx],
+                        my_id) + ((ht.shards[idx],) if self.heat else ())
+                res = (fn(*args, launch_log=self.launches[idx]) if kernels
+                       else fn.plain(*args))
+            for grid, x in zip(new, res[0]):
+                grid[idx] = x
+            if self.heat:
+                heat_out[idx] = res[3]
+            if len(idx) == 1 or idx[1] == 0:
+                # every device of a g-row holds the same result
+                rings[idx[0]], blobs[idx[0]] = res[1], res[2]
+        out_rings = torch.empty((N, out_vec_len(cfg)), dtype=torch.int32,
+                                device=dev0)
+        blob_vec = torch.empty((blob_vec_len(cfg),), dtype=torch.int32,
+                               device=dev0)
+        with _on(dev0):
+            self.assemble(StepOutputs._fields, rings, out_rings, Gs)
+            self.assemble(Blob._fields, blobs, blob_vec, Gs)
+        wrap = lambda shards: ShardedTensor(mesh, spec, shards, G)
+        res = (EngineState(*(wrap(x) for x in new)), out_rings, blob_vec)
+        return res + (wrap(heat_out),) if self.heat else res
 
 
 # ---------------------------------------------------------------------------
@@ -598,11 +751,10 @@ def _make_mesh_step_cached(cfg, mesh, steps_per_dispatch, donate, io, heat):
     from ..obs.device import StepSentinel
 
     _check_flavor(steps_per_dispatch, io, heat)
-    if io == "packed_host":
-        raise NotImplementedError(
-            "the packed_host face on a mesh is not ported (ROADMAP item 17); "
-            "no caller of the JAX package uses it")
-    fn = _MeshStep(cfg, mesh, steps_per_dispatch)
+    if io == "stacked":
+        fn = _MeshStep(cfg, mesh, steps_per_dispatch)
+    else:
+        fn = _PackedMeshStep(cfg, mesh, steps_per_dispatch, donate, heat)
     return StepSentinel(fn, label=_label(io, steps_per_dispatch, donate, heat,
                                          f"mesh={mesh.tag}", cfg))
 
@@ -616,8 +768,8 @@ def make_step(cfg: EngineConfig, mesh: Optional[Mesh] = None,
     ----------
     cfg : EngineConfig
     mesh : ``None`` for one device; a ``('g',)`` or ``(g, r)``
-        :class:`~.mesh.Mesh` for the mesh faces of the stacked face
-        (module docstring; results are bit-identical across meshes).
+        :class:`~.mesh.Mesh` for the mesh faces of either face (module
+        docstring; results are bit-identical across meshes).
     steps_per_dispatch : N >= 1 consensus rounds per host call
         (``ENGINE_STEPS_PER_DISPATCH``).
     donate : the caller gives up its heat accumulator, which the packed
@@ -625,7 +777,8 @@ def make_step(cfg: EngineConfig, mesh: Optional[Mesh] = None,
         tensors; ``False`` keeps every input valid.
     io : ``"stacked"`` ([R, ...] bench face) or ``"packed_host"`` (one
         replica + packed [R, NB] gathered vectors — the deployed
-        runtime's face; one device only).
+        runtime's face; on a mesh the state is split over 'g' and
+        ``out_rings``/``blob_vec`` come back global).
     heat : (``packed_host`` only) carry a ``[G]`` int32 activity
         accumulator: the step takes it as a trailing argument and returns
         ``heat + n_committed + n_admitted`` over every substep.

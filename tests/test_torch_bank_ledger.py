@@ -85,7 +85,6 @@ def _run(mod, argv, capsys, monkeypatch, tamper=None):
     return rc, doc, made[0]
 
 
-@pytest.mark.timeout(300)
 def test_ledger_equals_the_reference(restored, capsys, monkeypatch):
     rc, port, pc = _run(bank_ledger, ARGS + ["--device", "cpu"], capsys, monkeypatch)
     ref_rc, ref, rc_ = _run(_reference(), ARGS, capsys, monkeypatch)
@@ -105,7 +104,6 @@ def test_ledger_equals_the_reference(restored, capsys, monkeypatch):
         assert a.app.staged == b.app.staged == {}
 
 
-@pytest.mark.timeout(300)
 def test_tampered_balance_fails_the_audits(restored, capsys, monkeypatch):
     def mint(c, accounts):
         # one unit minted on every member: replicas still agree

@@ -20,11 +20,11 @@ from torch_soak import child, child_result
 SWEEP = ["--family", "txn", "--base", "786083501", "--count", "2"]
 
 
-@pytest.mark.timeout(600)
 def test_txn_sweep_equals_the_reference():
     procs = {pkg: child({"mode": "sweep", "pkg": pkg, "argv": SWEEP})
              for pkg in ("port", "jax")}
-    port, ref = (child_result(procs[p], f"{p} sweep") for p in ("port", "jax"))
+    port, ref = (child_result(procs[p], f"{p} sweep", timeout=600)
+                 for p in ("port", "jax"))
     assert port["rc"] == ref["rc"] == 0
     a, b = port["doc"], ref["doc"]
     assert a["metric"] == b["metric"] == "chaos_fresh_seed_sweep"

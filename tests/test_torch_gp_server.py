@@ -42,7 +42,6 @@ def _scenario(tmp_path, **subs) -> Path:
     return cfg
 
 
-@pytest.mark.timeout(240)
 def test_gp_server_start_probe_trace_stop(tmp_path):
     cfg = _scenario(tmp_path)
     run_dir = tmp_path / "run"
@@ -107,3 +106,48 @@ def test_app_class_refuses_the_jax_package():
             app_class()
     finally:
         Config.clear()
+
+
+def test_start_reads_death_from_the_child_not_proc(tmp_path, monkeypatch, capsys):
+    """``start`` tells a dead node from one the kernel is still exec'ing
+    by the child's exit status.  A node's /proc cmdline reads empty until
+    its new image is loaded, so ``pid_alive`` says "not ours" in that
+    window; under a loaded suite the readiness loop used to land in it
+    and report a healthy node as DIED with an empty log."""
+    from gigapaxos_tpu_torch import gp_server
+
+    cfg = _scenario(tmp_path)
+    run_dir = tmp_path / "run"
+    gp = ["--config", str(cfg), "--run-dir", str(run_dir)]
+    monkeypatch.setattr(gp_server, "pid_alive", lambda pid: False)
+    try:
+        assert gp_server.main(gp + ["--device", "cpu", "start", "AR0"]) == 0, \
+            capsys.readouterr()
+        assert "up: ['AR0']" in capsys.readouterr().out
+    finally:
+        monkeypatch.undo()
+        gp_server.main(gp + ["stop", "AR0"])
+    assert not list(run_dir.glob("*.pid"))
+
+
+def test_start_reports_a_node_that_dies(tmp_path):
+    """A node that cannot bind its port exits; ``start`` says so with its
+    exit status and log tail, and fails."""
+    import socket
+
+    cfg = _scenario(tmp_path)
+    port = int(next(ln for ln in cfg.read_text().splitlines()
+                    if ln.startswith("active.AR0=")).rpartition(":")[2])
+    run_dir = tmp_path / "run"
+    gp = ["gigapaxos_tpu_torch.gp_server", "--config", str(cfg),
+          "--run-dir", str(run_dir)]
+    # bound, not listening: the node's bind fails and nothing accepts
+    with socket.socket() as holder:
+        holder.bind(("127.0.0.1", port))
+        try:
+            r = _run(gp + ["--device", "cpu", "--wait-s", "120", "start", "AR0"], 180)
+        finally:
+            _run(gp + ["stop", "AR0"], 120)
+    assert r.returncode == 1, (r.stdout, r.stderr)
+    assert "AR0: DIED during startup (exit " in r.stdout, r.stdout
+    assert "in use" in r.stdout, r.stdout

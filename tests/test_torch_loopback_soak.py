@@ -123,7 +123,6 @@ def soak(client, names, n_requests, rate, latency_grace_s=2.0):
     return n_ok / n_requests, mean
 
 
-@pytest.mark.timeout(180)
 def test_loopback_1_group_soak(cluster):
     """1 group x 3 replicas, 10k requests at 1k/s, >= 90% answered."""
     client = cluster
@@ -136,7 +135,6 @@ def test_loopback_1_group_soak(cluster):
     assert mean_lat < 2.0, mean_lat
 
 
-@pytest.mark.timeout(180)
 def test_loopback_10_groups_soak(cluster):
     """The same load spread over 10 names, >= 90% answered."""
     client = cluster
@@ -151,7 +149,6 @@ def test_loopback_10_groups_soak(cluster):
     assert mean_lat < 2.0, mean_lat
 
 
-@pytest.mark.timeout(180)
 def test_loopback_1_group_soak_in_process(in_process):
     """The reference's topology: six nodes in one process, 1 group, 10k
     requests at 1k/s, >= 90% answered."""
@@ -165,7 +162,6 @@ def test_loopback_1_group_soak_in_process(in_process):
     assert mean_lat < 2.0, mean_lat
 
 
-@pytest.mark.timeout(180)
 def test_loopback_10_groups_soak_in_process(in_process):
     """The same in one process over 10 names, >= 90% answered."""
     client = in_process

@@ -151,7 +151,6 @@ def test_card_capacity_record_keyed_by_card(root):
     assert "in_process" in caps
 
 
-@pytest.mark.timeout(300)
 def test_run_fresh_records_the_bench(root, tmp_path, monkeypatch):
     monkeypatch.setenv("BENCH_G", "512")
     out = tmp_path / "baseline.json"

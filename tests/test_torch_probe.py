@@ -27,7 +27,6 @@ def _summary(lines):
                 if ln.get("metric") == "system_capacity_requests_per_s")
 
 
-@pytest.mark.timeout(120)
 def test_in_process_ramp(capsys, tmp_path):
     out = tmp_path / "capacity_cpu.json"
     assert probe.main(LOW + ["--max-rounds", "2", "--capacity-out", str(out),
@@ -47,7 +46,6 @@ def test_in_process_ramp(capsys, tmp_path):
     assert doc["smoke"]["provenance"]["card"]["platform"] == "cpu"
 
 
-@pytest.mark.timeout(120)
 def test_unreplicated_mode(capsys):
     assert probe.main(LOW + ["--max-rounds", "1", "--unreplicated"]) == 0
     s = _summary(_lines(capsys))
@@ -55,7 +53,6 @@ def test_unreplicated_mode(capsys):
     assert "GP_EMULATE_UNREPLICATED" not in os.environ
 
 
-@pytest.mark.timeout(120)
 def test_durable_mode_journals_to_a_temporary_directory(capsys):
     assert probe.main(LOW + ["--max-rounds", "1", "--durable"]) == 0
     lines = _lines(capsys)
@@ -65,7 +62,6 @@ def test_durable_mode_journals_to_a_temporary_directory(capsys):
     assert "durable" in _summary(lines)["unit"]
 
 
-@pytest.mark.timeout(120)
 def test_bank_ledger_is_not_ported_yet(capsys):
     """``--bank-ledger`` hands every other argument to the ledger's main
     (the test keeps the name it had while the probe refused the flag)."""

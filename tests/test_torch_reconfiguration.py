@@ -64,17 +64,22 @@ class Twin:
     """Both packages' clusters, driven alike and compared after every
     step (module docstring)."""
 
-    def __init__(self, mp, ar, rc, **kw):
+    def __init__(self, mp, ar, rc, kw_of=None, **kw):
+        """``kw`` goes to both clusters; ``kw_of(pkg)`` adds keyword
+        arguments of each package's own (``pkg`` from ``torch_pkgs``)."""
+        from torch_pkgs import JAX, TORCH
+
         self.clock = ScriptedClock()
         patch_clocks(mp, self.clock)
         random.seed(SEED)
         state0 = random.getstate()
         self._rand = {}
+        kw_of = kw_of or (lambda pkg: {})
         with self._random("j", state0):
-            self.j = JCluster(JConfig(*ar), JConfig(*rc), JHashChain, **kw)
+            self.j = JCluster(JConfig(*ar), JConfig(*rc), JHashChain, **kw, **kw_of(JAX))
         with self._random("p", state0):
             self.p = TCluster(TConfig(*ar), TConfig(*rc), THashChain,
-                              device="cpu", **kw)
+                              device="cpu", **kw, **kw_of(TORCH))
         self.pending = []
         self.n_steps = 0
         self.check("boot")

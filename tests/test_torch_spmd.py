@@ -274,8 +274,9 @@ def test_make_step_validates_and_memoizes():
         tspmd.make_step(cfg, None, 1, io="stacked", heat=True, device="cpu")
     mesh = tmesh.make_group_mesh(2, devices=["cpu"] * 2)
     assert tspmd.make_step(cfg, mesh, 1) is tspmd.make_step(cfg, mesh, 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 17"):
-        tspmd.make_step(cfg, mesh, 1, io="packed_host")
+    packed = tspmd.make_step(cfg, mesh, 1, io="packed_host")
+    assert packed is tspmd.make_step(cfg, mesh, 1, io="packed_host")
+    assert "packed_host" in packed.label and "mesh=g2" in packed.label
     a = tspmd.make_step(cfg, None, 2, device="cpu")
     assert a is tspmd.make_step(cfg, None, 2, device="cpu")
     if not torch.cuda.is_available():

@@ -140,8 +140,9 @@ def test_make_step_mesh_validates_and_memoizes():
     assert tspmd.make_step(cfg, gm, 2) is tspmd.make_step(
         cfg, tmesh.make_group_mesh(2, devices=["cpu"] * 2), 2)
     assert "mesh=g2" in tspmd.make_step(cfg, gm, 1).label
-    with pytest.raises(NotImplementedError, match="ROADMAP item 17"):
-        tspmd.make_step(cfg, gm, 1, io="packed_host")
+    packed = tspmd.make_step(cfg, gm, 1, io="packed_host", heat=True)
+    assert packed is tspmd.make_step(cfg, gm, 1, io="packed_host", heat=True)
+    assert "packed_host" in packed.label and "mesh=g2" in packed.label
     with pytest.raises(ValueError):
         tspmd.make_step(cfg, gm, 1, device="cpu")
     with pytest.raises(ValueError):

@@ -75,3 +75,39 @@ def boot_cluster(pkg: Pkg, cfg=None, fd_timeout_s=2.0):
     client = pkg.mod("clients").PaxosClientAsync(
         [("127.0.0.1", p) for p in ports])
     return servers, client, ports
+
+
+def set_leaf(pkg: Pkg, leaf, idx, value):
+    """``leaf`` with ``leaf[idx] = value``, as a new array of the package
+    (``.at[].set`` on the JAX package, a clone on the port)."""
+    if pkg.is_torch:
+        out = leaf.clone()
+        out[idx] = value
+        return out
+    return leaf.at[idx].set(value)
+
+
+def digest(managers) -> str:
+    """One hash of every engine leaf and name map of ``managers``."""
+    import hashlib
+
+    h = hashlib.sha1()
+    for m in managers:
+        h.update(repr(sorted(m.names.items())).encode())
+        for k in m.state._fields:
+            h.update(np.ascontiguousarray(m._np(k), dtype=np.int32).tobytes())
+    return h.hexdigest()
+
+
+def scripted(mp, t0: float = 1_000_000.0):
+    """One scripted clock in every loaded module of both packages (the
+    lazily imported ones loaded first); returns it.  ``clock.t`` moves
+    only where the caller moves it (or a module sleeps)."""
+    from gigapaxos_tpu_torch.testing.clock import PRELOAD, ScriptedClock, patch_clocks
+
+    for pkg in PKGS:
+        for name in PRELOAD:
+            pkg.mod(name)
+    clock = ScriptedClock(t0)
+    patch_clocks(mp, clock, ("gigapaxos_tpu.", "gigapaxos_tpu_torch."))
+    return clock
