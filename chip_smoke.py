@@ -65,6 +65,25 @@ Phases (any failure exits nonzero):
              dispatches, both throughputs).  The steady arm's bench line
              and the ablation's result go to a temporary results directory
              (phase 15b folds them).
+3b. residency — the N-substep dispatch: the packed face's N substeps as
+             one gp_step_n launch and the stacked face's as one
+             gp_step_cluster launch (a cluster of R CTAs a tile, R <= 8),
+             each bit for bit against its plain face at every parity
+             shape, G in {4,100, 1,001}, N in {2, 8} (packed: MY id 0 and
+             R-1, heat, want at substep 0; stacked: every replica missing
+             the last), against N serial one-substep dispatches at
+             G=4,100, and at G=65,536 (W=16, R=3, K=8, N=8), where every
+             CTA takes three tiles or more; one launch a dispatch and no
+             gp_make_blob on the stacked face; the packed dispatch at the
+             server shape and the headline's width (one replica), N in
+             {1, 4, 8}, and the stacked one at the ablation shape, N in
+             {1, 8}, and the server shape, N=8, each bit for bit against
+             the plain face, then on the device beside the N-launch
+             design, the plain face and the bound (the state read and
+             written once); then phase 6's servers at
+             ENGINE_STEPS_PER_DISPATCH=8 (16 names, 2 requests each, 4
+             names hibernated and restored, 1 more each): every response
+             correct, each manager one gp_step_n a dispatch and no gp_step.
    step shapes — the manager's dispatch step (heat in place and fresh)
              and gp_make_blob against the plain version, bit for bit, for
              every replica id, at the server's shape (G=65,536, W=16, K=8,
@@ -153,7 +172,10 @@ Phases (any failure exits nonzero):
              held to the same soak on the CPU in another such child (equal
              results, ticks, steps and scripted seconds);
              run_sharded_soak(20260804, workers=2) on the wall clock (its
-             workers are processes the clock cannot reach); steps, ticks
+             workers are processes the clock cannot reach); the multistep
+             pinned seed run_soak(662625602, rounds=30) at
+             ENGINE_STEPS_PER_DISPATCH=4 on the scripted clock, card and
+             CPU equal, its dispatches gp_step_n launches; steps, ticks
              and seconds; any SoakDivergence fails the run.
 13. recovery — testing/recovery.py on the card at the JAX package's
              recovery probe's published defaults, uncut: 262,144 names on
@@ -204,8 +226,8 @@ Phases (any failure exits nonzero):
              the one-device face's, the gathered matrix's slicing and the
              outputs' reassembly against their bound (bytes read and
              written at the card's memory rate), each logical device's
-             launches (N gp_step a dispatch).  Then, the counts
-             from 0 before each, 20 steps of each face under the bench's
+             launches (one gp_step, at N=4 one gp_step_n, a dispatch).
+             Then, the counts from 0 before each, 20 steps of each face under the bench's
              load (dec/s beside the stacked face's; each logical device's
              own launches: one gp_make_blob and one gp_step a step), the
              (g, r) blob exchange's ms per step against its bound
@@ -237,7 +259,8 @@ Phases (any failure exits nonzero):
 16. report — the kernels line, then the device line (last).
 
 Kernel launch counts are reset to 0 just before each main-path run
-(phases 3 to 8, 10 to 13, 11b, each scenario of 13b and 14's timed runs,
+(phases 3 to 8, 3b's servers and dispatches, 10 to 13, 11b, each
+scenario of 13b and 14's timed runs,
 packed dispatches and entry points) and read
 just after; parity and timing
 launches do not count.  Phase 10's launches are its worker processes'
@@ -430,6 +453,33 @@ MESH_SMALL = [("golden_g8", dict(G=13, W=8, K=4, R=3), "g", 8),
               ("dryrun_gr", dict(G=16, W=4, K=2, R=2), "gr", 4),
               ("dryrun_g8", dict(G=35, W=4, K=2, R=3), "g", 8)]
 
+# the residency dispatch (phase 3b): substeps a dispatch held bit for bit
+# against the plain faces at every parity shape and against N serial
+# one-substep dispatches at the first parity G; the packed face timed at
+# the server shape and the headline's width (one replica), the stacked face
+# at the ablation and server shapes;
+# then phase 6's servers at ENGINE_STEPS_PER_DISPATCH=8 (16 names, 2
+# requests each (4 until the whole call's time was measured), 4 names
+# hibernated and restored, 1 more request each).  The dispatches of the
+# larger shapes are timed over a graph of 5 replayed 4 times (a dispatch
+# there takes milliseconds)
+RES_PARITY_N = (2, 8)
+# a parity case where every CTA of both N-substep launches takes three tiles
+# or more (4,096 tiles of 16 groups over some 400 CTAs; 8,192 of 8 over
+# some 250 clusters), so the ring refills stages that the substeps wrote:
+# the server shape's (W, R, K), the first parity G's seeded states tiled
+RES_PARITY_BIG = (65_536, (16, 3, 8))
+RES_PACKED_N = (1, 4, 8)
+# the stacked face: (label, shape, N) timed; at the server shape's W=16 a
+# substep's bytes weigh more against its compute than at the ablation's W=32
+RES_STACKED = [("ablation", ABLATION, (1, 8)), ("server", SERVER, (8,))]
+RES_SERVER_N = 8
+RES_SERVER_NAMES, RES_SERVER_REQS_PER_NAME = 16, 2
+RES_SERVER_HIBERNATE, RES_SERVER_POST_REQS_PER_NAME = 4, 1
+# phase 12's multistep pinned seed (tests/test_unified_step.py's, at
+# ENGINE_STEPS_PER_DISPATCH=4, as tests/test_torch_chaos_breach.py runs it)
+CHAOS_MULTISTEP = dict(seed=662625602, rounds=30, steps_per_dispatch=4)
+
 # the heal paths (phase 13b): each scenario's wall budget (the reference
 # tests' 30-60 s deadlines, for their 16-row engines) and its step cap
 HEAL_DEADLINE_S, HEAL_MAX_STEPS = 120.0, 600
@@ -481,6 +531,25 @@ def stacked_step_bytes(G: int, W: int, K: int, R: int) -> int:
     words = 2 * (12 + 7 * W) + K + (6 + 3 * W) + (4 + 4 * W)
     per_launch = R * G * (4 * words + 1) + R * G * 4 * (4 + 4 * W) + R * R
     return per_launch // R
+
+
+def packed_bytes(G: int, W: int, K: int, R: int, N: int) -> int:
+    """Bytes the packed face's N-substep dispatch must move: one replica's
+    state read and written once, the R gathered rows read once, N request
+    tiles read and N out rows written, the blob written once, the heat
+    read and written, the want byte per group and R heard bytes."""
+    words = (2 * (12 + 7 * W) + R * (4 + 4 * W) + N * K + N * (6 + 3 * W)
+             + (4 + 4 * W) + 2)
+    return G * (4 * words + 1) + R
+
+
+def cluster_bytes(G: int, W: int, K: int, R: int, N: int) -> int:
+    """Bytes the stacked face's N-substep dispatch must move: every
+    replica's state read and written once, its N request tiles read and
+    its N out rows written, its want bytes, the heard matrix.  The blobs
+    the replicas exchange never need device memory."""
+    words = R * (2 * (12 + 7 * W) + N * K + N * (6 + 3 * W))
+    return G * (4 * words + R) + R * R
 
 
 def blob_bytes(G: int, W: int) -> int:
@@ -609,8 +678,10 @@ class Diff:
     """Bit-exact comparison bookkeeping across phases."""
 
     def __init__(self):
-        self.max_abs = {"gp_step": 0, "gp_make_blob": 0, "gp_pack_rows": 0}
-        self.checked = {"gp_step": 0, "gp_make_blob": 0, "gp_pack_rows": 0}
+        names = ("gp_step", "gp_step_n", "gp_step_cluster", "gp_make_blob",
+                 "gp_pack_rows")
+        self.max_abs = {k: 0 for k in names}
+        self.checked = {k: 0 for k in names}
         for name, *_ in LIFE_KERNELS:
             self.max_abs[name] = 0
             self.checked[name] = 0
@@ -645,7 +716,19 @@ class Diff:
 # ---------------------------------------------------------------------------
 
 
+_SEEDED: dict = {}
+
+
 def seeded_states(cfg, seed: int, device):
+    """:func:`make_seeded_states`, kept per (shape, seed, device): phases 2
+    and 3b fold the same states at the parity shapes (3b drops them)."""
+    key = (tuple(cfg), seed, str(device))
+    if key not in _SEEDED:
+        _SEEDED[key] = make_seeded_states(cfg, seed, device)
+    return _SEEDED[key]
+
+
+def make_seeded_states(cfg, seed: int, device):
     """R replica states of a CPU simulator after a few loaded steps, then
     lane fuzz: random lanes get slots at wrap deltas up to +-15 (and one
     past), ballots at deltas up to DELTA_MAX (and past), random vids with
@@ -772,14 +855,16 @@ def phase_parity(diff: Diff, device) -> None:
                 st0 = te.EngineState(*(x.clone() for x in states[0]))
                 k = fn(st0, gvec, heard, ring, want, 0, heat.clone())
                 tag = f"packed.G{G}W{W}R{R}.N{N}.d{int(donate)}"
-                diff.tree("gp_step", tag + ".state", k[0], p[0])
+                # N > 1 is one gp_step_n launch a dispatch
+                kname = "gp_step" if N == 1 else "gp_step_n"
+                diff.tree(kname, tag + ".state", k[0], p[0])
                 for j in (1, 2, 3):
-                    diff.eq("gp_step", f"{tag}.{j}", k[j], p[j])
+                    diff.eq(kname, f"{tag}.{j}", k[j], p[j])
                 p2 = fn.plain(p[0], gvec, heard, ring, want, 0, p[3])
                 k2 = fn(k[0], gvec, heard, ring, want, 0, k[3])
-                diff.tree("gp_step", tag + ".again.state", k2[0], p2[0])
+                diff.tree(kname, tag + ".again.state", k2[0], p2[0])
                 for j in (1, 2, 3):
-                    diff.eq("gp_step", f"{tag}.again.{j}", k2[j], p2[j])
+                    diff.eq(kname, f"{tag}.again.{j}", k2[j], p2[j])
             fn = make_step(cfg, None, N, donate=False, io="stacked", device=device)
             stacked = stack_states(states)
             reqs = rng.integers(1, 10 ** 6, size=(N, R, G, K))
@@ -791,8 +876,9 @@ def phase_parity(diff: Diff, device) -> None:
             hm = dev(rng.random((R, R)) < 0.8, torch.bool)
             k_st, k_o = fn(stacked, reqs, wants, hm)
             p_st, p_o = fn.plain(stacked, reqs, wants, hm)
-            diff.tree("gp_step", f"stacked.G{G}W{W}R{R}.N{N}.state", k_st, p_st)
-            diff.tree("gp_step", f"stacked.G{G}W{W}R{R}.N{N}.out", k_o, p_o)
+            kname = "gp_step_cluster" if fn.route == "cluster" else "gp_step"
+            diff.tree(kname, f"stacked.G{G}W{W}R{R}.N{N}.state", k_st, p_st)
+            diff.tree(kname, f"stacked.G{G}W{W}R{R}.N{N}.out", k_o, p_o)
     torch.cuda.synchronize()
     log(f"parity: {diff.checked} comparisons bit-equal "
         f"({time.perf_counter() - t0:.1f} s)")
@@ -1882,8 +1968,9 @@ def bench_ablation(diff: Diff, device, results: str) -> dict:
     fn8 = make_step(cfg, None, 8, donate=False, io="stacked", device=device)
     ring = load.req[None].expand(8, R, G, K).contiguous()
     k8, p8 = fn8(states, ring, load.no_want), fn8.plain(states, ring, load.no_want)
-    diff.tree("gp_step", "ablation.n8.state", k8[0], p8[0])
-    diff.tree("gp_step", "ablation.n8.out", k8[1], p8[1])
+    # N=8 is one gp_step_cluster launch a dispatch (phase 3b)
+    diff.tree("gp_step_cluster", "ablation.n8.state", k8[0], p8[0])
+    diff.tree("gp_step_cluster", "ablation.n8.out", k8[1], p8[1])
     del k8, p8, ring
     snap = states
     for j in range(ABLATION_PLAIN_STEPS):
@@ -1912,6 +1999,423 @@ def bench_ablation(diff: Diff, device, results: str) -> dict:
         f"launches {launches}")
     bench.write_out(os.path.join(results, "ablation.json"), res)
     return {"result": res, "launches": launches, "shape": ABLATION}
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: the residency dispatch (N substeps a launch)
+# ---------------------------------------------------------------------------
+
+
+def packed_n_launches(state, gvec, heard, ring, want, my_id, cfg, heat, heat_out,
+                      out_rings, g_work):
+    """The packed dispatch as N ``gp_step`` launches, the design before one
+    launch held the N substeps (timed beside it): MY row of a copy of the
+    gathered matrix refreshed from each launch's blob, want at the first."""
+    import torch
+
+    from gigapaxos_tpu_torch.ops import gp_kernels
+
+    N = ring.shape[0]
+    no_want = torch.zeros_like(want)
+    g, st = gvec, state
+    for i in range(N):
+        st, _, blob, _ = gp_kernels.step(
+            st, g, heard, ring[i], want if i == 0 else no_want, my_id, cfg,
+            with_blob=True, heat=heat if i == 0 else heat_out, heat_out=heat_out,
+            out_vec=out_rings[i])
+        if i < N - 1:
+            if g is gvec:
+                g_work.copy_(gvec)
+                g = g_work
+            g[my_id].copy_(blob)
+    return st
+
+
+def tile_states(states, G: int):
+    """Replica states repeated along the group axis and cut to G groups."""
+    from gigapaxos_tpu_torch.ops import engine as te
+
+    G0 = states[0].bal.shape[0]
+    n = -(-G // G0)
+    return [te.EngineState(*(x.repeat((n,) + (1,) * (x.dim() - 1))[:G].contiguous()
+                             for x in s)) for s in states]
+
+
+def residency_case(diff: Diff, device, cfg, states, rng, serial: bool,
+                   launches: dict, ns=RES_PARITY_N) -> None:
+    """One parity shape and G of phase 3b: for each N in ``ns`` the
+    packed face (MY id 0 and R-1, heat on, want set, a heard vector with
+    misses) and the stacked face (every replica missing the last one) bit
+    for bit against their plain faces and, with ``serial``, against N
+    serial one-substep dispatches; one launch a dispatch."""
+    import numpy as np
+    import torch
+
+    from gigapaxos_tpu_torch.ops import engine as te
+    from gigapaxos_tpu_torch.parallel.spmd import make_step, stack_states
+
+    G, W, K, R = cfg
+    dev = lambda a, dt: torch.as_tensor(a, dtype=dt, device=device)
+    shp = f"G{G}W{W}R{R}K{K}"
+    gvec = torch.stack([te.pack_blob(te.make_blob_plain(s)) for s in states])
+    one = make_step(cfg, None, 1, donate=False, io="packed_host", heat=True, device=device)
+    one_s = make_step(cfg, None, 1, donate=False, io="stacked", device=device)
+    for N in ns:
+        fn = make_step(cfg, None, N, donate=False, io="packed_host", heat=True, device=device)
+        ring = rng.integers(1, 10 ** 6, size=(N, G, K))
+        ring = np.where(rng.random((N, G, K)) < 0.3, -1, ring)
+        ring = np.where(rng.random((N, G, K)) < 0.02, ring | (1 << 30), ring)
+        ring = dev(ring.astype(np.int32), torch.int32)
+        want = dev(rng.random(G) < 0.1, torch.bool)
+        no_want = torch.zeros_like(want)
+        heat = dev(rng.integers(0, 100, G).astype(np.int32), torch.int32)
+        for my_id in sorted({0, R - 1}):
+            heard = dev(rng.random(R) < 0.8, torch.bool)
+            tag = f"residency.packed.{shp}.N{N}.r{my_id}"
+            p = fn.plain(states[my_id], gvec, heard, ring, want, my_id, heat)
+            te.reset_launch_counts()
+            k = fn(states[my_id], gvec, heard, ring, want, my_id, heat)
+            got = dict(te.LAUNCHES)
+            launches["packed"].append(got["gp_step_n"])
+            diff.same("gp_step_n", tag + ".launches",
+                      got["gp_step_n"] == 1 and sum(got.values()) == 1)
+            diff.tree("gp_step_n", tag + ".state", k[0], p[0])
+            for j, what in ((1, "rings"), (2, "blob"), (3, "heat")):
+                diff.eq("gp_step_n", f"{tag}.{what}", k[j], p[j])
+            if not serial:
+                continue
+            # N serial one-substep dispatches, MY row refreshed from each
+            # one's blob
+            st, g, h, rows = states[my_id], gvec, heat, []
+            for s in range(N):
+                st, o, blob, h = one(st, g, heard, ring[s:s + 1],
+                                     want if s == 0 else no_want, my_id, h)
+                rows.append(o[0])
+                g = gvec.clone()
+                g[my_id] = blob
+            diff.tree("gp_step_n", tag + ".serial.state", k[0], st)
+            diff.eq("gp_step_n", tag + ".serial.rings", k[1], torch.stack(rows))
+            diff.eq("gp_step_n", tag + ".serial.blob", k[2], blob)
+            diff.eq("gp_step_n", tag + ".serial.heat", k[3], h)
+        fs = make_step(cfg, None, N, donate=False, io="stacked", device=device)
+        stacked = stack_states(states)
+        reqs = rng.integers(1, 10 ** 6, size=(N, R, G, K))
+        reqs = dev(np.where(rng.random((N, R, G, K)) < 0.3, -1, reqs)
+                   .astype(np.int32), torch.int32)
+        wants = dev(rng.random((R, G)) < 0.05, torch.bool)
+        hm = np.ones((R, R), bool)
+        if R > 1:
+            hm[:, R - 1] = False   # every replica misses the last one
+        hm = dev(hm, torch.bool)
+        tag = f"residency.stacked.{shp}.N{N}"
+        te.reset_launch_counts()
+        k_st, k_o = fs(stacked, reqs, wants, hm)
+        got = dict(te.LAUNCHES)
+        launches["stacked"].append(got["gp_step_cluster"])
+        diff.same("gp_step_cluster", tag + ".launches",
+                  fs.route == "cluster" and got["gp_step_cluster"] == 1
+                  and sum(got.values()) == 1)
+        p_st, p_o = fs.plain(stacked, reqs, wants, hm)
+        diff.tree("gp_step_cluster", tag + ".state", k_st, p_st)
+        diff.tree("gp_step_cluster", tag + ".out", k_o, p_o)
+        if not serial:
+            continue
+        st, outs = stacked, []
+        for s in range(N):
+            st, o = one_s(st, reqs[s], wants if s == 0 else torch.zeros_like(wants), hm)
+            outs.append(o)
+        diff.tree("gp_step_cluster", tag + ".serial.state", k_st, st)
+        diff.tree("gp_step_cluster", tag + ".serial.out", k_o,
+                  te.StepOutputs(*(torch.stack(x) for x in zip(*outs))))
+
+
+def residency_parity(diff: Diff, device) -> dict:
+    """Both N-substep kernels bit for bit against their plain faces at
+    every parity shape and G, N in RES_PARITY_N, and against N serial
+    one-substep dispatches at the first parity G (:func:`residency_case`);
+    then RES_PARITY_BIG at the deployed N (8), where every CTA of both
+    launches takes three tiles or more, so the ring refills stages the
+    substeps wrote."""
+    import numpy as np
+    import torch
+
+    from gigapaxos_tpu_torch.ops import engine as te
+    from gigapaxos_tpu_torch.ops import gp_kernels
+
+    t0 = time.perf_counter()
+    launches = {"packed": [], "stacked": []}
+    for G in PARITY_GS:
+        for i, (W, R, K) in enumerate(PARITY_SHAPES):
+            cfg = te.EngineConfig(G, W, K, R)
+            residency_case(diff, device, cfg, seeded_states(cfg, 100 + i + G, device),
+                           np.random.default_rng(500 + i + G), G == PARITY_GS[0], launches)
+    G, (W, R, K) = RES_PARITY_BIG
+    i = PARITY_SHAPES.index((W, R, K))
+    cfg = te.EngineConfig(G, W, K, R)
+    N = RES_SERVER_N
+    pk = gp_kernels.step_launch_plan(cfg, n_sub=N)
+    cl = gp_kernels.step_launch_plan(cfg, n_sub=N, cluster=True)
+    tiles = (pk["n_items"] // pk["grid"], cl["n_items"] // (cl["grid"] // R))
+    if min(tiles) < 3:
+        fail(f"residency parity at G={G}: {tiles} tiles a CTA, not 3 or more "
+             f"(packed {plan_str(pk)}; cluster {plan_str(cl)})")
+    base = seeded_states(te.EngineConfig(PARITY_GS[0], W, K, R), 100 + i + PARITY_GS[0],
+                         device)
+    residency_case(diff, device, cfg, tile_states(base, G), np.random.default_rng(500 + G),
+                   False, launches, (N,))
+    torch.cuda.synchronize()
+    _SEEDED.clear()
+    secs = time.perf_counter() - t0
+    log(f"residency parity: gp_step_n {diff.checked['gp_step_n']} and gp_step_cluster "
+        f"{diff.checked['gp_step_cluster']} comparisons bit-equal at "
+        f"{len(PARITY_SHAPES)} shapes x G in {PARITY_GS}, N in {RES_PARITY_N}, against "
+        f"the plain faces, and against N serial dispatches at G={PARITY_GS[0]}; at "
+        f"G={G}, (W, R, K)={(W, R, K)}, N={N} too, the least tiles a CTA (packed, "
+        f"cluster) {tiles}; launches a dispatch: packed "
+        f"{sorted(set(launches['packed']))} gp_step_n, stacked "
+        f"{sorted(set(launches['stacked']))} gp_step_cluster and no gp_make_blob "
+        f"({secs:.1f} s)")
+    return {"seconds": secs, "tiles_per_cta_big": tiles, "launches_per_dispatch": {
+        k: sorted(set(v)) for k, v in launches.items()}}
+
+
+def warm_states(cfg, device, steps: int = 10):
+    """Stacked replica states after ``steps`` loaded steps (K requests a
+    group a step), as phase 3's step-shape timings load them."""
+    import torch
+
+    from gigapaxos_tpu_torch.parallel.spmd import build_replica_states, make_step
+
+    G, K, R = cfg.n_groups, cfg.req_lanes, cfg.n_replicas
+    fn = make_step(cfg, None, 1, donate=True, io="stacked", device=device)
+    req = torch.arange(1, K + 1, dtype=torch.int32, device=device)
+    req = req[None, None, :].expand(R, G, K).contiguous()
+    want = torch.zeros((R, G), dtype=torch.bool, device=device)
+    states = build_replica_states(cfg, device=device)
+    for _ in range(steps):
+        states, _ = fn(states, req, want)
+    return states, req
+
+
+def timed_once(fn):
+    """One call of ``fn`` between CUDA events: (its result, ms).  For the
+    plain faces, whose one call takes tens to hundreds of ms."""
+    import torch
+
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    e0.record()
+    out = fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return out, e0.elapsed_time(e1)
+
+
+def residency_packed_times(diff: Diff, device, bw: float, label: str, shape: dict) -> dict:
+    """The packed dispatch of replica 0 at N in RES_PACKED_N: the face (one
+    launch, ``gp_step`` at N = 1, ``gp_step_n`` above; N = 1 also through
+    ``gp_step_n``) bit for bit against its plain face, then timed on the
+    device (a CUDA graph of dispatches) beside the N-launch design it
+    replaces, the plain face (its one call), the work's bound (the state
+    once) and the N-launch design's own bound (N replica-steps)."""
+    import torch
+
+    from gigapaxos_tpu_torch.ops import engine as te
+    from gigapaxos_tpu_torch.ops import gp_kernels
+    from gigapaxos_tpu_torch.parallel.spmd import make_step
+
+    G, W, K, R = (shape[k] for k in ("G", "W", "K", "R"))
+    cfg = te.EngineConfig(G, W, K, R)
+    # a dispatch of milliseconds needs fewer in its graph
+    gms = (lambda fn: graph_ms(fn, calls=5, reps=4)) if G * W > 2 ** 22 else graph_ms
+    states, req = warm_states(cfg, device)
+    st = te.EngineState(*(x[0].contiguous() for x in states))
+    gvec = gp_kernels.make_blob_rows(states, R)
+    del states
+    heard = torch.ones(R, dtype=torch.bool, device=device)
+    want = torch.zeros(G, dtype=torch.bool, device=device)
+    heat = torch.zeros(G, dtype=torch.int32, device=device)
+    out_st = te.EngineState(*(torch.empty_like(x) for x in st))
+    M, NB = te.out_vec_len(cfg), te.blob_vec_len(cfg)
+    blob = torch.empty(NB, dtype=torch.int32, device=device)
+    g_work = torch.empty_like(gvec)
+    res = {}
+    for N in RES_PACKED_N:
+        ring = req[0][None].expand(N, G, K).contiguous()
+        fn = make_step(cfg, None, N, donate=False, io="packed_host", heat=True,
+                       device=device)
+        p, plain_ms = timed_once(lambda: fn.plain(st, gvec, heard, ring, want, 0, heat))
+        tag = f"residency.{label}.N{N}"
+        checks = [("gp_step_n" if N > 1 else "gp_step",
+                   fn(st, gvec, heard, ring, want, 0, heat))]
+        if N == 1:
+            checks.append(("gp_step_n", gp_kernels.step_n(
+                st, gvec, heard, ring, want, 0, cfg, heat=heat)))
+        for name, k in checks:
+            diff.tree(name, f"{tag}.{name}.state", k[0], p[0])
+            for j, what in ((1, "rings"), (2, "blob"), (3, "heat")):
+                diff.eq(name, f"{tag}.{name}.{what}", k[j], p[j])
+        del p, checks, k
+        # the timed launches accumulate into the heat in place
+        rings = torch.empty((N, M), dtype=torch.int32, device=device)
+        one = lambda: gp_kernels.step_n(
+            st, gvec, heard, ring, want, 0, cfg, out_state=out_st, heat=heat,
+            heat_out=heat, out_rings=rings, out_blob=blob)
+        ms = gms(one)
+        r = {"ms": ms, "ms_events": cuda_ms(one, 10), "plain_ms": plain_ms,
+             "bound_ms": packed_bytes(G, W, K, R, N) / bw * 1e3,
+             "n_launch_bound_ms": N * step_bytes(G, W, K, R) / bw * 1e3}
+        if N == 1:
+            r["ms_gp_step"] = gms(lambda: gp_kernels.step(
+                st, gvec, heard, ring[0], want, 0, cfg, with_blob=True,
+                out_state=out_st, heat=heat, heat_out=heat, out_vec=rings[0],
+                out_blob=blob))
+        else:
+            r["ms_n_launches"] = gms(lambda: packed_n_launches(
+                st, gvec, heard, ring, want, 0, cfg, heat, heat, rings, g_work))
+        r["plan"] = gp_kernels.step_launch_plan(cfg, n_sub=N)
+        r["share"] = r["bound_ms"] / ms
+        res[N] = r
+        log(f"residency {label} (G={G}, W={W}, K={K}, R={R}) packed N={N}: bit-equal "
+            f"to the plain face; one launch "
+            f"{ms:.6g} ms on the device ({r['ms_events']:.6g} by events), "
+            f"{100 * r['share']:.4g}% of the {r['bound_ms']:.6g} ms bound (the state "
+            f"once; N launches' own bound {r['n_launch_bound_ms']:.6g} ms); "
+            + (f"gp_step {r['ms_gp_step']:.6g} ms" if N == 1 else
+               f"N gp_step launches {r['ms_n_launches']:.6g} ms")
+            + f"; plain {r['plain_ms']:.6g} ms; plan {plan_str(r['plan'])}")
+        del ring, rings
+    del st, gvec, out_st, g_work
+    torch.cuda.empty_cache()
+    return {"shape": shape, "by_n": res}
+
+
+def stacked_n_launches(states, ring, want, h, cfg, mat, blobs, blobs_next):
+    """The stacked dispatch as a gp_make_blob and N stacked gp_step launches
+    through a double-buffered blob matrix: the stacked face's route for N =
+    1 and R above the cluster size, timed beside one gp_step_cluster."""
+    import torch
+
+    from gigapaxos_tpu_torch.ops import gp_kernels
+
+    N = ring.shape[0]
+    no_want = torch.zeros_like(want)
+    gp_kernels.make_blob_rows(states, cfg.n_replicas, out=blobs)
+    st = states
+    for i in range(N):
+        st, _, _ = gp_kernels.step_stacked(
+            st, blobs, h, ring[i], want if i == 0 else no_want, cfg, out_mat=mat[i],
+            out_blobs=blobs_next if i < N - 1 else None)
+        blobs, blobs_next = blobs_next, blobs
+    return st
+
+
+def residency_stacked_times(diff: Diff, device, bw: float, label: str, shape: dict,
+                            ns) -> dict:
+    """The stacked dispatch at ``shape`` for N in ``ns``: N = 1 (the face: a
+    gp_make_blob and a stacked gp_step), N > 1 (one gp_step_cluster
+    launch) bit for bit against the plain face, then timed on the device
+    (a CUDA graph of dispatches) beside the plain face (its one call), the
+    work's bound and, at N > 1, the N-launch route it replaces."""
+    import torch
+
+    from gigapaxos_tpu_torch.ops import engine as te
+    from gigapaxos_tpu_torch.ops import gp_kernels
+    from gigapaxos_tpu_torch.parallel.spmd import make_step
+
+    G, W, K, R = (shape[k] for k in ("G", "W", "K", "R"))
+    cfg = te.EngineConfig(G, W, K, R)
+    states, req = warm_states(cfg, device)
+    want = torch.zeros((R, G), dtype=torch.bool, device=device)
+    h = torch.ones((R, R), dtype=torch.bool, device=device)
+    res = {}
+    for N in ns:
+        ring = req[None].expand(N, R, G, K).contiguous()
+        face = make_step(cfg, None, N, donate=False, io="stacked", device=device)
+        arg = ring if N > 1 else ring[0]
+        name = "gp_step_cluster" if face.route == "cluster" else "gp_step"
+        p, plain_ms = timed_once(lambda: face.plain(states, arg, want, h))
+        k = face(states, arg, want, h)
+        diff.tree(name, f"residency.{label}.N{N}.state", k[0], p[0])
+        diff.tree(name, f"residency.{label}.N{N}.out", k[1], p[1])
+        del k, p
+        r = {"route": face.route, "plain_ms": plain_ms,
+             "bound_ms": (cluster_bytes(G, W, K, R, N) if N > 1 else
+                          R * stacked_step_bytes(G, W, K, R) + blob_bytes(G, W) * R)
+             / bw * 1e3}
+        if N > 1:
+            out_st = te.EngineState(*(torch.empty_like(x) for x in states))
+            mat = torch.empty((N, R, te.out_vec_len(cfg)), dtype=torch.int32,
+                              device=device)
+            r["ms"] = graph_ms(lambda: gp_kernels.step_cluster(
+                states, h, ring, want, cfg, out_states=out_st, out_mat=mat),
+                calls=5, reps=4)
+            r["plan"] = gp_kernels.step_launch_plan(cfg, n_sub=N, cluster=True)
+            blobs = torch.empty((2, R, te.blob_vec_len(cfg)), dtype=torch.int32,
+                                device=device)
+            r["ms_n_launches"] = graph_ms(lambda: stacked_n_launches(
+                states, ring, want, h, cfg, mat, blobs[0], blobs[1]), calls=5, reps=4)
+            r["n_launch_bound_ms"] = (N * R * stacked_step_bytes(G, W, K, R)
+                                      + R * blob_bytes(G, W)) / bw * 1e3
+            del out_st, mat, blobs
+        else:
+            r["ms"] = graph_ms(lambda: face(states, arg, want, h), calls=5, reps=4)
+            r["plan"] = gp_kernels.step_launch_plan(cfg, stacked=True)
+        r["share"] = r["bound_ms"] / r["ms"]
+        res[N] = r
+        log(f"residency {label} (G={G}, W={W}, K={K}, R={R}) stacked N={N} "
+            f"({face.route}): bit-equal to the plain face; {r['ms']:.6g} ms a dispatch "
+            f"on the device, {100 * r['share']:.4g}% of the {r['bound_ms']:.6g} ms bound"
+            + (f"; N launches {r['ms_n_launches']:.6g} ms (their own bound "
+               f"{r['n_launch_bound_ms']:.6g} ms)" if N > 1 else "")
+            + f"; plain {r['plain_ms']:.6g} ms; plan {plan_str(r['plan'])}")
+        del ring
+    del states
+    torch.cuda.empty_cache()
+    return {"shape": shape, "by_n": res}
+
+
+def residency_server(device) -> dict:
+    """Phase 6's servers through their entry points with the deployed
+    residency knob ENGINE_STEPS_PER_DISPATCH=8: every response correct,
+    and each manager's dispatches one gp_step_n launch each (no gp_step)."""
+    from gigapaxos_tpu_torch.utils.config import Config
+
+    Config.set("ENGINE_STEPS_PER_DISPATCH", str(RES_SERVER_N))
+    try:
+        res = phase_server(device, RES_SERVER_NAMES, RES_SERVER_REQS_PER_NAME,
+                           RES_SERVER_HIBERNATE, RES_SERVER_POST_REQS_PER_NAME,
+                           label=f"residency server N={RES_SERVER_N}")
+    finally:
+        # the default (paxos_config.py) for every later phase
+        Config.set("ENGINE_STEPS_PER_DISPATCH", "1")
+    if res["steps_per_dispatch"] != RES_SERVER_N:
+        fail(f"residency server: the managers ran N={res['steps_per_dispatch']}")
+    before, after = res["ticks_around_launches"]
+    for i, m in enumerate(res["per_manager_launches"]):
+        n = m.get("gp_step_n", 0)
+        if m.get("gp_step", 0) != 0 or not before[i] <= n <= after[i] + 1:
+            fail(f"residency server: manager {i} launched {m} over {before[i]}-"
+                 f"{after[i]} ticks: not one gp_step_n a dispatch")
+    log(f"residency server N={RES_SERVER_N}: each manager one gp_step_n a dispatch "
+        f"(ticks {after}), no gp_step: {res['per_manager_launches']}")
+    return res
+
+
+def phase_residency(diff: Diff, device, bw: float) -> dict:
+    """Phase 3b: the N-substep dispatch on the card (module docstring)."""
+    t0 = time.perf_counter()
+    out = {"parity": residency_parity(diff, device)}
+    out["server_shape"] = residency_packed_times(diff, device, bw, "server", SERVER)
+    out["headline_shape"] = residency_packed_times(diff, device, bw, "headline", HEADLINE)
+    for label, shape, ns in RES_STACKED:
+        out[f"{label}_stacked"] = residency_stacked_times(diff, device, bw, label, shape, ns)
+    out["server"] = residency_server(device)
+    out["launches"] = out["server"]["launches"]
+    out["seconds"] = time.perf_counter() - t0
+    log(f"residency: phase {out['seconds']:.1f} s")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1944,7 +2448,17 @@ def tick_stages_ms(before: dict, after: dict) -> dict:
             for k in sorted(after) if k.startswith("t_")}
 
 
-def phase_server(device) -> dict:
+def phase_server(device, n_names: int = SERVER_NAMES,
+                 reqs_per_name: int = SERVER_REQS_PER_NAME,
+                 n_hibernate: int = SERVER_HIBERNATE,
+                 post_reqs_per_name: int = SERVER_POST_REQS_PER_NAME,
+                 label: str = "server") -> dict:
+    """3 PaxosServers in this process on the card at the server shape:
+    ``n_names`` names, ``reqs_per_name`` requests each (every response the
+    expected running total), ``n_hibernate`` names hibernated and restored
+    on every server by the admin plane, then ``post_reqs_per_name`` more
+    requests each.  The servers take the engine settings in effect (phase
+    3b runs it at ENGINE_STEPS_PER_DISPATCH=8)."""
     import numpy as np
 
     from gigapaxos_tpu_torch.clients import PaxosClientAsync
@@ -1971,11 +2485,11 @@ def phase_server(device) -> dict:
             s.start()
         t_started = time.perf_counter()
         client = PaxosClientAsync([("127.0.0.1", p) for p in ports])
-        names = [f"svc{i}" for i in range(SERVER_NAMES)]
+        names = [f"svc{i}" for i in range(n_names)]
         t_create = time.perf_counter()
         for nm in names:
             if not client.create_paxos_instance(nm, list(range(R)), timeout=60):
-                fail(f"server: create {nm} failed")
+                fail(f"{label}: create {nm} failed")
         t_create = time.perf_counter() - t_create
         lat, errors = [], []
         lock = threading.Lock()
@@ -2007,7 +2521,7 @@ def phase_server(device) -> dict:
                 th.join()
             wall = time.perf_counter() - t0
             if errors:
-                fail(f"server: {len(errors)} wrong responses, first {errors[0]}; "
+                fail(f"{label}: {len(errors)} wrong responses, first {errors[0]}; "
                      f"{server_diag(servers)}")
             return wall
 
@@ -2022,7 +2536,7 @@ def phase_server(device) -> dict:
                    for nm in names
                    if any(s.manager.app.totals.get(nm) != expected[nm]
                           for s in servers)}
-            fail(f"server: {what}: replicas' app totals disagree with the "
+            fail(f"{label}: {what}: replicas' app totals disagree with the "
                  f"responses: {dict(list(bad.items())[:4])} expected "
                  f"{ {nm: expected[nm] for nm in list(bad)[:4]} }; "
                  f"{server_diag(servers)}")
@@ -2031,7 +2545,7 @@ def phase_server(device) -> dict:
         # alone, as phase 10 counts them
         ticks0 = [s._tick for s in servers]
         prof0 = DelayProfiler.get_snapshot()["counts"]
-        wall = run_chains(SERVER_REQS_PER_NAME, 0)
+        wall = run_chains(reqs_per_name, 0)
         ticks_per_s = [(s._tick - t) / wall for s, t in zip(servers, ticks0)]
         stages = tick_stages_ms(prof0, DelayProfiler.get_snapshot()["counts"])
         converge("after the first requests")
@@ -2043,27 +2557,33 @@ def phase_server(device) -> dict:
         t_hib = time.perf_counter()
         for op in ("hibernate", "restore"):
             for i in range(R):
-                for nm in names[:SERVER_HIBERNATE]:
+                for nm in names[:n_hibernate]:
                     r = client.admin_sync(i, {"op": op, "name": nm}, timeout=60)
                     if not r or not r.get("ok"):
-                        fail(f"server: admin {op} {nm} on server {i}: {r}")
+                        fail(f"{label}: admin {op} {nm} on server {i}: {r}")
         for i, s in enumerate(servers):
-            for nm in names[:SERVER_HIBERNATE]:
+            for nm in names[:n_hibernate]:
                 if s.manager.app.totals.get(nm) != expected[nm]:
-                    fail(f"server: {nm} restored on server {i} with total "
+                    fail(f"{label}: {nm} restored on server {i} with total "
                          f"{s.manager.app.totals.get(nm)}, expected {expected[nm]}")
         t_hib = time.perf_counter() - t_hib
         lat.clear()
-        wall_post = run_chains(SERVER_POST_REQS_PER_NAME, 1000)
+        wall_post = run_chains(post_reqs_per_name, 1000)
         converge("after hibernate and restore")
         n_post = len(lat)
+        # every tick is one dispatch: the ticks read around the launch
+        # counts bound each manager's dispatches (one may be in flight)
+        ticks_before = [s._tick for s in servers]
         per_mgr = [dict(s.manager.kernel_launches) for s in servers]
-        if any(m.get("gp_step", 0) <= 0 for m in per_mgr):
-            fail(f"server: a manager never launched gp_step: {per_mgr}")
+        ticks_after = [s._tick for s in servers]
+        # the dispatch's one launch: gp_step, or gp_step_n at N > 1
+        kname = "gp_step" if servers[0].manager.steps_per_dispatch == 1 else "gp_step_n"
+        if any(m.get(kname, 0) <= 0 for m in per_mgr):
+            fail(f"{label}: a manager never launched {kname}: {per_mgr}")
         launches = dict(te.LAUNCHES)
         for k in ("gp_create_groups", "gp_kill_groups", "gp_restore_paused_rows"):
             if launches[k] <= 0:
-                fail(f"server: {k} never launched: {launches}")
+                fail(f"{label}: {k} never launched: {launches}")
         ticks_phase = [s._tick / (time.perf_counter() - t_started) for s in servers]
         res = {
             "requests": n, "names": len(names), "seconds": wall,
@@ -2072,16 +2592,18 @@ def phase_server(device) -> dict:
             "p50_ms": float(np.percentile(lat_ms, 50)),
             "p99_ms": float(np.percentile(lat_ms, 99)),
             "create_seconds": t_create,
-            "hibernated": SERVER_HIBERNATE, "hibernate_restore_seconds": t_hib,
+            "hibernated": n_hibernate, "hibernate_restore_seconds": t_hib,
             "post_restore_requests": n_post, "post_restore_seconds": wall_post,
             "launches": launches, "per_manager_launches": per_mgr,
+            "ticks_around_launches": [ticks_before, ticks_after],
+            "steps_per_dispatch": servers[0].manager.steps_per_dispatch,
             "shape": SERVER,
         }
-        log(f"server: {server_diag(servers)}")
-        log(f"server: {n} requests over {len(names)} names answered "
+        log(f"{label}: {server_diag(servers)}")
+        log(f"{label}: {n} requests over {len(names)} names answered "
             f"correctly in {wall:.4f} s: {res['req_per_s']:.6g} req/s, "
             f"p50 {res['p50_ms']:.6g} ms, p99 {res['p99_ms']:.6g} ms; "
-            f"{SERVER_HIBERNATE} names hibernated and restored on all "
+            f"{n_hibernate} names hibernated and restored on all "
             f"{R} servers in {t_hib:.4f} s, then {n_post} more requests "
             f"correct in {wall_post:.4f} s; ticks/s per server over the first "
             f"requests {[round(t, 4) for t in ticks_per_s]} (over the phase "
@@ -2129,7 +2651,7 @@ def phase_step_shapes(diff: Diff, device, bw: float) -> dict:
         cases = {
             "loaded": [te.EngineState(*(x[r].contiguous() for x in states))
                        for r in range(R)],
-            "fuzzed": seeded_states(cfg, 301 + 10 * si, device),
+            "fuzzed": make_seeded_states(cfg, 301 + 10 * si, device),
         }
         for donate in (True, False):
             dispatch = make_step(cfg, None, 1, donate=donate, io="packed_host",
@@ -2846,6 +3368,21 @@ def phase_chaos(device) -> dict:
     replayed = ("result", "cluster_steps", "manager_ticks", "scripted_s")
     launches = {k: 0 for k in te.LAUNCHES}
     out = {}
+    # the multistep seed's CPU run (host work only) goes on beside the
+    # card's soaks, and is read after them
+    ms = CHAOS_MULTISTEP
+    ms_kw = dict(rounds=ms["rounds"],
+                 config={"ENGINE_STEPS_PER_DISPATCH": ms["steps_per_dispatch"]})
+    ms_cpu: dict = {}
+
+    def cpu_multistep():
+        try:
+            ms_cpu["out"] = run_in_child("soak", ms["seed"], "cpu", **ms_kw)
+        except RuntimeError as e:
+            ms_cpu["error"] = e
+
+    cpu_thread = threading.Thread(target=cpu_multistep, daemon=True)
+    cpu_thread.start()
     for family, seed in (("soak", CHAOS_SEED), ("density_soak", CHAOS_DENSITY_SEED)):
         try:
             card = run_in_child(family, seed, device.type)
@@ -2866,6 +3403,36 @@ def phase_chaos(device) -> dict:
         log(f"chaos: run_{family} on the card on the scripted clock: "
             f"{out[family]}; the CPU's run equal")
 
+    # the multistep pinned seed at ENGINE_STEPS_PER_DISPATCH=4: every
+    # dispatch of its managers one gp_step_n launch, under its faults
+    try:
+        card = run_in_child("soak", ms["seed"], device.type, **ms_kw)
+    except RuntimeError as e:
+        fail(f"chaos: scripted multistep soak failed: {str(e)[-3000:]}")
+    cpu_thread.join()
+    if "error" in ms_cpu:
+        fail(f"chaos: scripted multistep soak on the CPU failed: "
+             f"{str(ms_cpu['error'])[-3000:]}")
+    cpu = ms_cpu["out"]
+    if {k: card[k] for k in replayed} != {k: cpu[k] for k in replayed}:
+        fail(f"chaos: scripted multistep soak on the card {[card[k] for k in replayed]} "
+             f"differs from the CPU's {[cpu[k] for k in replayed]}")
+    if card["launches"]["gp_step_n"] <= 0 or card["launches"]["gp_step"] != 0:
+        fail(f"chaos: the multistep soak's dispatches were not one gp_step_n "
+             f"launch each: {card['launches']}")
+    for k, v in card["launches"].items():
+        launches[k] += v
+    out["soak_multistep"] = {**card["result"], "clock": "scripted",
+                             "steps_per_dispatch": ms["steps_per_dispatch"],
+                             "rounds": ms["rounds"],
+                             "cluster_steps": card["cluster_steps"],
+                             "manager_ticks": card["manager_ticks"],
+                             "scripted_s": card["scripted_s"], "seconds": card["seconds"],
+                             "cpu_seconds": cpu["seconds"], "launches": card["launches"]}
+    log(f"chaos: run_soak({ms['seed']}, rounds={ms['rounds']}) at "
+        f"ENGINE_STEPS_PER_DISPATCH={ms['steps_per_dispatch']} on the card on the "
+        f"scripted clock: {out['soak_multistep']}; the CPU's run equal")
+
     te.reset_launch_counts()
     t0 = time.perf_counter()
     with count_steps() as counts:
@@ -2878,8 +3445,8 @@ def phase_chaos(device) -> dict:
     log(f"chaos: run_sharded_soak on the card: {out['sharded_soak']}")
     for k, v in te.LAUNCHES.items():
         launches[k] += v
-    for k in ("gp_step", "gp_make_blob", "gp_create_groups", "gp_kill_groups",
-              "gp_restore_paused_rows", "gp_pack_rows"):
+    for k in ("gp_step", "gp_step_n", "gp_make_blob", "gp_create_groups",
+              "gp_kill_groups", "gp_restore_paused_rows", "gp_pack_rows"):
         if launches[k] <= 0:
             fail(f"chaos: {k} never launched: {launches}")
     out["launches"] = launches
@@ -3504,9 +4071,9 @@ def mesh_packed(diff: Diff, device, bw: float, meshes: dict) -> dict:
     unheard), a request ring and an election pulse, heat on.  Each mesh
     face bit-equal to the one-device packed face (which phase 3's step
     shapes hold against the plain version at the server shape) and, where
-    asked, to its own plain version; each logical device's launches (N
-    ``gp_step`` a dispatch, counted from 0 before a dispatch of the mesh
-    face); ms per dispatch beside the one-device face's; the slicing of
+    asked, to its own plain version; each logical device's launches (one
+    ``gp_step``, at N > 1 one ``gp_step_n``, a dispatch, counted from 0
+    before a dispatch of the mesh face); ms per dispatch beside the one-device face's; the slicing of
     the gathered matrix and the reassembly of ``out_rings`` and
     ``blob_vec`` timed against their bound (bytes read and written at
     the card's memory rate)."""
@@ -3556,20 +4123,22 @@ def mesh_packed(diff: Diff, device, bw: float, meshes: dict) -> dict:
                 torch.cuda.synchronize()
                 launches = dict(te.LAUNCHES)
                 per = {str(list(i)): dict(v) for i, v in fn.launches.items()}
-                if any(v != {"gp_step": N} for v in fn.launches.values()):
-                    fail(f"{tag}: per-device launches {per}, expected {N} gp_step each")
-                mesh_held(diff, "gp_step", tag + ".state", k[0], ref[0])
-                diff.eq("gp_step", tag + ".out_rings", k[1], ref[1])
-                diff.eq("gp_step", tag + ".blob_vec", k[2], ref[2])
+                # one launch a dispatch on every device (gp_step_n at N > 1)
+                kname = "gp_step" if N == 1 else "gp_step_n"
+                if any(v != {kname: 1} for v in fn.launches.values()):
+                    fail(f"{tag}: per-device launches {per}, expected one {kname} each")
+                mesh_held(diff, kname, tag + ".state", k[0], ref[0])
+                diff.eq(kname, tag + ".out_rings", k[1], ref[1])
+                diff.eq(kname, tag + ".blob_vec", k[2], ref[2])
                 for idx, a, b in mesh_views(k[3], ref[3]):
-                    diff.eq("gp_step", f"{tag}.heat{list(idx)}", a, b)
+                    diff.eq(kname, f"{tag}.heat{list(idx)}", a, b)
                 if with_plain:
                     p = fn.plain(my, gvec, heard, ring, want, my_id, heat)
-                    mesh_same(diff, "gp_step", tag + ".plain.state", k[0], p[0])
+                    mesh_same(diff, kname, tag + ".plain.state", k[0], p[0])
                     for j, what in ((1, "out_rings"), (2, "blob_vec")):
-                        diff.eq("gp_step", f"{tag}.plain.{what}", k[j], p[j])
+                        diff.eq(kname, f"{tag}.plain.{what}", k[j], p[j])
                     for idx in np.ndindex(*mesh.devices.shape):
-                        diff.eq("gp_step", f"{tag}.plain.heat{list(idx)}",
+                        diff.eq(kname, f"{tag}.plain.heat{list(idx)}",
                                 k[3].shards[idx], p[3].shards[idx])
                     del p
                 # a dispatch fed the sharded state and heat of the last one,
@@ -3968,9 +4537,11 @@ def phase_ops(device, t_start: float, results: str) -> dict:
             f"p50, p99 ms, sustained) {att['curve']}; phases {att['phases']}")
         # round 0 must be answered at the reference's response rate; its
         # mean latency against the reference's 1 s bar is recorded, not
-        # gated: at these rows it is tick-bound (772-934 ms on an H100
-        # 80GB HBM3 at 700 W), so a latency gate would refuse a correct
-        # run on a slower host, as the wall clock did phase 12
+        # gated: at these rows it is tick-bound (308-668 ms on an H100
+        # 80GB HBM3 at 700 W once the tick stopped copying its 18 MB blob
+        # frames on the host; 687-1,769 ms before), so a latency gate
+        # would refuse a correct run on a slower host, as the wall clock
+        # did phase 12
         r0 = att["rounds"][0] if att["rounds"] else None
         if r0 is None or r0["response_rate"] < OPS_ANSWERED:
             fail(f"ops: round 0 of the attached ramp not answered: {att['curve']}")
@@ -4100,10 +4671,79 @@ def phase_baseline(device, results: str) -> dict:
     return {"fresh_check": fc, "sources": doc["sources"], "headline": heads}
 
 
+def residency_kernels(diff: Diff, res: dict, abl: dict, chs: dict, on_paths) -> list:
+    """The kernels line's entries of gp_step's N-substep modes (phase 3b):
+    ``res`` phase 3b's result, ``abl`` the bench ablation's (the stacked
+    N=8 arm launches gp_step_cluster), ``chs`` phase 12's."""
+    nkeys = ("ms", "ms_events", "bound_ms", "n_launch_bound_ms", "share", "plain_ms",
+             "ms_gp_step", "ms_n_launches", "route", "plan")
+    by_n = lambda r: {n: {k: v[k] for k in nkeys if k in v} for n, v in r["by_n"].items()}
+    srv8 = res["server_shape"]["by_n"][8]
+    abl8 = res["ablation_stacked"]["by_n"][8]
+    return [
+        {
+            "name": "gp_step_n", "route": "cuda",
+            "source": "gigapaxos_tpu_torch/csrc/gp_step.cu",
+            "replaces": "gigapaxos_tpu/parallel/spmd.py:257",
+            "launches": res["launches"]["gp_step_n"], "launches_from": "residency",
+            "launches_by_path": on_paths("gp_step_n"),
+            "max_abs_err": diff.max_abs["gp_step_n"],
+            "ms": srv8["ms"], "plain_ms": srv8["plain_ms"], "bound_ms": srv8["bound_ms"],
+            "bound_by": "bytes", "library_ms": None, "ms_events": srv8["ms_events"],
+            "share": srv8["share"], "ms_n_launches": srv8["ms_n_launches"],
+            "n_launch_bound_ms": srv8["n_launch_bound_ms"], "plan": srv8["plan"],
+            "shape": dict(SERVER, N=8), "comparisons": diff.checked["gp_step_n"],
+            "server_shape": by_n(res["server_shape"]),
+            "headline_shape": by_n(res["headline_shape"]),
+            "server_window": {k: res["server"][k] for k in (
+                "req_per_s", "p50_ms", "p99_ms", "tick_stages_ms", "per_manager_launches",
+                "requests", "post_restore_requests", "steps_per_dispatch")},
+            "chaos_multistep_launches": chs["soak_multistep"]["launches"]["gp_step_n"],
+        },
+        {
+            "name": "gp_step_cluster", "route": "cuda",
+            "source": "gigapaxos_tpu_torch/csrc/gp_step.cu",
+            "replaces": "gigapaxos_tpu/parallel/spmd.py:181",
+            "launches": abl["launches"]["gp_step_cluster"], "launches_from": "bench",
+            "launches_by_path": on_paths("gp_step_cluster"),
+            "max_abs_err": diff.max_abs["gp_step_cluster"],
+            "ms": abl8["ms"], "plain_ms": abl8["plain_ms"], "bound_ms": abl8["bound_ms"],
+            "bound_by": "bytes", "library_ms": None, "share": abl8["share"],
+            "ms_n_launches": abl8["ms_n_launches"],
+            "n_launch_bound_ms": abl8["n_launch_bound_ms"], "plan": abl8["plan"],
+            "shape": dict(ABLATION, N=8), "comparisons": diff.checked["gp_step_cluster"],
+            "ablation_shape": by_n(res["ablation_stacked"]),
+            "server_shape": by_n(res["server_stacked"]),
+        },
+    ]
+
+
+def residency_summary(res: dict, chs: dict, smi_line: str) -> str:
+    """The report's summary line of phase 3b (and phase 12's multistep
+    seed)."""
+    pk = {lbl: {n: round(v["ms"], 6) for n, v in res[f"{lbl}_shape"]["by_n"].items()}
+          for lbl in ("server", "headline")}
+    nl = {lbl: {n: round(v["ms_n_launches"], 6) for n, v in res[f"{lbl}_shape"]["by_n"].items()
+                if "ms_n_launches" in v} for lbl in ("server", "headline")}
+    ab8 = res["ablation_stacked"]["by_n"][8]
+    sv8 = res["server_stacked"]["by_n"][8]
+    rsrv = res["server"]
+    return (f"summary: residency: packed dispatch ms by N, one launch {pk}, N launches "
+            f"{nl}; stacked N=8 at G={ABLATION['G']} one gp_step_cluster {ab8['ms']:.6g} "
+            f"ms vs N launches {ab8['ms_n_launches']:.6g} ms (bound {ab8['bound_ms']:.6g} "
+            f"ms), at G={SERVER['G']}, W={SERVER['W']} {sv8['ms']:.6g} ms vs "
+            f"{sv8['ms_n_launches']:.6g} ms; servers at ENGINE_STEPS_PER_DISPATCH={RES_SERVER_N}: "
+            f"{rsrv['req_per_s']:.6g} req/s p50 {rsrv['p50_ms']:.6g} ms p99 "
+            f"{rsrv['p99_ms']:.6g} ms, ms per tick {rsrv['tick_stages_ms']}; chaos "
+            f"multistep seed {CHAOS_MULTISTEP['seed']} "
+            f"{chs['soak_multistep']['seconds']:.4g} s; phase {res['seconds']:.1f} s; "
+            f"on {smi_line}")
+
+
 def kernels_line(diff: Diff, head: dict, step_t: dict, life: dict, dens: dict,
                  xfer: dict, srv: dict, pack: dict, rcs: dict, rcn: dict,
                  shd: dict, txn: dict, ledger: dict, chs: dict, rec: dict,
-                 heal: dict, mesh: dict, ops: dict) -> list:
+                 heal: dict, mesh: dict, ops: dict, res: dict) -> list:
     """The kernels line's entries, from the phases' results."""
     srv_t, den_t = step_t["server"], step_t["density"]
     cap, abl = head["capacity"], head["ablation"]
@@ -4131,7 +4771,8 @@ def kernels_line(diff: Diff, head: dict, step_t: dict, life: dict, dens: dict,
                 "chaos": chs["launches"],
                 "recovery": rec["launches"], "heal": heal["launches"],
                 "bench": bench_l, "mesh": mesh_l,
-                "probe": ops["probe"]["launches"], "ops": ops["launches"]}
+                "probe": ops["probe"]["launches"], "ops": ops["launches"],
+                "residency": res["launches"]}
     on_paths = lambda name: {p: per_path[p].get(name, 0) for p in per_path}
     at_shape = lambda t, *keys: {k: t[k] for k in ("shape",) + keys}
     kernels = [
@@ -4221,6 +4862,7 @@ def kernels_line(diff: Diff, head: dict, step_t: dict, life: dict, dens: dict,
             "checked_shapes": {k: step_t[k]["shape"] for k in step_t},
         },
     ]
+    kernels += residency_kernels(diff, res, abl, chs, on_paths)
     for name, _fn, ref, path in LIFE_KERNELS:
         t_srv, t_head = life[name]["server"], life[name]["headline"]
         kernels.append({
@@ -4326,6 +4968,7 @@ def main() -> int:
         ("lifecycle", lambda: phase_lifecycle(diff, device, bw)),
         ("pack_rows", lambda: phase_pack_rows(diff, device, bw)),
         ("headline", lambda: phase_headline(diff, device, bw, results)),
+        ("residency", lambda: phase_residency(diff, device, bw)),
         ("step_shapes", lambda: phase_step_shapes(diff, device, bw)),
         ("density", lambda: phase_density(device)),
         ("state_transfer", lambda: phase_state_transfer(device)),
@@ -4370,7 +5013,8 @@ def main() -> int:
                            out["density"], out["state_transfer"], out["server"],
                            out["pack_rows"], out["rc_stepped"], out["reconfiguration"],
                            out["sharded"], out["txn"], out["ledger"], out["chaos"],
-                           out["recovery"], out["heal"], out["mesh"], out["ops"])
+                           out["recovery"], out["heal"], out["mesh"], out["ops"],
+                           out["residency"])
     for k in kernels:
         if k["launches"] <= 0:
             fail(f"{k['name']}: no launch on the "
@@ -4440,6 +5084,7 @@ def main() -> int:
         f"rows {ops['attach']['capacity_rps']} req/s, probe at its defaults "
         f"{ops['probe']['capacity_rps']} req/s, in-process {inproc or 'left out'}; "
         f"trace hops, mean ms {hops}; on {smi_line}")
+    log(residency_summary(out["residency"], chs, smi_line))
     mesh = out["mesh"]
     log(f"summary: mesh faces at G={MESH['G']} on one card (logical devices; no "
         f"multi-card speed): dec/s "

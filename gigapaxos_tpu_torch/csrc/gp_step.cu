@@ -12,6 +12,13 @@
 //     Blob._fields order == the D wire-frame body);
 //   * the heat accumulator of gigapaxos_tpu/parallel/spmd.py:_build_packed
 //     (optional pointer: heat += n_committed + n_admitted).
+//   * the N-substep dispatch of gigapaxos_tpu/parallel/spmd.py:_build_packed
+//     (the packed face's lax.fori_loop: N rounds with the state resident,
+//     MY gathered row refreshed from the advancing state, peers' rows
+//     frozen, want at substep 0 only) as ONE launch (n_sub = N);
+//   * the N-substep loop of gigapaxos_tpu/parallel/spmd.py:_build_stacked
+//     (every replica advancing, the blob exchange re-read each substep) as
+//     ONE launch over clusters of R CTAs (cluster = 1), R <= 8.
 // gp_make_blob_kernel is make_blob + pack_blob alone (initial blob, the
 // manager's publish snapshot, the stacked face's first exchange).
 //
@@ -66,6 +73,39 @@
 //     convention) runs the exact W-round loop.  Admission is exact in O(1):
 //     lane j can only take request k = (j - c_next) mod W, so each lane
 //     tests its own k and two ballots give the admitted prefix.
+//   * N substeps in one launch (n_sub > 1).  N launches would read and
+//     write the whole state N times; the work needs it once.  A tile's
+//     stage holds its state, its R gathered rows, the heat and all N
+//     request tiles [N][T][K] (the requests are a few percent of a tile's
+//     bytes, and the ring brings the next tile's stage, requests and all,
+//     while this one runs its N substeps).  After each substep but the
+//     last the CTA writes the new state back into the stage (not to
+//     device memory), stores that substep's out-ring row, adds the
+//     substep's decisions and admissions into the staged heat, and
+//     replaces MY gathered row in the stage by the blob of the new state;
+//     peers' rows stay as loaded.  The last substep writes state', blob
+//     and heat to device memory once.  Two barriers a substep: every lane
+//     has read the stage before any lane overwrites it (lanes past a
+//     tile's last group read that group), and the stage is whole again
+//     before the next substep reads it.
+//   * The stacked face's N substeps as one launch (cluster = 1): a cluster
+//     of R CTAs per tile, CTA rank r holding replica r's state in its
+//     stage for the whole dispatch, so the state leaves and enters device
+//     memory once, and the [R, NB] blob matrix never exists in device
+//     memory.  Each CTA holds two exchange buffers of R blob rows.  At an
+//     item's start from the loaded state, and after each substep but the
+//     last from the new one, every thread stores its (group, lane)'s blob
+//     words into row r of one buffer in all R CTAs of the cluster
+//     (distributed shared memory stores, which do not wait for a reply);
+//     one cluster barrier (arrive after the stores, wait before the next
+//     substep) makes them visible, and each CTA steps reading the rows
+//     from its own shared memory, with its row of heard.  The barrier also
+//     orders the CTA's own threads, so a substep takes one cluster barrier
+//     and one CTA barrier.  Double buffering keeps it to one cluster
+//     barrier a substep: a CTA stores into the other buffer of its peers
+//     while they may still read this one.  A cluster holds at most 8 CTAs
+//     (the portable size), so R <= 8; the wrapper keeps N launches for
+//     larger R.
 // State is written out of place: the kernel never writes a buffer it reads.
 // The kernel allocates nothing and launches on the caller's stream.
 //
@@ -78,7 +118,10 @@
 #include <map>
 #include <mutex>
 #include <tuple>
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 #define GP_NLEAF 19
 #define GP_MAX_THREADS 256
@@ -87,14 +130,29 @@
 #define GP_NINST 16         // 15 fixed instantiations + the generic one
 #define GP_RING 2           // stages of the input ring
 #define GP_MAX_DEV 64       // devices the launch plan keeps
+#define GP_MAX_CLUSTER 8    // the portable cluster size
 
+// The source builds three times (ops/gp_kernels.py), one mode each, so the
+// three compile in parallel and the one-substep kernel carries none of the
+// substep loop's registers (with the loop in it, it ran 12-16% slower):
+//   0  gp_step: one substep (the packed face at N = 1, the stacked grid),
+//      and gp_make_blob;
+//   1  gp_step_n: the packed face's N substeps in one launch;
+//   2  gp_step_cluster: the stacked face's N substeps over clusters.
+#ifndef GP_STEP_MODE
+#define GP_STEP_MODE 0
+#endif
+
+// With N = n_sub substeps the requests and the out vectors gain a leading
+// [N] axis: packed req [N, G, K] and out [N, M]; cluster req [N, R, G, K]
+// and out [N, R, M] (the stacked grid runs N = 1).
 struct GpStepArgs {
   const int32_t* st_in[GP_NLEAF];  // EngineState._fields order
   int32_t* st_out[GP_NLEAF];
-  const int32_t* gathered;  // [R, NB] compact blob rows
+  const int32_t* gathered;  // [R, NB] compact blob rows (cluster: not read)
   const uint8_t* heard;     // [R] bool (stacked: [R, R], row = replica)
   const int32_t* req;       // [G, K] (stacked: [R, G, K])
-  const uint8_t* want;      // [G] bool (stacked: [R, G])
+  const uint8_t* want;      // [G] bool (stacked: [R, G]); substep 0 only
   int32_t* out_vec;         // [M] StepOutputs._fields order (stacked: [R, M])
   int32_t* blob;            // [NB] Blob._fields order, or null (stacked: [R, NB])
   const int32_t* heat_in;   // [G] or null
@@ -102,6 +160,8 @@ struct GpStepArgs {
   int32_t G, W, K, R, my_id, stacked;
   int32_t T;                // set by the launcher: groups per tile
   int32_t aligned;          // set by the launcher: bulk copies and 16-byte stores
+  int32_t n_sub;            // substeps in this launch (>= 1; 1 on the stacked grid)
+  int32_t cluster;          // stacked: one cluster of R CTAs a tile (R <= 8)
 };
 
 struct GpBlobArgs {
@@ -137,23 +197,30 @@ __host__ __device__ __forceinline__ int gw_leaf(int i) { return i < 5 ? 7 + i : 
 
 // One ring stage, in words (every segment a multiple of 4 words, T % 4 == 0):
 //   [12][T] state words | [7][T*W] state planes | [R][4][T] gathered words |
-//   [R][4][T*W] gathered lane planes | [T][K] requests | [T] heat
+//   [R][4][T*W] gathered lane planes (not in cluster mode) | [NQ][T][K]
+//   requests (NQ = the substeps) | [T] heat
 // then, once per CTA: 2 x [23][T] staged [G] outputs (one item stores from
 // one while the next computes into the other) | [T][W] execute scratch |
-// GP_RING mbarriers.
+// cluster mode: 2 exchange buffers, each the R replicas' blob rows laid out
+// as the stage's gathered rows ([R][4][T] words | [R][4][T*W] lane planes)
+// | GP_RING mbarriers.
 struct Layout {
-  int T, W, R, K, TW, o_sw, o_b1, o_bw, o_req, o_heat, stage;
-  __host__ __device__ Layout(int T_, int W_, int R_, int K_)
+  int T, W, R, K, TW, o_sw, o_b1, o_bw, o_req, o_heat, stage, xbuf, xwords;
+  __host__ __device__ Layout(int T_, int W_, int R_, int K_, int NQ, bool X)
       : T(T_), W(W_), R(R_), K(K_), TW(T_ * W_) {
+    const int rs = X ? 0 : R;  // gathered rows in the stage
     o_sw = 12 * T;
     o_b1 = o_sw + 7 * TW;
-    o_bw = o_b1 + 4 * R * T;
-    o_req = o_bw + 4 * R * TW;
-    o_heat = o_req + T * K;
+    o_bw = o_b1 + 4 * rs * T;
+    o_req = o_bw + 4 * rs * TW;
+    o_heat = o_req + NQ * T * K;
     stage = o_heat + T;
+    xbuf = 4 * R * (T + TW);
+    xwords = X ? 2 * xbuf : 0;
   }
   __host__ __device__ long long smem_bytes() const {
-    return 4LL * ((long long)GP_RING * stage + 2 * GP_NOUT * T + TW) + 8LL * GP_RING;
+    return 4LL * ((long long)GP_RING * stage + 2 * GP_NOUT * T + TW + xwords) +
+           8LL * GP_RING;
   }
 };
 
@@ -204,11 +271,14 @@ __device__ __forceinline__ int32_t wrap_enc(int32_t slot, int32_t ebase, int kbi
   return ok ? c + WRAP_BIAS : 0;
 }
 
-// make_blob of one (group, lane): the lane's four [G, W] blob words, written
-// at lo = g * W + j of the row `blob` (4 * G + l * GW + lo).
-__device__ __forceinline__ void encode_lanes(
-    int32_t* blob, long long G, long long GW, long long lo, int j, int kbits,
-    int32_t bal, int32_t exec_slot, int32_t c_phase, int32_t acc_bal,
+struct Words4 {
+  int32_t w[4];
+};
+
+// make_blob of one (group, lane): the lane's four [G, W] blob words
+// (acc_vid, dec_vid, prop_vid, lane_meta)
+__device__ __forceinline__ Words4 lane_words(
+    int kbits, int32_t bal, int32_t exec_slot, int32_t c_phase, int32_t acc_bal,
     int32_t acc_vid, int32_t acc_slot, int32_t dec_vid, int32_t dec_slot,
     int32_t c_prop_vid, int32_t c_prop_slot) {
   const int32_t eb = exec_slot >> kbits;
@@ -221,16 +291,68 @@ __device__ __forceinline__ void encode_lanes(
   const int32_t dec_w = wrap_enc(dec_slot, eb, kbits, dec_ok);
   const int32_t prop_w = wrap_enc(c_phase == ACTIVE ? c_prop_slot : NULLV, eb, kbits, prop_ok);
   const int32_t meta = acc_d | shl32(acc_w, 16) | shl32(dec_w, 21) | shl32(prop_w, 26);
-  blob[4 * G + lo] = acc_ok ? acc_vid : NULLV;
-  blob[4 * G + GW + lo] = dec_ok ? dec_vid : NULLV;
-  blob[4 * G + 2 * GW + lo] = prop_ok ? c_prop_vid : NULLV;
-  blob[4 * G + 3 * GW + lo] = meta;
+  return {{acc_ok ? acc_vid : NULLV, dec_ok ? dec_vid : NULLV,
+           prop_ok ? c_prop_vid : NULLV, meta}};
+}
+
+// the four words at dst[l * stride]
+template <typename S>
+__device__ __forceinline__ void put4(int32_t* dst, S stride, const Words4& v) {
+  dst[0] = v.w[0];
+  dst[stride] = v.w[1];
+  dst[2 * stride] = v.w[2];
+  dst[3 * stride] = v.w[3];
+}
+
+// lane_words written at dst[l * stride]: a blob row's 4 * G + l * GW +
+// g * W + j, or a shared-memory row's planes
+__device__ __forceinline__ void encode_lanes(
+    int32_t* dst, long long stride, int kbits,
+    int32_t bal, int32_t exec_slot, int32_t c_phase, int32_t acc_bal,
+    int32_t acc_vid, int32_t acc_slot, int32_t dec_vid, int32_t dec_slot,
+    int32_t c_prop_vid, int32_t c_prop_slot) {
+  put4(dst, stride, lane_words(kbits, bal, exec_slot, c_phase, acc_bal, acc_vid, acc_slot,
+                               dec_vid, dec_slot, c_prop_vid, c_prop_slot));
 }
 
 // the blob's coord word: the prepare ballot, or the proposal ballot with the
 // sign bit set while ACTIVE, else NULL
 __device__ __forceinline__ int32_t coord_word(int32_t c_phase, int32_t c_bal) {
   return c_phase == PREPARING ? c_bal : (c_phase == ACTIVE ? (c_bal | INT32_MIN_V) : NULLV);
+}
+
+// make_blob of one group: its four [G] blob words (tag, bal, exec_slot,
+// coord)
+__device__ __forceinline__ Words4 group_words(int32_t tag, int32_t bal, int32_t exec_slot,
+                                              int32_t c_phase, int32_t c_bal) {
+  return {{tag, bal, exec_slot, coord_word(c_phase, c_bal)}};
+}
+
+// group_words at dst[l * stride]
+__device__ __forceinline__ void blob_words(int32_t* dst, int stride, int32_t tag, int32_t bal,
+                                           int32_t exec_slot, int32_t c_phase, int32_t c_bal) {
+  put4(dst, stride, group_words(tag, bal, exec_slot, c_phase, c_bal));
+}
+
+// Cluster mode: one (group, lane)'s blob words of this replica (CTA rank
+// crank) into row crank of exchange buffer xb in every CTA of the cluster,
+// its own included (distributed shared memory stores; the cluster
+// barrier's arrive releases them, its wait acquires them in the peers);
+// the group's [G] words from lane 0.  The buffer's rows are laid out as
+// the stage's gathered rows.
+__device__ __forceinline__ void push_row(int32_t* xb, const Layout& L, int R, int crank, int gi,
+                                         int j, int W, const Words4& lw, bool lane0,
+                                         const Words4& gw) {
+  cg::cluster_group cluster = cg::this_cluster();
+  int32_t* lp = xb + 4 * R * L.T + crank * 4 * L.TW + gi * W + j;
+  int32_t* gp = xb + crank * 4 * L.T + gi;
+#pragma unroll
+  for (int r = 0; r < GP_MAX_CLUSTER; ++r) {
+    if (r < R) {
+      put4(cluster.map_shared_rank(lp, r), L.TW, lw);
+      if (lane0) put4(cluster.map_shared_rank(gp, r), L.T, gw);
+    }
+  }
 }
 
 // a segment's W lane bits of a ballot, rotated so that bit k is lane
@@ -279,33 +401,60 @@ __device__ __forceinline__ void bulk_g2s(void* dst, const void* src, uint32_t by
       : "memory");
 }
 
+// the cluster barrier split in two (all threads of every CTA of the
+// cluster): arrive releases this thread's earlier writes; wait returns once
+// every thread of the cluster has arrived, and acquires their writes
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// orders this thread's earlier generic-proxy writes to shared memory before
+// later async-proxy (bulk copy) writes to the same words
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // Input segment i of work item (rep, tile at t0 with n groups): its source,
 // its offset in the stage and its length, in words.  Order: the 12 [G]
 // state words, the 7 [G, W] planes, each gathered row's 4 [G] words and 4
-// lane planes, the requests, the heat (when given).
+// lane planes (not in cluster mode: the rows come from the peers' shared
+// memory), the n_sub request tiles, the heat (when given).
 struct Seg {
   const int32_t* src;
   int off, words;
 };
 
-__device__ __forceinline__ int n_segs(const GpStepArgs& a, int R) {
-  return 20 + 8 * R + (a.heat_in != nullptr ? 1 : 0);
+// nq: the substeps of the launch (the kernel's NS, a constant 1 in mode 0)
+template <bool CL>
+__device__ __forceinline__ int n_segs(const GpStepArgs& a, int R, int nq) {
+  return 19 + (CL ? 0 : 8 * R) + nq + (a.heat_in != nullptr ? 1 : 0);
 }
 
-__device__ __forceinline__ Seg input_seg(const GpStepArgs& a, const Layout& L, int i, int rep,
-                                         long long t0, int n) {
+template <bool CL>
+__device__ __forceinline__ Seg input_seg(const GpStepArgs& a, const Layout& L, int nq, int i,
+                                         int rep, long long t0, int n) {
   const long long G = a.G, GW = G * L.W, NB = 4 * G + 4 * GW;
   if (i < 12) return {a.st_in[g1_leaf(i)] + rep * G + t0, i * L.T, n};
   if (i < 19)
     return {a.st_in[gw_leaf(i - 12)] + rep * GW + t0 * L.W, L.o_sw + (i - 12) * L.TW, n * L.W};
   i -= 19;
-  if (i < 8 * L.R) {
-    const int r = i >> 3, l = i & 7;
-    const int32_t* row = a.gathered + r * NB;
-    if (l < 4) return {row + l * G + t0, L.o_b1 + (r * 4 + l) * L.T, n};
-    return {row + 4 * G + (l - 4) * GW + t0 * L.W, L.o_bw + (r * 4 + l - 4) * L.TW, n * L.W};
+  if (!CL) {
+    if (i < 8 * L.R) {
+      const int r = i >> 3, l = i & 7;
+      const int32_t* row = a.gathered + r * NB;
+      if (l < 4) return {row + l * G + t0, L.o_b1 + (r * 4 + l) * L.T, n};
+      return {row + 4 * G + (l - 4) * GW + t0 * L.W, L.o_bw + (r * 4 + l - 4) * L.TW, n * L.W};
+    }
+    i -= 8 * L.R;
   }
-  if (i == 8 * L.R) return {a.req + (rep * G + t0) * L.K, L.o_req, n * L.K};
+  if (i < nq) {
+    // substep i's [G, K] tile: req[i, rep] ([N, R, G, K] stacked, [N, G, K] packed)
+    const long long rows = (long long)i * (a.stacked ? L.R : 1) + rep;
+    return {a.req + (rows * G + t0) * L.K, L.o_req + i * L.T * L.K, n * L.K};
+  }
   return {a.heat_in + t0, L.o_heat, n};
 }
 
@@ -313,23 +462,26 @@ __device__ __forceinline__ Seg input_seg(const GpStepArgs& a, const Layout& L, i
 // with the item's bytes (its one arrival), and thread t issues segment t
 // (a copy that lands before the arming leaves the transaction count
 // negative for a while; the phase cannot complete before the arrival)
-__device__ __forceinline__ void issue_item(const GpStepArgs& a, const Layout& L, int rep,
-                                           long long t0, int n, int32_t* stage, uint64_t* bar,
-                                           int tid, int nthr) {
+template <bool CL>
+__device__ __forceinline__ void issue_item(const GpStepArgs& a, const Layout& L, int nq,
+                                           int rep, long long t0, int n, int32_t* stage,
+                                           uint64_t* bar, int tid, int nthr) {
   if (tid == 0) {
-    const int per = 12 + 7 * L.W + 4 * L.R * (1 + L.W) + L.K + (a.heat_in != nullptr ? 1 : 0);
+    const int per = 12 + 7 * L.W + (CL ? 0 : 4 * L.R * (1 + L.W)) + nq * L.K +
+                    (a.heat_in != nullptr ? 1 : 0);
     mbar_expect_tx(bar, (uint32_t)(4 * n * per));
   }
-  const int ns = n_segs(a, L.R);
+  const int ns = n_segs<CL>(a, L.R, nq);
   for (int i = tid; i < ns; i += nthr) {
-    const Seg s = input_seg(a, L, i, rep, t0, n);
+    const Seg s = input_seg<CL>(a, L, nq, i, rep, t0, n);
     if (s.words > 0) bulk_g2s(stage + s.off, s.src, (uint32_t)(4 * s.words), bar);
   }
 }
 
 // the destination of staged [G] output word i (0-11 state in g1 order,
-// 12-17 out, 18-21 blob, 22 heat) for replica rep
-__device__ __forceinline__ int32_t* out_dst(const GpStepArgs& a, int i, int rep) {
+// 12-17 out, 18-21 blob, 22 heat) for replica rep; the out words go to out
+// row orow (substep * rows a substep + replica)
+__device__ __forceinline__ int32_t* out_dst(const GpStepArgs& a, int i, int rep, int orow) {
   const long long G = a.G, GW = G * a.W;
   if (i < 12) return a.st_out[g1_leaf(i)] + rep * G;
   if (i < 18) {
@@ -337,23 +489,49 @@ __device__ __forceinline__ int32_t* out_dst(const GpStepArgs& a, int i, int rep)
     const int k = i - 12;
     const long long off = k == 0 ? 0 : k == 1 ? G : k == 2 ? 2 * G + GW
                         : k == 3 ? 3 * G + GW : k == 4 ? 4 * G + GW : 5 * G + 2 * GW;
-    return a.out_vec + rep * M + off;
+    return a.out_vec + (long long)orow * M + off;
   }
   if (i < 22) return a.blob + rep * (4 * G + 4 * GW) + (i - 18) * G;
   return a.heat_out;
 }
 
+// store staged [G] output words w0 .. w0 + cnt - 1 of a tile (n groups at
+// t0), one coalesced run per word; index 18 + nb and above is the heat
+// (word 22: no blob words when the launch writes no blob)
+__device__ __forceinline__ void store_staged(const GpStepArgs& a, const int32_t* sO, int T,
+                                             int n, long long t0, int rep, int orow, bool bulk,
+                                             int w0, int cnt, int nb, int tid, int nthr) {
+  if (bulk) {
+    const int n4 = n >> 2;  // n % 4 == 0 on an aligned launch
+    for (int e = tid; e < cnt * n4; e += nthr) {
+      const int i = e / n4, q = e - i * n4;
+      const int w = w0 + i < 18 + nb ? w0 + i : 22;
+      reinterpret_cast<int4*>(out_dst(a, w, rep, orow) + t0)[q] =
+          reinterpret_cast<const int4*>(sO + w * T)[q];
+    }
+  } else {
+    for (int e = tid; e < cnt * n; e += nthr) {
+      const int i = e / n, q = e - i * n;
+      const int w = w0 + i < 18 + nb ? w0 + i : 22;
+      out_dst(a, w, rep, orow)[t0 + q] = sO[w * T + q];
+    }
+  }
+}
+
 // registers bounded for 3 CTAs an SM (80 a thread): at W <= 16 three ran
 // faster than four on an H100, and at W = 32 the two read within 2% of each
-// other, either way from one run to the next
+// other, either way from one run to the next.  CL: the cluster mode (the
+// stacked face's N substeps, one CTA per replica of a tile).
 template <int RC, int WC>
 __global__ void __launch_bounds__(GP_MAX_THREADS, 3)
     gp_step_kernel(const __grid_constant__ GpStepArgs a) {
+  constexpr bool CL = GP_STEP_MODE == 2;
   const int R = RC > 0 ? RC : a.R;
   const int W = WC > 0 ? WC : a.W;
   const int K = a.K, T = a.T;
+  const int NS = GP_STEP_MODE == 0 ? 1 : a.n_sub;
   constexpr int S = GP_RING;
-  const Layout L(T, W, R, K);
+  const Layout L(T, W, R, K, NS, CL);
   const int TW = L.TW;
   const long long G = a.G;
   const long long GW = G * W;
@@ -364,15 +542,27 @@ __global__ void __launch_bounds__(GP_MAX_THREADS, 3)
   const int segbase = (tid & 31) & ~(W - 1);
   const unsigned wmask = W == 32 ? FULL : ((1u << W) - 1u);
   const unsigned segmask = wmask << segbase;
+  // out-vector rows a substep: R on the stacked faces, 1 on the packed
+  const int RS = a.stacked ? R : 1;
 
   extern __shared__ __align__(16) int32_t smem[];
   int32_t* sO2 = smem + S * L.stage;
   int32_t* sV = sO2 + 2 * GP_NOUT * T;
-  uint64_t* bars = reinterpret_cast<uint64_t*>(sV + TW);
+  int32_t* sX = sV + TW;  // cluster mode: the 2 exchange buffers
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sX + L.xwords);
 
-  // work items fit an int (the launcher checks)
+  // work items fit an int (the launcher checks): a tile (packed, cluster)
+  // or a (tile, replica) pair (stacked grid)
   const int n_tiles = (int)((G + T - 1) / T);
-  const int n_items = a.stacked ? n_tiles * R : n_tiles;
+  const int n_items = (a.stacked && !CL) ? n_tiles * R : n_tiles;
+  // this CTA's walk over the items; the R CTAs of a cluster walk their
+  // cluster's tiles together, CTA rank r as replica r
+  int first = blockIdx.x, stride = gridDim.x, crank = 0;
+  if constexpr (CL) {
+    first = blockIdx.x / R;
+    stride = gridDim.x / R;
+    crank = (int)cg::this_cluster().block_rank();
+  }
   const bool bulk = a.aligned != 0;
   const int nb = a.blob != nullptr ? 4 : 0;
   const int n_out = 18 + nb + (a.heat_out != nullptr ? 1 : 0);
@@ -382,29 +572,31 @@ __global__ void __launch_bounds__(GP_MAX_THREADS, 3)
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  // the tile and replica of a work item (replica fastest)
+  // the tile and replica of a work item (replica fastest on the grid)
   auto item_at = [&](int item, int& rep, long long& t0, int& n) {
-    const int tile = a.stacked ? item / R : item;
-    rep = a.stacked ? item - tile * R : 0;
+    const int tile = (a.stacked && !CL) ? item / R : item;
+    rep = CL ? crank : (a.stacked ? item - tile * R : 0);
     t0 = (long long)tile * T;
     n = (int)(G - t0 < T ? G - t0 : T);
   };
   if (bulk) {
     for (int s = 0; s < S; ++s) {
-      const long long item = blockIdx.x + (long long)s * gridDim.x;
+      const long long item = first + (long long)s * stride;
       if (item >= n_items) break;
       int rep, n;
       long long t0;
-      item_at(item, rep, t0, n);
-      issue_item(a, L, rep, t0, n, smem + s * L.stage, &bars[s], tid, nthr);
+      item_at((int)item, rep, t0, n);
+      issue_item<CL>(a, L, NS, rep, t0, n, smem + s * L.stage, &bars[s], tid, nthr);
     }
   }
 
   // item k of this CTA uses stage s = k mod S in phase (k / S) mod 2, and
-  // output stage k mod 2
+  // output stage k mod 2; cluster mode: exchange c of the CTA (counted
+  // over its items: one at an item's start, one after each substep but the
+  // last) goes through buffer c mod 2
   int s = 0, k = 0;
-  uint32_t phase_bit = 0;
-  for (int item = blockIdx.x; item < n_items; item += gridDim.x, ++k) {
+  uint32_t phase_bit = 0, xc = 0;
+  for (int item = first; item < n_items; item += stride, ++k) {
     int32_t* st = smem + s * L.stage;
     int32_t* sO = sO2 + (k & 1) * GP_NOUT * T;
     int rep, n;
@@ -422,14 +614,14 @@ __global__ void __launch_bounds__(GP_MAX_THREADS, 3)
     unsigned heard_bits = 0;
 #pragma unroll
     for (int r = 0; r < R; ++r) heard_bits |= (hrow[r] != 0 ? 1u : 0u) << r;
-    const bool want = a.want[(long long)rep * G + g] != 0;
+    const bool want0 = a.want[(long long)rep * G + g] != 0;
     if (bulk) {
       mbar_wait(&bars[s], phase_bit);
     } else {
       // plain loads: a segment has at most T * W words (K <= W), so each
       // thread copies at most one word of it; eight segments' loads are in
       // flight before the first store
-      const int ns = n_segs(a, R);
+      const int ns = n_segs<CL>(a, R, NS);
       for (int i0 = 0; i0 < ns; i0 += 8) {
         int32_t v[8];
         int off[8];
@@ -437,7 +629,7 @@ __global__ void __launch_bounds__(GP_MAX_THREADS, 3)
         for (int q = 0; q < 8; ++q) {
           off[q] = -1;
           if (i0 + q < ns) {
-            const Seg sg = input_seg(a, L, i0 + q, rep, t0, n);
+            const Seg sg = input_seg<CL>(a, L, NS, i0 + q, rep, t0, n);
             if (tid < sg.words) {
               v[q] = __ldg(sg.src + tid);
               off[q] = sg.off + tid;
@@ -450,13 +642,44 @@ __global__ void __launch_bounds__(GP_MAX_THREADS, 3)
       }
       __syncthreads();
     }
+    if constexpr (CL) {
+      // this replica's blob of its state as loaded, pushed to the cluster:
+      // what every replica folds at substep 0 (the arrive publishes it)
+      if (valid) {
+        const int32_t* s1 = st + gi;
+        const int32_t* sw = st + L.o_sw + gi * W + j;
+        push_row(sX + (xc & 1) * L.xbuf, L, R, crank, gi, j, W,
+                 lane_words(kbits, s1[5 * T], s1[6 * T], s1[9 * T], sw[0], sw[TW], sw[2 * TW],
+                            sw[3 * TW], sw[4 * TW], sw[5 * TW], sw[6 * TW]),
+                 j == 0, group_words(s1[4 * T], s1[5 * T], s1[6 * T], s1[9 * T], s1[10 * T]));
+      }
+      cluster_arrive();
+    }
+
+    // the substeps (their body keeps the item's indentation)
+    for (int sub = 0; sub < NS; ++sub) {
+    const bool last = sub == NS - 1;
+    if constexpr (CL) {
+      // every replica has pushed its rows of this exchange, and this CTA's
+      // writes of the last substep (stage, staged out words) are visible:
+      // the cluster barrier holds the CTA's own threads too.  The last
+      // substep's staged out words go to its out-ring row now.
+      cluster_wait();
+      if (sub > 0)
+        store_staged(a, sO, T, n, t0, rep, (sub - 1) * RS + rep, bulk, 12, 6, nb, tid, nthr);
+    }
+    // want_coord fires at substep 0 only (an election pulse is a host
+    // decision; replaying it would re-bump ballots N times)
+    const bool want = sub == 0 && want0;
 
     // ================= one (group, lane) of the tile =================
     const int32_t* s1 = st + gi;                       // [12][T]
     const int32_t* sw = st + L.o_sw + gi * W + j;      // [7][TW]
-    const int32_t* b1 = st + L.o_b1 + gi;              // [R * 4][T]
-    const int32_t* bw = st + L.o_bw + gi * W + j;      // [R * 4][TW]
-    const int32_t* rq = st + L.o_req + gi * K;         // [K]
+    // the gathered rows: the stage's, or (cluster) this exchange's buffer
+    const int32_t* xcur = sX + (xc & 1) * L.xbuf;
+    const int32_t* b1 = (CL ? xcur : st + L.o_b1) + gi;                // [R * 4][T]
+    const int32_t* bw = (CL ? xcur + 4 * R * T : st + L.o_bw) + gi * W + j;  // [R * 4][TW]
+    const int32_t* rq = st + L.o_req + (sub * T + gi) * K;  // [K] of this substep
 #define S1(i) s1[(i) * T]
 #define SW(i) sw[(i) * TW]
 #define B1(r, l) b1[((r) * 4 + (l)) * T]
@@ -701,6 +924,11 @@ __global__ void __launch_bounds__(GP_MAX_THREADS, 3)
 
     // ---- non-member rows stay frozen; write state', outputs, blob ----
     const bool m = ((member_mask >> my_id) & 1) == 1;
+    // every lane has read this substep's stage before any lane writes the
+    // next one into it (and the last substep's staged out words are stored)
+    if (NS > 1) __syncthreads();
+    // the out-vector row of this substep and replica
+    const int orow = sub * RS + rep;
     if (valid) {
       const int32_t o_stopped = m ? stopped : stopped0;
       const int32_t o_bal = m ? new_bal : bal0;
@@ -719,43 +947,74 @@ __global__ void __launch_bounds__(GP_MAX_THREADS, 3)
       const int32_t o_cps = m ? c_prop_slot : c_prop_slot0;
 
       const long long lo = g * W + j;
-      const long long igw = (long long)rep * GW + lo;
-      a.st_out[L_ACC_BAL][igw] = o_acc_bal;
-      a.st_out[L_ACC_VID][igw] = o_acc_vid;
-      a.st_out[L_ACC_SLOT][igw] = o_acc_slot;
-      a.st_out[L_DEC_VID][igw] = o_dec_vid;
-      a.st_out[L_DEC_SLOT][igw] = o_dec_slot;
-      a.st_out[L_C_PROP_VID][igw] = o_cpv;
-      a.st_out[L_C_PROP_SLOT][igw] = o_cps;
+      if (last) {
+        const long long igw = (long long)rep * GW + lo;
+        a.st_out[L_ACC_BAL][igw] = o_acc_bal;
+        a.st_out[L_ACC_VID][igw] = o_acc_vid;
+        a.st_out[L_ACC_SLOT][igw] = o_acc_slot;
+        a.st_out[L_DEC_VID][igw] = o_dec_vid;
+        a.st_out[L_DEC_SLOT][igw] = o_dec_slot;
+        a.st_out[L_C_PROP_VID][igw] = o_cpv;
+        a.st_out[L_C_PROP_SLOT][igw] = o_cps;
+      } else {
+        // the next substep's state planes, in the stage
+        int32_t* swm = st + L.o_sw + gi * W + j;
+        swm[0] = o_acc_bal;     swm[TW] = o_acc_vid;     swm[2 * TW] = o_acc_slot;
+        swm[3 * TW] = o_dec_vid; swm[4 * TW] = o_dec_slot; swm[5 * TW] = o_cpv;
+        swm[6 * TW] = o_cps;
+      }
 
-      int32_t* out = a.out_vec + (long long)rep * (6 * G + 3 * GW);
+      int32_t* out = a.out_vec + (long long)orow * (6 * G + 3 * GW);
       out[2 * G + lo] = (m && my_run) ? my_vid_at : NULLV;   // exec_vid
       out[5 * G + GW + lo] = (m && acc_changed) ? 1 : 0;      // acc_new
       out[6 * G + 2 * GW + lo] = m ? preempted : NULLV;       // preempted_vid
-      if (nb)
-        encode_lanes(a.blob + (long long)rep * (4 * G + 4 * GW), G, GW, lo, j, kbits, o_bal,
+      // the next substep's blob row of this replica: packed, MY gathered
+      // row in the stage (peers' rows stay as loaded); cluster, pushed into
+      // the next exchange's buffer of every CTA of the cluster
+      if (!last) {
+        const Words4 lw = lane_words(kbits, o_bal, o_exec, o_phase, o_acc_bal, o_acc_vid,
+                                     o_acc_slot, o_dec_vid, o_dec_slot, o_cpv, o_cps);
+        if constexpr (CL)
+          push_row(sX + ((xc + 1) & 1) * L.xbuf, L, R, crank, gi, j, W, lw, j == 0,
+                   group_words(tag, o_bal, o_exec, o_phase, o_c_bal));
+        else
+          put4(st + L.o_bw + my_id * 4 * TW + gi * W + j, TW, lw);
+      } else if (nb) {
+        encode_lanes(a.blob + (long long)rep * (4 * G + 4 * GW) + 4 * G + lo, GW, kbits, o_bal,
                      o_exec, o_phase, o_acc_bal, o_acc_vid, o_acc_slot, o_dec_vid, o_dec_slot,
                      o_cpv, o_cps);
+      }
 
       if (j == 0) {
         int32_t* o = sO + gi;
         const int32_t n_comm = m ? n_adv : 0;
         const int32_t n_adm = m ? n_admit : 0;
-        o[0 * T] = member_mask;  o[1 * T] = majority;  o[2 * T] = version;
-        o[3 * T] = o_stopped;    o[4 * T] = tag;       o[5 * T] = o_bal;
-        o[6 * T] = o_exec;       o[7 * T] = o_hash;    o[8 * T] = o_n_execd;
-        o[9 * T] = o_phase;      o[10 * T] = o_c_bal;  o[11 * T] = o_c_next;
         o[12 * T] = n_comm;                 // n_committed
         o[13 * T] = exec0;                  // exec_base
         o[14 * T] = n_adm;                  // n_admitted
         o[15 * T] = m ? maj_exec : 0;       // maj_exec
         o[16 * T] = o_hash;                 // app_hash
         o[17 * T] = o_bal != bal0 ? 1 : 0;  // bal_new
-        o[18 * T] = tag;
-        o[19 * T] = o_bal;
-        o[20 * T] = o_exec;
-        o[21 * T] = coord_word(o_phase, o_c_bal);
-        if (a.heat_out != nullptr) o[22 * T] = add32(add32(st[L.o_heat + gi], n_comm), n_adm);
+        // the heat word of the group is read and written by this lane only
+        const int32_t* heat = st + L.o_heat + gi;
+        if (last) {
+          o[0 * T] = member_mask;  o[1 * T] = majority;  o[2 * T] = version;
+          o[3 * T] = o_stopped;    o[4 * T] = tag;       o[5 * T] = o_bal;
+          o[6 * T] = o_exec;       o[7 * T] = o_hash;    o[8 * T] = o_n_execd;
+          o[9 * T] = o_phase;      o[10 * T] = o_c_bal;  o[11 * T] = o_c_next;
+          blob_words(o + 18 * T, T, tag, o_bal, o_exec, o_phase, o_c_bal);
+          if (a.heat_out != nullptr) o[22 * T] = add32(add32(*heat, n_comm), n_adm);
+        } else {
+          // the next substep's [G] state words and heat, in the stage
+          int32_t* s1m = st + gi;
+          s1m[0 * T] = member_mask;  s1m[1 * T] = majority;  s1m[2 * T] = version;
+          s1m[3 * T] = o_stopped;    s1m[4 * T] = tag;       s1m[5 * T] = o_bal;
+          s1m[6 * T] = o_exec;       s1m[7 * T] = o_hash;    s1m[8 * T] = o_n_execd;
+          s1m[9 * T] = o_phase;      s1m[10 * T] = o_c_bal;  s1m[11 * T] = o_c_next;
+          if constexpr (!CL)
+            blob_words(st + L.o_b1 + my_id * 4 * T + gi, T, tag, o_bal, o_exec, o_phase, o_c_bal);
+          if (a.heat_in != nullptr) st[L.o_heat + gi] = add32(add32(*heat, n_comm), n_adm);
+        }
       }
     }
 #undef S1
@@ -763,40 +1022,50 @@ __global__ void __launch_bounds__(GP_MAX_THREADS, 3)
 #undef B1
 #undef BW
     // =================================================================
+    if (!last) {
+      if constexpr (CL) {
+        // publishes the next exchange's rows, the stage's state and the
+        // staged out words (stored after the wait)
+        cluster_arrive();
+        ++xc;
+      } else {
+        // the stage holds the next substep's state and rows; this
+        // substep's out words are staged: store them to its out-ring row
+        __syncthreads();
+        store_staged(a, sO, T, n, t0, rep, orow, bulk, 12, 6, nb, tid, nthr);
+      }
+    }
+    }  // substeps
 
+    // the stage was written by this CTA's threads (substeps): order those
+    // writes before the bulk copies that refill it
+    if (NS > 1 || CL) fence_proxy_async();
     __syncthreads();  // the stage is read, the [G] outputs are staged
     if (bulk) {
-      const long long next = item + (long long)S * gridDim.x;
+      const long long next = item + (long long)S * stride;
       if (next < n_items) {
         int rep2, n2;
         long long t2;
         item_at((int)next, rep2, t2, n2);
-        issue_item(a, L, rep2, t2, n2, st, &bars[s], tid, nthr);
+        issue_item<CL>(a, L, NS, rep2, t2, n2, st, &bars[s], tid, nthr);
       }
     }
     // the staged [G] outputs, one coalesced run per word
-    if (bulk) {
-      const int n4 = n >> 2;  // n % 4 == 0 on an aligned launch
-      for (int e = tid; e < n_out * n4; e += nthr) {
-        const int i = e / n4, q = e - i * n4;
-        const int w = i < 18 + nb ? i : 22;
-        reinterpret_cast<int4*>(out_dst(a, w, rep) + t0)[q] =
-            reinterpret_cast<const int4*>(sO + w * T)[q];
-      }
-    } else {
-      for (int e = tid; e < n_out * n; e += nthr) {
-        const int i = e / n, q = e - i * n;
-        const int w = i < 18 + nb ? i : 22;
-        out_dst(a, w, rep)[t0 + q] = sO[w * T + q];
-      }
-    }
+    store_staged(a, sO, T, n, t0, rep, (NS - 1) * RS + rep, bulk, 0, n_out, nb, tid, nthr);
+    if (CL) ++xc;
     if (++s == S) {
       s = 0;
       phase_bit ^= 1u;
     }
   }
+  // no CTA of a cluster leaves while a peer may still copy its exchange rows
+  if constexpr (CL) {
+    cluster_arrive();
+    cluster_wait();
+  }
 }
 
+#if GP_STEP_MODE == 0
 // make_blob + pack_blob: one thread per (group, lane); grid.y = replica
 __global__ void __launch_bounds__(256) gp_make_blob_kernel(const GpBlobArgs a) {
   const int W = a.W;
@@ -815,7 +1084,7 @@ __global__ void __launch_bounds__(256) gp_make_blob_kernel(const GpBlobArgs a) {
   // every lane loads the [G] words with its own (one round trip, not two)
   const int32_t tag = s[L_TAG][ig], bal = s[L_BAL][ig], exec_slot = s[L_EXEC_SLOT][ig];
   const int32_t c_phase = s[L_C_PHASE][ig], c_bal = s[L_C_BAL][ig];
-  encode_lanes(blob, G, GW, e, j, kbits, bal, exec_slot, c_phase, s[L_ACC_BAL][igw],
+  encode_lanes(blob + 4 * G + e, GW, kbits, bal, exec_slot, c_phase, s[L_ACC_BAL][igw],
                s[L_ACC_VID][igw], s[L_ACC_SLOT][igw], s[L_DEC_VID][igw], s[L_DEC_SLOT][igw],
                s[L_C_PROP_VID][igw], s[L_C_PROP_SLOT][igw]);
   if (j == 0) {
@@ -825,6 +1094,7 @@ __global__ void __launch_bounds__(256) gp_make_blob_kernel(const GpBlobArgs a) {
     blob[3 * G + g] = coord_word(c_phase, c_bal);
   }
 }
+#endif
 
 // ---- the launch plan's host side ----
 typedef void (*StepKernel)(const GpStepArgs);
@@ -851,49 +1121,82 @@ int slot_of(int id) {
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
-// The tile: T starts at 256 / W groups (256 threads) and halves while the
-// launch would have fewer work items than the card has SMs (small G: more,
-// smaller CTAs; down to 8 groups, which ran G=64 faster than 4 on an H100),
-// and further, down to 4 groups and at least one warp, while the ring does
-// not fit a block's shared memory.
+// The tile: T starts at 256 / W groups (256 threads; 128 in cluster mode,
+// where six CTAs an SM ran the stacked N=8 dispatch faster than its N
+// launches on an H100, and three, 124 clusters of them, slower) and halves
+// while the launch would have fewer work items than the card has SMs
+// (small G: more, smaller CTAs; down to 8 groups, which ran G=64 faster
+// than 4 on an H100), and further, down to 4 groups and at least one warp,
+// while the ring does not fit a block's shared memory.
 int choose_tile(const GpStepArgs& a, int sms) {
   const int W = a.W, t_min = 32 / W > 4 ? 32 / W : 4;
   const int t_small = t_min > 8 ? t_min : 8;
-  int T = GP_MAX_THREADS / W > t_min ? GP_MAX_THREADS / W : t_min;
+  const int threads = a.cluster ? GP_MAX_THREADS / 2 : GP_MAX_THREADS;
+  int T = threads / W > t_min ? threads / W : t_min;
   const long long per_tile = a.stacked ? a.R : 1;
   while (T > t_small && ((long long)a.G + T - 1) / T * per_tile < sms) T /= 2;
-  while (T > t_min && Layout(T, W, a.R, a.K).smem_bytes() > GP_MAX_SMEM) T /= 2;
+  while (T > t_min &&
+         Layout(T, W, a.R, a.K, a.n_sub, a.cluster != 0).smem_bytes() > GP_MAX_SMEM)
+    T /= 2;
   return T;
 }
 
 struct Plan {
   StepKernel fn;
-  int id, threads, occ;
+  int id, threads, occ, cluster;
   long long smem, grid, n_items;
 };
 
+// a cluster launch's configuration: R CTAs a cluster along x
+struct ClusterLaunch {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  ClusterLaunch(const Plan& p, long long grid, cudaStream_t stream) : cfg{} {
+    cfg.gridDim = dim3((unsigned)grid);
+    cfg.blockDim = dim3((unsigned)p.threads);
+    cfg.dynamicSmemBytes = (size_t)p.smem;
+    cfg.stream = stream;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = (unsigned)p.cluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+};
+
 // What the launcher learns once per device and keeps: the SM count, which
-// instantiations have their shared-memory cap raised, and the CTAs per SM
-// of each (instantiation, threads, shared memory).  Every PaxosServer of a
-// process steps on a thread of its own and ctypes drops the GIL, so one
-// mutex guards all of it.
+// instantiations have their shared-memory cap raised, the CTAs per SM of
+// each (instantiation, threads, shared memory), and, for the cluster mode,
+// the clusters the card holds at once.  Every PaxosServer of a process
+// steps on a thread of its own and ctypes drops the GIL, so one mutex
+// guards all of it.
 std::mutex plan_mu;
 int plan_sms[GP_MAX_DEV];
 bool plan_cap_set[GP_MAX_DEV][GP_NINST];
 std::map<std::tuple<int, int, int, long long>, int> plan_occ;  // (dev, slot, threads, smem)
+std::map<std::tuple<int, int, int, long long>, int> plan_clusters;
 
-// check the arguments; choose the kernel, the tile, the shared memory, the
-// CTAs the card holds at once and the grid
+// check the arguments (and that they are this build's mode); choose the
+// kernel, the tile, the shared memory, the CTAs (or clusters) the card
+// holds at once and the grid
 int make_plan(GpStepArgs* a, Plan* p) {
   const int W = a->W;
+  const bool cl = GP_STEP_MODE == 2;
   if (W < 1 || W > 32 || (W & (W - 1)) || a->K < 0 || a->K > W || a->R < 1 || a->R > 32 ||
-      a->G < 1)
+      a->G < 1 || a->n_sub < 1 || (a->cluster != 0) != cl)
     return (int)cudaErrorInvalidValue;
+  // mode 0 runs one substep; mode 1 is the packed face; a cluster (mode 2)
+  // holds the R replicas of the stacked face
+  if (GP_STEP_MODE == 0 && a->n_sub != 1) return (int)cudaErrorInvalidValue;
+  if (GP_STEP_MODE == 1 && a->stacked) return (int)cudaErrorInvalidValue;
+  if (cl && (!a->stacked || a->R > GP_MAX_CLUSTER)) return (int)cudaErrorInvalidValue;
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
   if (dev < 0 || dev >= GP_MAX_DEV) return (int)cudaErrorInvalidDevice;
   p->fn = pick_kernel(a->R, W, &p->id);
+  p->cluster = cl ? a->R : 0;
   const int slot = slot_of(p->id);
   std::lock_guard<std::mutex> lock(plan_mu);
   if (plan_sms[dev] == 0) {
@@ -901,7 +1204,7 @@ int make_plan(GpStepArgs* a, Plan* p) {
     if (e != cudaSuccess) return (int)e;
   }
   a->T = choose_tile(*a, plan_sms[dev]);
-  const Layout L(a->T, W, a->R, a->K);
+  const Layout L(a->T, W, a->R, a->K, a->n_sub, cl);
   p->smem = L.smem_bytes();
   if (p->smem > GP_MAX_SMEM) return (int)cudaErrorInvalidValue;
   bool al = (a->G % 4) == 0 && aligned16(a->gathered) && aligned16(a->req) &&
@@ -911,8 +1214,8 @@ int make_plan(GpStepArgs* a, Plan* p) {
   a->aligned = al ? 1 : 0;
   p->threads = a->T * W;
   const long long n_tiles = ((long long)a->G + a->T - 1) / a->T;
-  p->n_items = a->stacked ? n_tiles * a->R : n_tiles;
-  if (p->n_items > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  p->n_items = (a->stacked && !cl) ? n_tiles * a->R : n_tiles;
+  if (p->n_items * (cl ? a->R : 1) > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   // the cap is raised once to the most a block may use: a launch asks for
   // what its tile needs, and the cap does not change the CTAs an SM holds
   if (!plan_cap_set[dev][slot]) {
@@ -932,6 +1235,20 @@ int make_plan(GpStepArgs* a, Plan* p) {
   }
   p->occ = it->second;
   if (p->occ < 1) return (int)cudaErrorInvalidConfiguration;
+  if (cl) {
+    // a persistent grid of at most the clusters the card holds at once
+    auto ic = plan_clusters.find(key);
+    if (ic == plan_clusters.end()) {
+      ClusterLaunch c(*p, p->n_items * a->R, 0);
+      int n_cl = 0;
+      e = cudaOccupancyMaxActiveClusters(&n_cl, (const void*)p->fn, &c.cfg);
+      if (e != cudaSuccess) return (int)e;
+      ic = plan_clusters.emplace(key, n_cl).first;
+    }
+    if (ic->second < 1) return (int)cudaErrorInvalidConfiguration;
+    p->grid = (p->n_items < ic->second ? p->n_items : ic->second) * a->R;
+    return 0;
+  }
   const long long cap = (long long)p->occ * plan_sms[dev];
   p->grid = p->n_items < cap ? p->n_items : cap;
   return 0;
@@ -942,25 +1259,35 @@ int make_plan(GpStepArgs* a, Plan* p) {
 extern "C" {
 
 int gp_step_args_size() { return (int)sizeof(GpStepArgs); }
+#if GP_STEP_MODE == 0
 int gp_blob_args_size() { return (int)sizeof(GpBlobArgs); }
+#endif
 
-// Launch gp_step_kernel on `stream`; returns cudaGetLastError() (0 = ok).
+// Launch gp_step_kernel on `stream` (a cluster launch in cluster mode);
+// returns cudaGetLastError() (0 = ok).
 int gp_step_launch(const GpStepArgs* a, void* stream) {
   GpStepArgs k = *a;
   Plan p;
   const int rc = make_plan(&k, &p);
   if (rc != 0) return rc;
   void* params[] = {&k};
-  cudaError_t e = cudaLaunchKernel((const void*)p.fn, dim3((unsigned)p.grid), dim3(p.threads),
-                                   params, (size_t)p.smem, (cudaStream_t)stream);
+  cudaError_t e;
+  if (p.cluster) {
+    ClusterLaunch c(p, p.grid, (cudaStream_t)stream);
+    e = cudaLaunchKernelExC(&c.cfg, (const void*)p.fn, params);
+  } else {
+    e = cudaLaunchKernel((const void*)p.fn, dim3((unsigned)p.grid), dim3(p.threads), params,
+                         (size_t)p.smem, (cudaStream_t)stream);
+  }
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
 // The plan gp_step_launch would launch with: info = {instantiation id
 // (R * 100 + W, 0 = generic), groups per tile, threads, shared-memory
-// bytes, CTAs per SM, grid, aligned (bulk copies), work items}.  Returns 0
-// or a cudaError.
+// bytes, CTAs per SM, grid (CTAs), aligned (bulk copies), work items (in
+// cluster mode: tiles, each taken by a cluster of R CTAs)}.  Returns 0 or
+// a cudaError.
 int gp_step_launch_info(const GpStepArgs* a, long long* info) {
   GpStepArgs k = *a;
   Plan p;
@@ -971,6 +1298,7 @@ int gp_step_launch_info(const GpStepArgs* a, long long* info) {
   return 0;
 }
 
+#if GP_STEP_MODE == 0
 // Launch gp_make_blob_kernel on `stream`; returns cudaGetLastError().
 int gp_make_blob_launch(const GpBlobArgs* a, void* stream) {
   if (a->W < 1 || (a->W & (a->W - 1)) || a->G < 1 || a->n_rep < 1)
@@ -980,5 +1308,6 @@ int gp_make_blob_launch(const GpBlobArgs* a, void* stream) {
   gp_make_blob_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(*a);
   return (int)cudaGetLastError();
 }
+#endif
 
 }  // extern "C"

@@ -86,9 +86,21 @@ from .utils.profiler import DelayProfiler
 
 
 def _dev(x, dtype, device) -> torch.Tensor:
-    """A host array (or tensor) -> a tensor on the manager's device."""
+    """A host array (or tensor) -> a tensor on the manager's device.  A
+    list of equal-shape host rows (the server's gathered blob vectors)
+    is uploaded row by row into one tensor: stacking them on the host
+    first would copy every row once more into a fresh allocation."""
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=dtype)
+    if isinstance(x, (list, tuple)):
+        # torch takes writable arrays only: a row decoded from a small
+        # frame (bytes) is copied here; a large frame arrives writable
+        rows = [np.require(r, requirements="W") for r in x]
+        out = torch.empty((len(rows),) + rows[0].shape, dtype=dtype,
+                          device=device)
+        for dst, row in zip(out, rows):
+            dst.copy_(torch.from_numpy(row))
+        return out
     return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
 
 

@@ -25,6 +25,22 @@ MAGIC = 0x47503270  # "GP2p"
 _HDR = struct.Struct(">II")  # magic, payload length
 MAX_PAYLOAD = 256 * 1024 * 1024
 CONGESTION_LIMIT = 4096  # per-peer queued messages before drops (isCongested)
+# frames at least this long are written after their header, not copied
+# into one concatenated write
+_SPLIT_WRITE_BYTES = 64 * 1024
+
+
+def _write_frame(writer, payload) -> None:
+    """One framed payload onto a stream writer.  A small payload goes as
+    one write (one segment); a large one (a multi-MB blob frame) as a
+    second write after the header, so that it is not copied."""
+    hdr = _HDR.pack(MAGIC, len(payload))
+    if len(payload) < _SPLIT_WRITE_BYTES:
+        writer.write(hdr + payload)
+    else:
+        writer.write(hdr)
+        writer.write(payload)
+
 
 class _Latest:
     """Queue token standing for the newest payload of one coalescing key
@@ -36,7 +52,83 @@ class _Latest:
         self.key = key
 
 
-# handler(payload: bytes, sender: (host, port), reply) -> None
+class _FrameReader(asyncio.BufferedProtocol):
+    """The receive side of one accepted connection.  Frames that fit the
+    staging buffer are parsed out of it and handed over as ``bytes``; a
+    frame too large for it (a multi-MB blob frame) is read straight into
+    a buffer of its own (``recv_into``, which copies with the interpreter
+    lock released) and handed over as that ``bytearray``.  A stream
+    reader would copy such a frame twice more, holding the lock, into
+    fresh allocations, while the node's tick thread waits for the lock."""
+
+    STAGE_BYTES = 256 * 1024
+
+    def __init__(self, owner: "MessageTransport"):
+        self._owner = owner
+        self._stage = bytearray(self.STAGE_BYTES)
+        self._n = 0            # bytes of the stage not yet parsed
+        self._body = None      # a large frame's own buffer while it fills
+        self._pos = 0
+        self._tr = None
+        self._peer = ("?", 0)
+        self._reply = None
+
+    def connection_made(self, transport) -> None:
+        self._tr = transport
+        self._peer = transport.get_extra_info("peername") or ("?", 0)
+        self._reply = self._owner._reply_fn(transport)
+        self._owner._conns.add(transport)
+
+    def connection_lost(self, exc) -> None:
+        self._owner._conns.discard(self._tr)
+
+    def get_buffer(self, sizehint: int) -> memoryview:
+        if self._body is not None:
+            return memoryview(self._body)[self._pos:]
+        return memoryview(self._stage)[self._n:]
+
+    def buffer_updated(self, nbytes: int) -> None:
+        if self._body is not None:
+            self._pos += nbytes
+            if self._pos == len(self._body):
+                body, self._body = self._body, None
+                self._owner._deliver(body, self._peer, self._reply)
+            return
+        self._n += nbytes
+        stage, n, off = self._stage, self._n, 0
+        view = memoryview(stage)
+        while n - off >= _HDR.size:
+            magic, length = _HDR.unpack_from(stage, off)
+            if magic != MAGIC or length > MAX_PAYLOAD:
+                self._n = 0
+                self._tr.close()  # protocol violation: drop the connection
+                return
+            start = off + _HDR.size
+            if n - start >= length:
+                off = start + length
+                self._owner._deliver(bytes(view[start:off]), self._peer,
+                                     self._reply)
+                continue
+            if _HDR.size + length > len(stage):
+                # too large for the stage: the rest goes straight into
+                # the frame's own buffer
+                body = bytearray(length)
+                body[:n - start] = view[start:n]
+                self._body, self._pos, self._n = body, n - start, 0
+                return
+            break
+        if off:
+            # move the partial frame to the front of the stage
+            rest = bytes(view[off:n])
+            stage[:len(rest)] = rest
+        self._n = n - off
+
+    def eof_received(self) -> bool:
+        return False  # close the connection
+
+
+# handler(payload: bytes, sender: (host, port), reply) -> None; a frame
+# larger than the receive stage arrives as a bytearray (see _FrameReader)
 # ``reply(bytes)`` queues a frame back on the SAME connection (needed for
 # client request/response: clients don't listen on a port).
 Handler = Callable[[bytes, Tuple[str, int], Callable[[bytes], None]], None]
@@ -76,6 +168,8 @@ class MessageTransport:
         # newest payload per (addr, key) whose _Latest token is queued
         self._latest: Dict[Tuple[Tuple[str, int], str], bytes] = {}
         self._server: Optional[asyncio.AbstractServer] = None
+        # the accepted connections' transports (closed at stop)
+        self._conns: set = set()
         self._started = threading.Event()
         self._stopped = False
         self.n_sent = 0
@@ -95,8 +189,8 @@ class MessageTransport:
         self._started.set()
 
     async def _start_server(self) -> None:
-        self._server = await asyncio.start_server(
-            self._on_connection, self.listen_host, self.listen_port,
+        self._server = await self._loop.create_server(
+            lambda: _FrameReader(self), self.listen_host, self.listen_port,
             ssl=self._ssl_server,
         )
         if self.listen_port == 0 and self._server.sockets:
@@ -119,7 +213,7 @@ class MessageTransport:
             for task in asyncio.all_tasks():
                 if task is not me:
                     task.cancel()
-            for w in self._writers.values():
+            for w in list(self._writers.values()) + list(self._conns):
                 try:
                     w.close()
                 except Exception:
@@ -138,42 +232,27 @@ class MessageTransport:
     # forward path; clients retransmit)
     REPLY_BUFFER_LIMIT = 8 * 1024 * 1024
 
-    async def _on_connection(self, reader: asyncio.StreamReader, writer):
-        peer = writer.get_extra_info("peername") or ("?", 0)
-
+    def _reply_fn(self, transport) -> Callable[[bytes], None]:
+        """``reply(payload)``: queue a frame back on one connection."""
         def reply(payload: bytes) -> None:
             def _w():
                 try:
-                    if writer.transport.get_write_buffer_size() \
+                    if transport.get_write_buffer_size() \
                             > self.REPLY_BUFFER_LIMIT:
                         self.n_dropped += 1
                         return
-                    writer.write(_HDR.pack(MAGIC, len(payload)) + payload)
+                    _write_frame(transport, payload)
                 except Exception:
                     self.n_dropped += 1
             self._loop.call_soon_threadsafe(_w)
+        return reply
 
+    def _deliver(self, payload, peer, reply) -> None:
+        self.n_rcvd += 1
         try:
-            while True:
-                hdr = await reader.readexactly(_HDR.size)
-                magic, length = _HDR.unpack(hdr)
-                if magic != MAGIC or length > MAX_PAYLOAD:
-                    break  # protocol violation: drop the connection
-                payload = await reader.readexactly(length)
-                self.n_rcvd += 1
-                try:
-                    self.handler(payload, peer, reply)
-                except Exception:
-                    pass  # handler errors must not kill the read loop
-        except (asyncio.IncompleteReadError, ConnectionError):
-            pass
-        except asyncio.CancelledError:
-            raise
-        finally:
-            try:
-                writer.close()
-            except Exception:
-                pass  # loop may already be closing (shutdown teardown)
+            self.handler(payload, peer, reply)
+        except Exception:
+            pass  # handler errors must not kill the read loop
 
     # ---- send path -----------------------------------------------------
     def send_to_id(self, node_id: int, payload: bytes) -> bool:
@@ -279,7 +358,7 @@ class MessageTransport:
                         await asyncio.sleep(0.05)
                         continue
                 try:
-                    writer.write(_HDR.pack(MAGIC, len(payload)) + payload)
+                    _write_frame(writer, payload)
                     await writer.drain()
                     self.n_sent += 1
                     break

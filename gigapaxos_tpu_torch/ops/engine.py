@@ -111,6 +111,9 @@ _INT32_MIN = -(2 ** 31)
 # a wrapper adds one exactly where it launches its kernel)
 LAUNCHES = {
     "gp_step": 0, "gp_make_blob": 0,
+    # gp_step's N-substep modes: the packed face's dispatch in one launch,
+    # the stacked face's over a cluster of R CTAs
+    "gp_step_n": 0, "gp_step_cluster": 0,
     # group lifecycle (csrc/gp_lifecycle.cu, ops/lifecycle.py)
     "gp_create_groups": 0, "gp_kill_groups": 0, "gp_jump_rows": 0,
     "gp_restore_paused_rows": 0, "gp_restore_rows": 0, "gp_extract_rows": 0,
@@ -802,9 +805,15 @@ def split_blob_vec(vec: np.ndarray, cfg: EngineConfig) -> Blob:
 
 def to_host(t) -> np.ndarray:
     """A PRIVATE host copy of a tensor (or array): never a view sharing
-    memory with a tensor that a later step may overwrite in place."""
+    memory with a tensor that a later step may overwrite in place.  A
+    device tensor's ``.cpu()`` is already a fresh host tensor, so it is
+    copied once: a second copy of a server-shape blob (18 MB) is a fresh
+    allocation that costs more than the transfer itself."""
     if isinstance(t, torch.Tensor):
-        return t.detach().cpu().numpy().copy()
+        t = t.detach()
+        if t.device.type != "cpu":
+            return np.ascontiguousarray(t.cpu().numpy())
+        return t.numpy().copy()
     return np.array(t, copy=True)
 
 

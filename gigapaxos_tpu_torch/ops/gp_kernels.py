@@ -3,13 +3,17 @@
 Three sources, each with a plain C interface (no PyTorch headers), so
 each builds with ``nvcc`` in seconds:
 
-* ``csrc/gp_step.cu``: ``gp_step`` and ``gp_make_blob`` (the engine);
+* ``csrc/gp_step.cu``: ``gp_step`` and ``gp_make_blob`` (the engine).  It
+  builds three times, one library a mode (``GP_STEP_MODE``): ``gp_step``
+  (one substep, and ``gp_make_blob``), ``gp_step_n`` (the packed face's N
+  substeps in one launch) and ``gp_step_cluster`` (the stacked face's N
+  substeps over clusters of R CTAs);
 * ``csrc/gp_lifecycle.cu``: the group-lifecycle row ops (create, kill,
   jump, restore_paused, restore_rows, extract_rows);
 * ``csrc/gp_pack_rows.cu``: ``gp_pack_rows``, the gathered blobs' row
   pack of the Blob-exchange tick.
 
-All build at first use, in parallel (one ``nvcc`` per source), into
+All build at first use, in parallel (one ``nvcc`` per library), into
 ``<checkout>/build/kernels/`` (listed in ``.gitignore``), named by one
 hash over every source and the flags, and load with ``ctypes``.
 Arguments travel as one ``ctypes.Structure`` of device pointers, passed
@@ -50,9 +54,14 @@ from .engine import (
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = {
     "gp_step": os.path.join(_PKG, "csrc", "gp_step.cu"),
+    "gp_step_n": os.path.join(_PKG, "csrc", "gp_step.cu"),
+    "gp_step_cluster": os.path.join(_PKG, "csrc", "gp_step.cu"),
     "gp_lifecycle": os.path.join(_PKG, "csrc", "gp_lifecycle.cu"),
     "gp_pack_rows": os.path.join(_PKG, "csrc", "gp_pack_rows.cu"),
 }
+# each library's mode of its source (csrc/gp_step.cu's GP_STEP_MODE)
+DEFINES = {"gp_step_n": ["-DGP_STEP_MODE=1"], "gp_step_cluster": ["-DGP_STEP_MODE=2"]}
+_STEP_LIBS = ("gp_step", "gp_step_n", "gp_step_cluster")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -61,6 +70,9 @@ NVCC_FLAGS = [
 _NLEAF = len(EngineState._fields)
 _NBLOB = len(Blob._fields)
 _MAX_W = 32
+# the portable thread-block cluster size: the most replicas one cluster of
+# the stacked N-substep launch holds (csrc/gp_step.cu GP_MAX_CLUSTER)
+MAX_CLUSTER = 8
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -89,6 +101,8 @@ class _StepArgs(ctypes.Structure):
         ("stacked", ctypes.c_int32),
         ("T", ctypes.c_int32),         # set by the C launcher
         ("aligned", ctypes.c_int32),   # set by the C launcher
+        ("n_sub", ctypes.c_int32),     # substeps in the launch
+        ("cluster", ctypes.c_int32),   # stacked: clusters of R CTAs
     ]
 
 
@@ -152,7 +166,8 @@ def _so_paths() -> Dict[str, str]:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for name in sorted(SOURCES):
         with open(SOURCES[name], "rb") as f:
-            h.update(name.encode() + b"\0" + f.read())
+            h.update(name.encode() + b"\0" + " ".join(DEFINES.get(name, [])).encode()
+                     + b"\0" + f.read())
     d = h.hexdigest()[:16]
     return {name: os.path.join(BUILD_DIR, f"lib{name}-{d}.so")
             for name in SOURCES}
@@ -173,7 +188,7 @@ def build(force: bool = False) -> Dict[str, str]:
     for name, so in todo.items():
         tmp = f"{so}.{os.getpid()}.tmp"
         procs[name] = (tmp, subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-o", tmp, SOURCES[name]],
+            [nvcc, *NVCC_FLAGS, *DEFINES.get(name, []), "-o", tmp, SOURCES[name]],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
         ))
     failed = []
@@ -194,6 +209,9 @@ def _bind(name: str, cdll: ctypes.CDLL) -> None:
     if name == "gp_step":
         sizes = {"gp_step_args_size": _StepArgs, "gp_blob_args_size": _BlobArgs}
         launchers = ("gp_step_launch", "gp_make_blob_launch", "gp_step_launch_info")
+    elif name in _STEP_LIBS:
+        sizes = {"gp_step_args_size": _StepArgs}
+        launchers = ("gp_step_launch", "gp_step_launch_info")
     elif name == "gp_lifecycle":
         sizes = {"gp_life_args_size": _LifeArgs}
         launchers = ("gp_lifecycle_launch",)
@@ -283,21 +301,43 @@ STEP_PLAN_KEYS = ("instance", "T", "threads", "smem_bytes", "ctas_per_sm", "grid
                   "aligned", "n_items")
 
 
-def step_launch_plan(cfg: EngineConfig, stacked: bool = False) -> dict:
+def step_launch_plan(cfg: EngineConfig, stacked: bool = False, n_sub: int = 1,
+                     cluster: bool = False) -> dict:
     """The plan ``gp_step_launch`` makes for ``cfg`` on the current card,
     for 16-byte aligned tensors (the caching allocator's): the
     instantiation (R * 100 + W, 0 = generic), the groups per tile, the
-    threads and shared memory of a CTA, the CTAs an SM holds, the grid,
-    bulk copies or plain loads, and the work items."""
+    threads and shared memory of a CTA, the CTAs an SM holds, the grid
+    (CTAs), bulk copies or plain loads, and the work items.  ``n_sub``
+    substeps in one launch (the packed face's :func:`step_n`, or with
+    ``cluster`` the stacked face's :func:`step_cluster`); a cluster plan
+    also names its ``cluster`` size (R CTAs, one tile a cluster)."""
     _check_cfg(cfg)
     a = _StepArgs()
     a.G, a.W, a.K, a.R = cfg.n_groups, cfg.window, cfg.req_lanes, cfg.n_replicas
-    a.stacked = int(stacked)
+    a.stacked = int(stacked or cluster)
+    a.n_sub, a.cluster = int(n_sub), int(cluster)
     got = (ctypes.c_longlong * len(STEP_PLAN_KEYS))()
-    rc = lib().gp_step_launch_info(ctypes.addressof(a), ctypes.addressof(got))
+    name = "gp_step_cluster" if cluster else ("gp_step_n" if n_sub > 1 else "gp_step")
+    rc = lib(name).gp_step_launch_info(ctypes.addressof(a), ctypes.addressof(got))
     if rc != 0:
         raise RuntimeError(f"gp_step_launch_info failed: cudaError {rc}")
-    return dict(zip(STEP_PLAN_KEYS, (int(x) for x in got)))
+    plan = dict(zip(STEP_PLAN_KEYS, (int(x) for x in got)))
+    if cluster:
+        plan["cluster"] = cfg.n_replicas
+    return plan
+
+
+def stacked_route(cfg: EngineConfig, n_steps: int) -> str:
+    """How the stacked face runs ``n_steps`` substeps on the card, by shape
+    alone: ``"cluster"`` (one :func:`step_cluster` launch, the replicas
+    exchanging blobs in their cluster's shared memory) for N > 1 and R up
+    to :data:`MAX_CLUSTER`, the portable cluster size; ``"launches"`` (a
+    ``gp_make_blob`` and N stacked ``gp_step`` launches through a blob
+    matrix in device memory) for N = 1 and for more replicas than a
+    cluster holds."""
+    if n_steps > 1 and cfg.n_replicas <= MAX_CLUSTER:
+        return "cluster"
+    return "launches"
 
 
 def step(state: EngineState, gvec: torch.Tensor, heard: torch.Tensor,
@@ -356,11 +396,123 @@ def step(state: EngineState, gvec: torch.Tensor, heard: torch.Tensor,
             heat_out = torch.empty_like(heat)
         a.heat_out = _check(heat_out, "heat_out", (G,), torch.int32, dev)
     a.G, a.W, a.K, a.R, a.my_id, a.stacked = G, W, K, R, int(my_id), 0
+    a.n_sub, a.cluster = 1, 0
     _launch(lib().gp_step_launch, a)
-    LAUNCHES["gp_step"] += 1
-    if launch_log is not None:
-        launch_log["gp_step"] = launch_log.get("gp_step", 0) + 1
+    _count("gp_step", launch_log)
     return out_state, out_vec, blob, heat_out
+
+
+def _count(name: str, launch_log: Optional[dict]) -> None:
+    LAUNCHES[name] += 1
+    if launch_log is not None:
+        launch_log[name] = launch_log.get(name, 0) + 1
+
+
+def step_n(state: EngineState, gvec: torch.Tensor, heard: torch.Tensor,
+           req_ring: torch.Tensor, want_coord: torch.Tensor, my_id: int,
+           cfg: EngineConfig, *, out_state: Optional[EngineState] = None,
+           heat: Optional[torch.Tensor] = None,
+           heat_out: Optional[torch.Tensor] = None,
+           out_rings: Optional[torch.Tensor] = None,
+           out_blob: Optional[torch.Tensor] = None,
+           launch_log: Optional[dict] = None):
+    """The packed face's N-substep dispatch as ONE launch (``gp_step_n``):
+    N = ``req_ring.shape[0]`` rounds of one replica with the state held in
+    shared memory, MY row of ``gvec`` replaced by the advancing state's
+    blob from substep 1 on, peers' rows as passed, ``want_coord`` at
+    substep 0 only.  Returns (state', out_rings [N, M], blob_vec [NB],
+    heat_out); ``heat``/``heat_out`` as :func:`step`'s, summed over the N
+    substeps; ``out_rings`` and ``out_blob`` (optional) are preallocated
+    outputs (the blob must not overlap ``gvec``)."""
+    _check_cfg(cfg)
+    G, W, K, R = cfg.n_groups, cfg.window, cfg.req_lanes, cfg.n_replicas
+    dev = state.bal.device
+    if dev.type != "cuda":
+        raise ValueError(f"gp_step_n needs CUDA tensors, got {dev}")
+    if not 0 <= my_id < R:
+        raise ValueError(f"my_id {my_id} outside [0, {R})")
+    if req_ring.dim() != 3 or req_ring.shape[0] < 1:
+        raise ValueError(f"req_ring: shape {tuple(req_ring.shape)}, expected [N, G, K]")
+    N = int(req_ring.shape[0])
+    a = _StepArgs()
+    a.st_in[:] = _state_ptrs(state, (), G, W, dev, "state")
+    if out_state is None:
+        out_state = _empty_state(state)
+    a.st_out[:] = _state_ptrs(out_state, (), G, W, dev, "out_state")
+    if set(a.st_in) & set(a.st_out):
+        raise ValueError("out_state aliases the input state")
+    NB, M = blob_vec_len(cfg), out_vec_len(cfg)
+    a.gathered = _check(gvec, "gathered", (R, NB), torch.int32, dev)
+    heard = _bytes(heard)
+    a.heard = _check(heard, "heard", (R,), torch.uint8, dev)
+    a.req = _check(req_ring, "req_ring", (N, G, K), torch.int32, dev)
+    want_coord = _bytes(want_coord)
+    a.want = _check(want_coord, "want_coord", (G,), torch.uint8, dev)
+    if out_rings is None:
+        out_rings = torch.empty((N, M), dtype=torch.int32, device=dev)
+    a.out_vec = _check(out_rings, "out_rings", (N, M), torch.int32, dev)
+    if out_blob is None:
+        out_blob = torch.empty((NB,), dtype=torch.int32, device=dev)
+    a.blob = _check(out_blob, "out_blob", (NB,), torch.int32, dev)
+    if a.blob < a.gathered + 4 * gvec.numel() and a.gathered < a.blob + 4 * NB:
+        raise ValueError("out_blob overlaps the gathered blobs")
+    if heat is not None:
+        a.heat_in = _check(heat, "heat", (G,), torch.int32, dev)
+        if heat_out is None:
+            heat_out = torch.empty_like(heat)
+        a.heat_out = _check(heat_out, "heat_out", (G,), torch.int32, dev)
+    a.G, a.W, a.K, a.R, a.my_id, a.stacked = G, W, K, R, int(my_id), 0
+    a.n_sub, a.cluster = N, 0
+    _launch(lib("gp_step_n").gp_step_launch, a)
+    _count("gp_step_n", launch_log)
+    return out_state, out_rings, out_blob, heat_out
+
+
+def step_cluster(states: EngineState, heard: torch.Tensor, req_vid: torch.Tensor,
+                 want_coord: torch.Tensor, cfg: EngineConfig, *,
+                 out_states: Optional[EngineState] = None,
+                 out_mat: Optional[torch.Tensor] = None,
+                 launch_log: Optional[dict] = None):
+    """The stacked face's N substeps as ONE launch (``gp_step_cluster``):
+    a cluster of R CTAs per group tile, one per replica, each holding its
+    replica's state for the whole dispatch and storing its blob rows into
+    every peer's shared memory each substep (no blob matrix in device
+    memory, no ``gp_make_blob``).  ``req_vid [N, R, G, K]``,
+    ``want_coord [R, G]`` (substep 0 only), ``heard [R, R]``.  Returns
+    (states', out matrix [N, R, M]).  R must not exceed
+    :data:`MAX_CLUSTER` (:func:`stacked_route`)."""
+    _check_cfg(cfg)
+    G, W, K, R = cfg.n_groups, cfg.window, cfg.req_lanes, cfg.n_replicas
+    if R > MAX_CLUSTER:
+        raise ValueError(f"gp_step_cluster: R={R} replicas, a cluster holds at most "
+                         f"{MAX_CLUSTER} CTAs")
+    dev = states.bal.device
+    if dev.type != "cuda":
+        raise ValueError(f"gp_step_cluster needs CUDA tensors, got {dev}")
+    if req_vid.dim() != 4 or req_vid.shape[0] < 1:
+        raise ValueError(f"req_vid: shape {tuple(req_vid.shape)}, expected [N, R, G, K]")
+    N = int(req_vid.shape[0])
+    a = _StepArgs()
+    a.st_in[:] = _state_ptrs(states, (R,), G, W, dev, "states")
+    if out_states is None:
+        out_states = _empty_state(states)
+    a.st_out[:] = _state_ptrs(out_states, (R,), G, W, dev, "out_states")
+    if set(a.st_in) & set(a.st_out):
+        raise ValueError("out_states alias the input states")
+    heard = _bytes(heard)
+    a.heard = _check(heard, "heard", (R, R), torch.uint8, dev)
+    a.req = _check(req_vid, "req_vid", (N, R, G, K), torch.int32, dev)
+    want_coord = _bytes(want_coord)
+    a.want = _check(want_coord, "want_coord", (R, G), torch.uint8, dev)
+    M = out_vec_len(cfg)
+    if out_mat is None:
+        out_mat = torch.empty((N, R, M), dtype=torch.int32, device=dev)
+    a.out_vec = _check(out_mat, "out_mat", (N, R, M), torch.int32, dev)
+    a.G, a.W, a.K, a.R, a.my_id, a.stacked = G, W, K, R, 0, 1
+    a.n_sub, a.cluster = N, 1
+    _launch(lib("gp_step_cluster").gp_step_launch, a)
+    _count("gp_step_cluster", launch_log)
+    return out_states, out_mat
 
 
 def step_stacked(states: EngineState, blobs: torch.Tensor, heard: torch.Tensor,
@@ -402,10 +554,9 @@ def step_stacked(states: EngineState, blobs: torch.Tensor, heard: torch.Tensor,
         if a.blob == a.gathered:
             raise ValueError("out_blobs aliases the gathered blobs")
     a.G, a.W, a.K, a.R, a.my_id, a.stacked = G, W, K, R, 0, 1
+    a.n_sub, a.cluster = 1, 0
     _launch(lib().gp_step_launch, a)
-    LAUNCHES["gp_step"] += 1
-    if launch_log is not None:
-        launch_log["gp_step"] = launch_log.get("gp_step", 0) + 1
+    _count("gp_step", launch_log)
     return out_states, out_mat, out_blobs
 
 
@@ -430,9 +581,7 @@ def make_blob_rows(states: EngineState, n_rep: Optional[int] = None,
     a.blob = _check(out, "out", lead + (NB,), torch.int32, dev)
     a.G, a.W, a.n_rep = G, W, 1 if n_rep is None else int(n_rep)
     _launch(lib().gp_make_blob_launch, a)
-    LAUNCHES["gp_make_blob"] += 1
-    if launch_log is not None:
-        launch_log["gp_make_blob"] = launch_log.get("gp_make_blob", 0) + 1
+    _count("gp_make_blob", launch_log)
     return out
 
 
@@ -773,7 +922,5 @@ def pack_rows(blob: Blob, device, launch_log: Optional[dict] = None) -> torch.Te
     blob).  ``launch_log`` (optional) is a caller's own launch counter."""
     st = StagedPack(blob, device)
     st.launch()
-    LAUNCHES["gp_pack_rows"] += 1
-    if launch_log is not None:
-        launch_log["gp_pack_rows"] = launch_log.get("gp_pack_rows", 0) + 1
+    _count("gp_pack_rows", launch_log)
     return st.result

@@ -8,9 +8,13 @@ ONE factory — :func:`make_step` — builds both execution faces of
   N > 1), outputs :class:`StepOutputs` of ``[R, ...]`` (``[N, R, ...]``)
   leaves.  Every replica advances each substep and the blob exchange is
   re-read from the advancing states, so N stacked substeps are exactly N
-  sequential stacked calls.  On the card each substep is ONE ``gp_step``
-  launch over an (R x group-tile) grid, exchanging through a
-  double-buffered ``[R, NB]`` blob matrix.
+  sequential stacked calls.  On the card N > 1 substeps are ONE
+  ``gp_step_cluster`` launch for R up to 8 (a cluster of R CTAs per
+  group tile, the replicas' blobs exchanged in the cluster's shared
+  memory); N = 1, and R above the portable cluster size of 8, take a
+  ``gp_make_blob`` and one ``gp_step`` launch per substep over an (R x
+  group-tile) grid, exchanging through a double-buffered ``[R, NB]`` blob
+  matrix (:func:`gigapaxos_tpu_torch.ops.gp_kernels.stacked_route`).
 
 * ``io="packed_host"`` — the deployed-runtime face (one replica's state,
   peers' blobs arriving as the packed ``[R, NB]`` gathered matrix == the
@@ -18,9 +22,10 @@ ONE factory — :func:`make_step` — builds both execution faces of
   blob_vec)``.  Substep 0 consumes the gathered rows exactly as passed;
   substeps >= 1 refresh only MY row from the advancing state while peers'
   rows stay frozen — the semantics of N serial host ticks during which no
-  new peer frame lands.  On the card: N ``gp_step`` launches, each
-  writing state', its out-ring row and the fresh blob, with the heat
-  accumulator fused into the epilogue.
+  new peer frame lands.  On the card: ONE launch (``gp_step`` at N = 1,
+  ``gp_step_n`` at N > 1) with the state held in shared memory across
+  the substeps, writing state', every out-ring row and the fresh blob,
+  with the heat accumulator fused into the epilogue.
 
 ``steps_per_dispatch`` (N >= 1) runs N consensus rounds per host call.
 
@@ -36,7 +41,8 @@ it.  The stacked face takes a ``mesh``:
 * ``None``: one device;
 * a ``('g',)`` mesh (``make_group_mesh``): the state is split over G,
   every shard holding all R replica rows, and each shard runs the stacked
-  face above on its own device (one ``gp_make_blob`` and one stacked
+  face above on its own device (N > 1 with R <= 8: one
+  ``gp_step_cluster``; else one ``gp_make_blob`` and one stacked
   ``gp_step`` per substep); no exchange, no host sync between shards;
 * a ``(g, r)`` mesh (``make_mesh``): device (gi, ri) holds replica ri's
   rows of g-shard gi.  Each substep every device's compact blob
@@ -46,7 +52,9 @@ it.  The stacked face takes a ``mesh``:
   cards a peer copy; on one card a copy all the same, each logical device
   owning its buffers), and one ``gp_step`` per device folds the buffer
   for its replica with its row of ``heard``.  This copy is the
-  reference's GSPMD ``all_gather`` over 'r'.
+  reference's GSPMD ``all_gather`` over 'r'.  Its replicas live on
+  different devices and exchange between substeps, so this face keeps N
+  ``gp_step`` launches a device (no cluster spans devices).
 
 Either way a call takes a global ``EngineState`` (tensors or numpy, split
 on entry as the reference's ``_constrain`` does) or one of
@@ -62,8 +70,8 @@ over 'g', replicated over 'r' on a ``(g, r)`` mesh (every device of a
 g-row runs the same shard, as GSPMD runs a ``P('g')`` program).  Each
 device takes its rows of the packed ``[R, NB]`` gathered matrix (one
 slice per leaf: the layout is leaf-major), runs the one-device packed
-face on its shard (N ``gp_step`` launches, heat fused, MY row refreshed
-from substep 1), and the shards' ``out_rings`` and blobs are reassembled
+face on its shard (one launch, ``gp_step_n`` at N > 1, heat fused, MY row
+refreshed from substep 1), and the shards' ``out_rings`` and blobs are reassembled
 into the global leaf-major ``[N, M]`` and ``[NB]`` vectors on the mesh's
 first device, bit-equal to ``mesh=None``.  Pad rows get the inert blob
 in the gathered slices and never reach the outputs.
@@ -139,7 +147,21 @@ def _heard_matrix(heard, R: int, device) -> torch.Tensor:
 
 class _StackedStep:
     def __init__(self, cfg: EngineConfig, n_steps: int, device: torch.device):
+        from ..ops import gp_kernels
+
         self.cfg, self.n_steps, self.device = cfg, n_steps, device
+        # the kernel path's route, by shape alone (never because a build or
+        # launch failed): a cluster holds the R replicas of a tile for N > 1
+        # substeps while R fits the portable cluster size; else N launches
+        self.route = gp_kernels.stacked_route(cfg, n_steps)
+        if _engine.on_card(device):
+            from ..obs.gplog import get_logger
+
+            get_logger("engine").info(
+                "stacked face N=%d R=%d on %s: %s", n_steps, cfg.n_replicas,
+                device, "one gp_step_cluster launch a dispatch"
+                if self.route == "cluster" else
+                "gp_make_blob and N gp_step launches a dispatch")
 
     def _outs(self, mat: torch.Tensor) -> StepOutputs:
         """[..., R, M] out matrix -> StepOutputs of [..., R, ...] leaves."""
@@ -204,6 +226,10 @@ class _StackedStep:
 
         mat = torch.empty((N, R, out_vec_len(cfg)), dtype=torch.int32,
                           device=dev)
+        if self.route == "cluster":
+            st, mat = gp_kernels.step_cluster(states, h, req, want, cfg,
+                                              out_mat=mat, launch_log=launch_log)
+            return st, self._outs(mat)
         blobs = gp_kernels.make_blob_rows(states, R, launch_log)
         blobs_next = torch.empty_like(blobs) if N > 1 else None
         st = states
@@ -266,23 +292,20 @@ class _PackedStep:
         heat_out = None
         if self.heat:
             heat_out = heat_acc if self.donate else torch.empty_like(heat_acc)
-        g = gvec
-        st = state
-        blob = None
-        for i in range(N):
+        if N == 1:
             st, _, blob, _ = gp_kernels.step(
-                st, g, heard, req_ring[i], want if i == 0 else no_want,
-                my_id, cfg, with_blob=True,
-                heat=(heat_acc if i == 0 else heat_out) if self.heat else None,
-                heat_out=heat_out, out_vec=out_rings[i],
+                state, gvec, heard, req_ring[0], want, my_id, cfg,
+                with_blob=True, heat=heat_acc, heat_out=heat_out,
+                out_vec=out_rings[0], launch_log=launch_log,
+            )
+        else:
+            # the N substeps in one launch: MY row refreshed from the
+            # advancing state, peers' rows frozen, want at substep 0
+            st, _, blob, _ = gp_kernels.step_n(
+                state, gvec, heard, req_ring, want, my_id, cfg,
+                heat=heat_acc, heat_out=heat_out, out_rings=out_rings,
                 launch_log=launch_log,
             )
-            if i < N - 1:
-                # substeps >= 1 read MY row from the advancing state;
-                # peers' rows stay frozen for the whole dispatch
-                if g is gvec:
-                    g = gvec.clone()
-                g[my_id].copy_(blob)
         if self.heat:
             return st, out_rings, blob, heat_out
         return st, out_rings, blob
@@ -529,7 +552,11 @@ class _MeshStep:
         return st
 
     def _run_gr(self, st, req, want, h, kernels):
-        """(g, r): one replica per device, the blob exchange each substep."""
+        """(g, r): one replica per device, the blob exchange each substep.
+        The replicas of a g-row sit on different devices and exchange
+        between substeps, so this face keeps N ``gp_step`` launches a
+        device (one launch holding the N substeps needs the R replicas in
+        one cluster of one card)."""
         cfg, N, R = self.cfg, self.n_steps, self.cfg.n_replicas
         G, Gs = st.bal.n_groups, st.bal.shard_groups
         cfg_s = cfg._replace(n_groups=Gs)

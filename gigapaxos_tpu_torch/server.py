@@ -247,6 +247,9 @@ class PaxosServer:
         decode (native, GIL-released when available) and admit as ONE
         batched manager call.  The connection is marked binary so its
         responses ride 'S' frames."""
+        # a frame larger than the transport's stage arrives as a
+        # bytearray; the native decoder takes bytes
+        payload = bytes(payload)
         try:
             _sender, items = hot_codec.decode_request_batch(payload)
         except ValueError:
@@ -432,7 +435,6 @@ class PaxosServer:
         m = self.manager
         mx = m.metrics
         tcm = m.trace_ctx
-        n_items = 0
         for reply, items, binary in bufs.values():
             for item in items:
                 rid = item.get("request_id")
@@ -448,9 +450,12 @@ class PaxosServer:
                         error=item.get("error"),
                         force=tc is not None, **m._tc_detail(tc),
                     )
-            n_items += len(items)
             mx.observe("flush_batch_size", len(items),
                        bounds=(1, 2, 4, 8, 16, 32, 64, 128, 256, 1024))
+            # counted before the frame is queued: a client that reads the
+            # metrics once its response arrives must find it counted
+            mx.count("responses_flushed", len(items))
+            mx.count("response_frames_sent")
             if binary and all(
                 hot_codec.encodable_response(i) for i in items
             ):
@@ -461,9 +466,6 @@ class PaxosServer:
                 reply(encode_json(
                     "client_response_batch", self.my_id, {"resps": items}
                 ))
-        if n_items:
-            mx.count("responses_flushed", n_items)
-            mx.count("response_frames_sent", len(bufs))
         dt = time.monotonic() - t0
         DelayProfiler.update_count("t_flush", dt)
         mx.observe("phase_flush_s", dt)
@@ -873,9 +875,10 @@ class PaxosServer:
     def _tick_once_inner(self) -> None:
         R = self.cfg.n_replicas
         # packed exchange: peer frames already ARE the [N] vectors, my
-        # previous tick's publish vector is cached, and the whole [R, N]
-        # gather uploads as ONE device put inside the packed step (the
-        # per-leaf dispatch path cost ~3x the engine step at small G)
+        # previous tick's publish vector is cached, and the [R, N] gather
+        # uploads row by row into one device tensor inside the packed
+        # step, never stacked on the host (the per-leaf dispatch path
+        # cost ~3x the engine step at small G)
         if self._my_blob_state is not self.manager.state:
             # state changed outside the tick (create/kill/resume/recover):
             # the cached publish vector is stale — my own gathered row
@@ -899,7 +902,7 @@ class PaxosServer:
                 heard[r] = True
             else:
                 rows.append(my_vec)
-        gathered = np.stack(rows)
+        gathered = rows
         want = self.fd.want_coord(
             self.manager._np("bal"),
             self.manager._np("member_mask"),

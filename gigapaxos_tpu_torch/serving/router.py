@@ -176,6 +176,7 @@ class ShardRouter:
 
     # ---- ingress from clients / RCs (base port) ------------------------
     def _on_message(self, payload: bytes, peer, reply) -> None:
+        payload = bytes(payload)  # a large frame arrives as a bytearray
         kind = decode_kind(payload)
         if kind == "R":
             self._route_binary(payload, reply)

@@ -182,18 +182,22 @@ def count_steps():
         mp.undo()
 
 
-def run_scripted(family: str, seed: int, device=None, **kw) -> Dict:
+def run_scripted(family: str, seed: int, device=None, config=None, **kw) -> Dict:
     """``testing.chaos.run_<family>(seed, device=device, **kw)`` on a fresh
-    scripted clock: the soak's result, the kernel launches (counted from
-    0), manager ticks and cluster steps it took, and its seconds on the
-    host's clock."""
+    scripted clock, with the settings ``config`` ({name: value}) set first
+    (the clock clears them when it ends): the soak's result, the kernel
+    launches (counted from 0), manager ticks and cluster steps it took, and
+    its seconds on the host's clock."""
     from ..ops import engine as te
+    from ..utils.config import Config
     from . import chaos
 
     fn = getattr(chaos, f"run_{family}")
     te.reset_launch_counts()
     t0 = _time.perf_counter()
     with scripted() as clock, count_steps() as counts:
+        for k, v in (config or {}).items():
+            Config.set(k, str(v))
         result = fn(seed, device=device, **kw)
         scripted_s = clock.t - 1_000_000.0
     return {"family": family, "seed": seed, "result": result,

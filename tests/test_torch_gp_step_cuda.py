@@ -9,9 +9,14 @@ one slot of the window), at every instantiation of ``csrc/gp_step.cu``
 R=7), on both faces (packed with heat, stacked), at G=301 (G % 4 == 1:
 unaligned leaf offsets, plain loads) and G=4100 (bulk copies, a ragged
 last tile);
-the launcher's plan at the paths' shapes, its refusals, and one
-instantiation launched at two tiles from two threads; and a SimCluster on
-the card in lock step with one on the CPU.
+the N-substep modes at every shape and G with N in {2, 8}, and at the
+server shape's G=65,536 (three tiles and more a CTA): the packed face's
+dispatch as one ``gp_step_n`` launch and the stacked face's as one
+``gp_step_cluster`` launch, against the plain faces; the launcher's plan
+at the paths' shapes, the stacked route by shape (a cluster for R <= 8, N
+launches beyond), its refusals, and one instantiation launched at two
+tiles from two threads; and a SimCluster on the card in lock step with
+one on the CPU.
 
 A CUDA kernel has no CPU mode: every test here skips without a card.
 This file imports nothing of JAX, so it also runs where JAX is absent
@@ -38,6 +43,10 @@ G = 301
 # full width), and the generic one
 SHAPES = [(W, R, min(W, 4 * R)) for W in (8, 16, 32) for R in (1, 2, 3, 4, 5)]
 SHAPES += [(8, 3, 4), (16, 3, 8), (32, 3, 16), (32, 5, 8), (32, 4, 32), (4, 7, 3)]
+# the N-substep modes' cases: every shape at both G, and the server shape's
+# (W, R, K) at G=65,536, where each CTA of the persistent grid takes three
+# tiles or more, so the ring refills stages that the substeps wrote
+SUB_CASES = [(W, R, K, g) for (W, R, K) in SHAPES for g in GS] + [(16, 3, 8, 65_536)]
 
 
 def _need_card():
@@ -170,6 +179,109 @@ def test_gp_step_stacked_matches_plain(W, R, K, G):
             assert torch.equal(k_bl[r], te.pack_blob(te.make_blob_plain(p_st))), r
 
 
+@pytest.mark.parametrize("N", [2, 8])
+@pytest.mark.parametrize("W,R,K,G", SUB_CASES)
+def test_gp_step_n_matches_plain_face(W, R, K, G, N):
+    """The packed face's N substeps as one gp_step_n launch (heat on, want
+    at substep 0, MY row refreshed from the advancing state, peers'
+    rows frozen) against the plain face, for MY id 0 and R-1."""
+    _need_card()
+    from gigapaxos_tpu_torch.parallel.spmd import make_step
+
+    cfg = te.EngineConfig(G, W, K, R)
+    rng = np.random.default_rng(W * 13 + R + G + N)
+    fn = make_step(cfg, None, N, donate=False, io="packed_host", heat=True,
+                   device="cuda")
+    me = _random_state(rng, W, R, G=G)
+    peers = [_dev(_random_state(rng, W, R, near=me, G=G)) for _ in range(R)]
+    gvec = torch.stack([te.pack_blob(te.make_blob_plain(p)) for p in peers])
+    ring = np.where(rng.random((N, G, K)) < 0.6, rng.integers(1, 100, (N, G, K)), NULL)
+    ring = torch.as_tensor(ring.astype(np.int32), device="cuda")
+    heat = torch.as_tensor(rng.integers(0, 9, G).astype(np.int32), device="cuda")
+    for my_id in sorted({0, R - 1}):
+        st = _dev(me)
+        heard = torch.as_tensor(rng.random(R) < 0.85, device="cuda")
+        want = torch.as_tensor(rng.random(G) < 0.3, device="cuda")
+        te.reset_launch_counts()
+        k = fn(st, gvec, heard, ring, want, my_id, heat)
+        assert te.LAUNCHES["gp_step_n"] == 1 and te.LAUNCHES["gp_step"] == 0
+        p = fn.plain(st, gvec, heard, ring, want, my_id, heat)
+        torch.cuda.synchronize()
+        _eq(k[0], p[0], f"state' r{my_id}")
+        for j in (1, 2, 3):
+            assert torch.equal(k[j], p[j]), (my_id, j)
+
+
+@pytest.mark.parametrize("N", [2, 8])
+@pytest.mark.parametrize("W,R,K,G", SUB_CASES)
+def test_gp_step_cluster_matches_plain_face(W, R, K, G, N):
+    """The stacked face's N substeps as one gp_step_cluster launch (no
+    gp_make_blob), each replica with its own heard row, against the plain
+    face."""
+    _need_card()
+    from gigapaxos_tpu_torch.parallel.spmd import make_step, stack_states
+
+    cfg = te.EngineConfig(G, W, K, R)
+    rng = np.random.default_rng(W * 17 + R + G + N)
+    fn = make_step(cfg, None, N, donate=False, io="stacked", device="cuda")
+    assert fn.route == "cluster"
+    me = _random_state(rng, W, R, G=G)
+    states = stack_states([_dev(_random_state(rng, W, R, near=me, G=G))
+                           for _ in range(R)])
+    req = np.where(rng.random((N, R, G, K)) < 0.6, rng.integers(1, 100, (N, R, G, K)), NULL)
+    req = torch.as_tensor(req.astype(np.int32), device="cuda")
+    want = torch.as_tensor(rng.random((R, G)) < 0.3, device="cuda")
+    heard = torch.as_tensor(rng.random((R, R)) < 0.85, device="cuda")
+    te.reset_launch_counts()
+    k_st, k_o = fn(states, req, want, heard)
+    assert te.LAUNCHES["gp_step_cluster"] == 1
+    assert te.LAUNCHES["gp_step"] == te.LAUNCHES["gp_make_blob"] == 0
+    p_st, p_o = fn.plain(states, req, want, heard)
+    torch.cuda.synchronize()
+    _eq(k_st, p_st, "states'")
+    _eq(k_o, p_o, "outs")
+
+
+@pytest.mark.parametrize("R", [3, 7, 8, 9, 16])
+def test_stacked_route_picks_a_cluster_up_to_8_replicas(R):
+    """The stacked face's route at N > 1 is chosen by shape: a cluster of R
+    CTAs (one gp_step_cluster launch, the plan's grid whole clusters) for
+    R <= 8, the portable cluster size; a gp_make_blob and N stacked
+    gp_step launches beyond, where gp_step_cluster refuses the shape."""
+    _need_card()
+    from gigapaxos_tpu_torch.ops import gp_kernels
+    from gigapaxos_tpu_torch.parallel.spmd import make_step, stack_states
+
+    G_, W, K, N = 301, 8, 4, 3
+    cfg = te.EngineConfig(G_, W, K, R)
+    fn = make_step(cfg, None, N, donate=False, io="stacked", device="cuda")
+    rng = np.random.default_rng(R)
+    me = _random_state(rng, W, R, G=G_)
+    states = stack_states([_dev(_random_state(rng, W, R, near=me, G=G_))
+                           for _ in range(R)])
+    req = torch.as_tensor(np.where(rng.random((N, R, G_, K)) < 0.6, 7, NULL)
+                          .astype(np.int32), device="cuda")
+    want = torch.zeros((R, G_), dtype=torch.bool, device="cuda")
+    te.reset_launch_counts()
+    k_st, k_o = fn(states, req, want)
+    got = dict(te.LAUNCHES)
+    p_st, p_o = fn.plain(states, req, want)
+    _eq(k_st, p_st, "states'")
+    _eq(k_o, p_o, "outs")
+    if R <= gp_kernels.MAX_CLUSTER:
+        assert fn.route == "cluster"
+        assert (got["gp_step_cluster"], got["gp_step"], got["gp_make_blob"]) == (1, 0, 0)
+        plan = gp_kernels.step_launch_plan(cfg, n_sub=N, cluster=True)
+        assert plan["cluster"] == R and plan["grid"] % R == 0, plan
+        assert 1 <= plan["grid"] // R <= plan["n_items"] == -(-G_ // plan["T"]), plan
+    else:
+        assert fn.route == "launches"
+        assert (got["gp_step_cluster"], got["gp_step"], got["gp_make_blob"]) == (0, N, 1)
+        with pytest.raises(ValueError):
+            gp_kernels.step_cluster(states, torch.ones((R, R), dtype=torch.bool,
+                                                       device="cuda"), req, want, cfg)
+
+
 # (G, W, K, R, stacked) -> (instantiation, groups per tile)
 PATH_PLANS = {
     "headline": ((1_048_576, 32, 16, 3, True), (332, 8)),
@@ -199,7 +311,8 @@ def test_gp_step_plan_at_the_paths_shapes(path):
 
 
 @pytest.mark.parametrize("field,value", [("W", 12), ("W", 64), ("K", 17), ("R", 0),
-                                         ("R", 33), ("G", 0)])
+                                         ("R", 33), ("G", 0), ("n_sub", 0),
+                                         ("cluster", 1)])
 def test_gp_step_refuses_a_bad_plan(field, value):
     """The C launcher refuses arguments it has no plan for (the wrapper
     refuses them first; this holds the launcher on its own)."""
@@ -209,7 +322,7 @@ def test_gp_step_refuses_a_bad_plan(field, value):
     from gigapaxos_tpu_torch.ops import gp_kernels
 
     a = gp_kernels._StepArgs()
-    a.G, a.W, a.K, a.R = 64, 16, 8, 3
+    a.G, a.W, a.K, a.R, a.n_sub = 64, 16, 8, 3, 1
     setattr(a, field, value)
     got = (ctypes.c_longlong * len(gp_kernels.STEP_PLAN_KEYS))()
     assert gp_kernels.lib().gp_step_launch_info(ctypes.addressof(a),

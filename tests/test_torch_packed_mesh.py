@@ -193,8 +193,8 @@ def test_reference_cases_cover_every_setting():
 @pytest.mark.parametrize("mesh_key", list(MESHES))
 def test_packed_mesh_kernel_orchestration_matches_plain(monkeypatch, mesh_key, G):
     """The kernel path (wrappers emulated) equals the mesh face's plain
-    version, N gp_step launches on every logical device; a (g, r) mesh
-    runs each g-shard on every device of its row."""
+    version, one gp_step_n launch (the N substeps) on every logical
+    device; a (g, r) mesh runs each g-shard on every device of its row."""
     n = 4
     cfg, state, gvec, heard, rings, want, my_id, heat = _inputs(G, n, seed=3)
     tm = MESHES[mesh_key][0]()
@@ -207,7 +207,7 @@ def test_packed_mesh_kernel_orchestration_matches_plain(monkeypatch, mesh_key, G
     k = fn(*args)
     _assert_same([_snap(p)], [_snap(k)], True, "kernels vs plain")
     assert {idx: log for idx, log in fn.launches.items()} == \
-        {idx: {"gp_step": n} for idx in np.ndindex(*tm.devices.shape)}
+        {idx: {"gp_step_n": 1} for idx in np.ndindex(*tm.devices.shape)}
     # every device of a g-row holds its own copy of the same shard
     sh = k[0].bal.shards
     if "r" in tm.axis_names:

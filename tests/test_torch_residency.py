@@ -19,11 +19,20 @@ Two layers:
   the plain path and once on the emulated kernel path.  Every engine
   leaf, app state, reply and residency count must be equal (zero
   tolerance).
+* **the residency dispatch, N = 8 substeps a host call**
+  (``ENGINE_STEPS_PER_DISPATCH``): the packed face (heat on, want at
+  substep 0, MY row refreshed from the advancing state, peers' rows
+  frozen) and the stacked face against the JAX package's
+  ``make_step(..., N)``, and both packages' ``ManagerCluster`` at N = 8,
+  each on the plain path and on the emulated kernel path (one
+  ``gp_step_n`` or ``gp_step_cluster`` launch a dispatch).
 """
 
 import ctypes
 import os
+import random
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -31,7 +40,9 @@ import torch
 from gigapaxos_tpu.manager import PaxosManager as JManager
 from gigapaxos_tpu.models import StatefulAdderApp as JAdder
 from gigapaxos_tpu.models.apps import HashChainApp as JHashChain
+from gigapaxos_tpu.ops import engine as je
 from gigapaxos_tpu.ops.engine import EngineConfig as JConfig
+from gigapaxos_tpu.parallel import spmd as jspmd
 from gigapaxos_tpu.testing.cluster import ManagerCluster as JCluster
 from gigapaxos_tpu.utils.config import Config as JaxConfig
 from gigapaxos_tpu_torch.manager import PaxosManager as TManager
@@ -41,6 +52,7 @@ from gigapaxos_tpu_torch.ops import engine as te
 from gigapaxos_tpu_torch.ops import gp_kernels
 from gigapaxos_tpu_torch.ops import lifecycle as tl
 from gigapaxos_tpu_torch.ops.engine import EngineConfig as TConfig
+from gigapaxos_tpu_torch.parallel import spmd as tspmd
 from gigapaxos_tpu_torch.testing import density
 from gigapaxos_tpu_torch.testing.cluster import DELIVER, DROP
 from gigapaxos_tpu_torch.testing.cluster import ManagerCluster as TCluster
@@ -741,3 +753,175 @@ def test_density_procedure_matches_jax(monkeypatch, tmp_path, path):
     else:
         assert all(not v for v in rt["launches"].values())
     assert os.path.isdir(str(tmp_path / "torch-density"))
+
+
+# ---------------------------------------------------------------------------
+# the residency dispatch: N substeps a host call (ENGINE_STEPS_PER_DISPATCH)
+# ---------------------------------------------------------------------------
+
+RES_N = 8
+
+
+def _loaded(G, W, K, R, seed, steps=3):
+    """Both packages' stacked states after ``steps`` loaded stacked steps
+    (an election pulse at the second) from the same numpy inputs, and the
+    packed gathered matrix of the states one step before the last (every
+    row one step stale, MY row too)."""
+    cfg_j, cfg_t = JConfig(G, W, K, R), TConfig(G, W, K, R)
+    sj = jspmd.build_replica_states(cfg_j)
+    st = tspmd.build_replica_states(cfg_t, device="cpu")
+    fj = jspmd.make_step(cfg_j, None, 1, donate=False)
+    ft = tspmd.make_step(cfg_t, None, 1, donate=False, device="cpu")
+    rng = np.random.default_rng(seed)
+    gvec = None
+    for t in range(steps):
+        if t == steps - 1:
+            gvec = np.stack([np.asarray(je.pack_blob(je.make_blob(
+                je.EngineState(*(x[r] for x in sj))))) for r in range(R)])
+        req = np.where(rng.random((R, G, K)) < 0.6,
+                       rng.integers(1, 10 ** 6, (R, G, K)), NULL).astype(np.int32)
+        want = rng.random((R, G)) < (0.3 if t == 1 else 0.0)
+        sj, _ = fj(sj, jnp.asarray(req), jnp.asarray(want))
+        st, _ = ft(st, req, want)
+    for f in FIELDS:
+        np.testing.assert_array_equal(np.asarray(getattr(sj, f)),
+                                      getattr(st, f).numpy(), err_msg=f)
+    return cfg_j, cfg_t, sj, st, gvec, rng
+
+
+@pytest.mark.parametrize("path", PATHS)
+@pytest.mark.parametrize("my_id", [0, 2])
+@pytest.mark.parametrize("G", [16, 13])
+def test_packed_dispatch_n8_matches_jax(monkeypatch, path, my_id, G):
+    """The packed face at N=8 with heat: every state leaf, every out-ring
+    row, the blob and the heat equal the JAX package's packed face; a
+    peer unheard, elections wanted at substep 0 only."""
+    W, K, R = 8, 4, 3
+    cfg_j, cfg_t, sj, st, gvec, rng = _loaded(G, W, K, R, 60 + G + my_id)
+    ring = np.where(rng.random((RES_N, G, K)) < 0.6,
+                    rng.integers(1, 10 ** 6, (RES_N, G, K)), NULL).astype(np.int32)
+    heard = np.ones(R, bool)
+    heard[(my_id + 1) % R] = False
+    want = rng.random(G) < 0.3
+    heat = rng.integers(0, 50, G).astype(np.int32)
+    fj = jspmd.make_step(cfg_j, None, RES_N, donate=False, io="packed_host", heat=True)
+    ft = tspmd.make_step(cfg_t, None, RES_N, donate=False, io="packed_host",
+                         heat=True, device="cpu")
+    oj = fj(je.EngineState(*(x[my_id] for x in sj)), jnp.asarray(gvec),
+            jnp.asarray(heard), jnp.asarray(ring), jnp.asarray(want),
+            jnp.int32(my_id), jnp.asarray(heat))
+    _path(monkeypatch, path)
+    ot = ft(te.EngineState(*(x[my_id].clone() for x in st)), torch.as_tensor(gvec),
+            torch.as_tensor(heard), torch.as_tensor(ring), torch.as_tensor(want),
+            my_id, torch.as_tensor(heat))
+    for f in FIELDS:
+        np.testing.assert_array_equal(np.asarray(getattr(oj[0], f)),
+                                      getattr(ot[0], f).numpy(), err_msg=f)
+    for i, what in ((1, "out_rings"), (2, "blob_vec"), (3, "heat")):
+        np.testing.assert_array_equal(np.asarray(oj[i]), ot[i].numpy(), err_msg=what)
+    assert ot[1].shape == (RES_N, te.out_vec_len(cfg_t))
+    n_adm = sum(int(te.split_out_vec(r, cfg_t).n_admitted.sum()) for r in ot[1].numpy())
+    assert n_adm > 0
+    if path == "kernel":
+        assert te.LAUNCHES["gp_step_n"] == 1 and te.LAUNCHES["gp_step"] == 0
+
+
+@pytest.mark.parametrize("path", PATHS)
+def test_stacked_dispatch_n8_matches_jax(monkeypatch, path):
+    """The stacked face at N=8, two dispatches (the first with an election
+    pulse), every replica missing the last one: states and outputs equal
+    the JAX package's; on the kernel path one cluster launch a dispatch
+    and no blob launch."""
+    G, W, K, R = 13, 8, 4, 3
+    cfg_j, cfg_t, sj, st, _gvec, rng = _loaded(G, W, K, R, 71)
+    fj = jspmd.make_step(cfg_j, None, RES_N, donate=False)
+    ft = tspmd.make_step(cfg_t, None, RES_N, donate=False, device="cpu")
+    _path(monkeypatch, path)
+    heard = np.ones((R, R), bool)
+    heard[:, R - 1] = False
+    for t in range(2):
+        req = np.where(rng.random((RES_N, R, G, K)) < 0.6,
+                       rng.integers(1, 10 ** 6, (RES_N, R, G, K)), NULL).astype(np.int32)
+        want = rng.random((R, G)) < (0.3 if t == 0 else 0.0)
+        sj, oj = fj(sj, jnp.asarray(req), jnp.asarray(want), jnp.asarray(heard))
+        st, ot = ft(st, req, want, heard)
+        for f in FIELDS:
+            np.testing.assert_array_equal(np.asarray(getattr(sj, f)),
+                                          getattr(st, f).numpy(), err_msg=f"t={t} {f}")
+        for f in oj._fields:
+            np.testing.assert_array_equal(np.asarray(getattr(oj, f)),
+                                          getattr(ot, f).numpy(), err_msg=f"t={t} {f}")
+    assert int(np.asarray(oj.n_committed).sum()) > 0
+    if path == "kernel":
+        assert (te.LAUNCHES["gp_step_cluster"], te.LAUNCHES["gp_step"],
+                te.LAUNCHES["gp_make_blob"]) == (2, 0, 0)
+
+
+def test_stacked_route_by_shape():
+    """The stacked face's kernel route depends on the shape alone: one
+    cluster launch for N > 1 while the R replicas fit the portable
+    cluster size of 8, a blob launch and N step launches otherwise."""
+    route = lambda n, r: gp_kernels.stacked_route(TConfig(64, 8, 4, r), n)
+    assert [route(8, r) for r in (1, 3, 5, 7, 8)] == ["cluster"] * 5
+    assert [route(8, r) for r in (9, 16, 32)] == ["launches"] * 3
+    assert [route(1, r) for r in (1, 3, 8, 9)] == ["launches"] * 4
+    assert tspmd.make_step(TConfig(64, 8, 4, 3), None, 2, device="cpu").route == "cluster"
+
+
+def _multistep_body(c):
+    """Three names on a 3-manager cluster at N substeps a tick: rounds of
+    proposals from rotating entry replicas, one round with replica 2 cut
+    off (its share of that round entered at replica 0), then quiet ticks;
+    returns every reply in order."""
+    names = ("a", "b", "c")
+    for nm in names:
+        c.create(nm, members=[0, 1, 2])
+    replies = []
+    lossy = np.full((3, 3), DELIVER)
+    lossy[2, :] = DROP
+    lossy[:, 2] = DROP
+    for rnd in range(6):
+        for i, nm in enumerate(names):
+            for v in range(3):
+                entry = (rnd + i) % 3
+                c.managers[0 if rnd == 3 and entry == 2 else entry].propose(
+                    nm, f"{nm}{rnd}-{v}",
+                    callback=lambda r, resp, nm=nm: replies.append((nm, resp)))
+        for _ in range(4):
+            c.step_all(delivery=lossy if rnd == 3 else None)
+    for _ in range(12):
+        c.step_all()
+    return replies
+
+
+@pytest.mark.parametrize("path", PATHS)
+def test_manager_cluster_n8_matches_jax(monkeypatch, path):
+    """Both packages' ManagerCluster with ENGINE_STEPS_PER_DISPATCH=8 over
+    a few dozen ticks: the same replies in the same order, engine leaves,
+    app states (hash chains) and executed counts; on the kernel path each
+    manager's tick one gp_step_n launch."""
+    JaxConfig.set("ENGINE_STEPS_PER_DISPATCH", str(RES_N))
+    TorchConfig.set("ENGINE_STEPS_PER_DISPATCH", str(RES_N))
+    _path(monkeypatch, path)
+    cj = ct = None
+    try:
+        random.seed(11)
+        cj = _cluster("jax", (16, 8, 4, 3))
+        rj = _multistep_body(cj)
+        random.seed(11)
+        ct = _cluster("torch", (16, 8, 4, 3))
+        assert all(m.steps_per_dispatch == RES_N for m in ct.managers)
+        te.reset_launch_counts()
+        rt = _multistep_body(ct)
+        assert rj == rt
+        assert len(rt) == 6 * 3 * 3
+        _same_cluster(cj, ct, "N=8")
+        if path == "kernel":
+            for m in ct.managers:
+                assert m.kernel_launches.get("gp_step_n", 0) > 0, m.kernel_launches
+                assert m.kernel_launches.get("gp_step", 0) == 0, m.kernel_launches
+    finally:
+        for c in (cj, ct):
+            if c is not None:
+                for m in c.managers:
+                    m.close()

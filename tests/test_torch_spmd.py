@@ -167,9 +167,7 @@ def _emulate_kernels(monkeypatch):
             launch_log["gp_step"] = launch_log.get("gp_step", 0) + 1
         return new, out_vec, blob, heat_out
 
-    def step_stacked(states, blobs, heard, req_vid, want_coord, cfg, *,
-                     out_states=None, out_blobs=None, out_mat=None,
-                     launch_log=None):
+    def _stacked_once(states, blobs, heard, req_vid, want_coord, cfg):
         g = te.unpack_gathered(blobs, cfg)
         news, outs = [], []
         for r in range(cfg.n_replicas):
@@ -177,14 +175,65 @@ def _emulate_kernels(monkeypatch):
             ns, o = te.step_plain(s, g, heard[r], req_vid[r], want_coord[r], r, cfg)
             news.append(ns)
             outs.append(te.pack_out(o))
-        new = _fill_state(out_states, tspmd.stack_states(news))
-        out_mat = _fill(out_mat, torch.stack(outs))
+        return tspmd.stack_states(news), torch.stack(outs)
+
+    def step_stacked(states, blobs, heard, req_vid, want_coord, cfg, *,
+                     out_states=None, out_blobs=None, out_mat=None,
+                     launch_log=None):
+        new, mat = _stacked_once(states, blobs, heard, req_vid, want_coord, cfg)
+        new = _fill_state(out_states, new)
+        out_mat = _fill(out_mat, mat)
         if out_blobs is not None:
             out_blobs.copy_(_blob_rows(new, cfg.n_replicas))
         te.LAUNCHES["gp_step"] += 1
         if launch_log is not None:
             launch_log["gp_step"] = launch_log.get("gp_step", 0) + 1
         return new, out_mat, out_blobs
+
+    def step_n(state, gvec, heard, req_ring, want_coord, my_id, cfg, *,
+               out_state=None, heat=None, heat_out=None, out_rings=None,
+               out_blob=None, launch_log=None):
+        # the N substeps of one launch: MY row refreshed from the advancing
+        # state, peers' rows as passed, want at substep 0 only
+        g0 = te.unpack_gathered(gvec, cfg)
+        st, rows, h = state, [], heat
+        for i in range(req_ring.shape[0]):
+            g = g0
+            if i > 0:
+                g = type(g0)(*(tspmd._replace_row(gl, my_id, bl)
+                               for gl, bl in zip(g0, te.make_blob_plain(st))))
+            w = want_coord if i == 0 else torch.zeros_like(want_coord)
+            st, o = te.step_plain(st, g, heard, req_ring[i], w, my_id, cfg)
+            rows.append(te.pack_out(o))
+            if h is not None:
+                h = h + o.n_committed + o.n_admitted
+        new = _fill_state(out_state, st)
+        out_rings = _fill(out_rings, torch.stack(rows))
+        blob = _fill(out_blob, te.pack_blob(te.make_blob_plain(new)))
+        if heat is not None:
+            heat_out = _fill(heat_out, h)
+        te.LAUNCHES["gp_step_n"] += 1
+        if launch_log is not None:
+            launch_log["gp_step_n"] = launch_log.get("gp_step_n", 0) + 1
+        return new, out_rings, blob, heat_out
+
+    def step_cluster(states, heard, req_vid, want_coord, cfg, *,
+                     out_states=None, out_mat=None, launch_log=None):
+        # every replica advancing each substep, the blob rows re-made from
+        # the advancing states, want at substep 0 only
+        assert cfg.n_replicas <= gp_kernels.MAX_CLUSTER
+        st, mats = states, []
+        for i in range(req_vid.shape[0]):
+            w = want_coord if i == 0 else torch.zeros_like(want_coord)
+            st, mat = _stacked_once(st, _blob_rows(st, cfg.n_replicas), heard,
+                                    req_vid[i], w, cfg)
+            mats.append(mat)
+        new = _fill_state(out_states, st)
+        out_mat = _fill(out_mat, torch.stack(mats))
+        te.LAUNCHES["gp_step_cluster"] += 1
+        if launch_log is not None:
+            launch_log["gp_step_cluster"] = launch_log.get("gp_step_cluster", 0) + 1
+        return new, out_mat
 
     def _blob_rows(states, n_rep):
         if n_rep is None:
@@ -206,6 +255,8 @@ def _emulate_kernels(monkeypatch):
     monkeypatch.setattr(te, "on_card", lambda t: True)
     monkeypatch.setattr(gp_kernels, "step", step)
     monkeypatch.setattr(gp_kernels, "step_stacked", step_stacked)
+    monkeypatch.setattr(gp_kernels, "step_n", step_n)
+    monkeypatch.setattr(gp_kernels, "step_cluster", step_cluster)
     monkeypatch.setattr(gp_kernels, "make_blob_rows", make_blob_rows)
     monkeypatch.setattr(gp_kernels, "make_blob_vec", make_blob_vec)
 
@@ -250,7 +301,9 @@ def test_kernel_path_orchestration_matches_plain(monkeypatch, n, donate):
         assert torch.equal(a, b)
     for j in (1, 2, 3):
         assert torch.equal(k2[j], p2[j]), j
-    assert te.LAUNCHES["gp_step"] == 2 * n
+    # one launch a packed dispatch at any N
+    assert te.LAUNCHES["gp_step" if n == 1 else "gp_step_n"] == 2
+    assert te.LAUNCHES["gp_step_n" if n == 1 else "gp_step"] == 0
     sst = te.EngineState(*(x.clone() for x in states))
     ks1 = stacked(sst, sreq, swant)
     _eq(ps1[0], ks1[0], "stacked state 1")
@@ -258,6 +311,14 @@ def test_kernel_path_orchestration_matches_plain(monkeypatch, n, donate):
     ks2 = stacked(ks1[0], sreq, swant)
     _eq(ps2[0], ks2[0], "stacked state 2")
     _eq(ps2[1], ks2[1], "stacked outs 2")
+    # the stacked face: N > 1 is one cluster launch a dispatch, no blob
+    # launch; N = 1 a blob and a step launch
+    if n == 1:
+        assert (te.LAUNCHES["gp_make_blob"], te.LAUNCHES["gp_step"],
+                te.LAUNCHES["gp_step_cluster"]) == (2, 2 + 2, 0)
+    else:
+        assert (te.LAUNCHES["gp_make_blob"], te.LAUNCHES["gp_step"],
+                te.LAUNCHES["gp_step_cluster"]) == (0, 0, 2)
     if not donate:
         # donate=False leaves every input untouched
         for a, b in zip(sst, states):
