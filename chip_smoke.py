@@ -35,9 +35,15 @@ Phases (any failure exits nonzero):
              {1, 32,768}) and the launcher scenario's actives' (G=256, W=16;
              N=1) and the bank ledger's (G=131,072, W=4; N in {1, 1,696,
              32,768}, timed at 32,768); the input state unchanged, untouched leaves the input's own
-             tensors, bad row batches refused; then each op's launch time
-             (on the device: a CUDA graph of launches; and by events
-             around a loop), full call time, plain and index_copy times.
+             tensors, bad row batches refused, the kernels a call (one
+             for create, restore_paused, kill and extract; two for jump
+             and restore_rows); create and restore_paused also at G=301,
+             4,096 and 65,536, W in {4, 8, 16, 32}, N in {0, 1, 7, 64, G}, rows
+             astride bitmap words, inputs on the card, a staged call
+             launched twice; then each op's launch time (on the device: a
+             CUDA graph of launches; and by events around a loop), full
+             call time and its staging by part (also at the server shape
+             at N=1), plain and index_copy times.
    pack_rows — gp_pack_rows against pack_rows_plain, bit for bit, at
              (G=65,536, W=16, R=3), (65,536, 16, 4), (64, 16, 3),
              (64, 16, 4), the soaks' (24, 8, 4), (8, 8, 3) and
@@ -268,7 +274,10 @@ counts (read through the stats admin op at the phase's end) plus this
 process's (the reconfigurators); phase 12's scripted soaks' are their
 child's; phase 15's are its node processes' own (each process counts
 from 0 when it starts), read through the stats admin op.  ``--phases a,b`` runs a subset and prints no report (for
-iterating); the contract run takes no arguments.  Imports nothing of JAX
+iterating); ``--host-ms ROOT`` only times the host side of a create and
+a restore_paused call at N=1 on the port's tree at ROOT (two trees, such
+as a parent and its change, are compared in turns, one process each);
+the contract run takes no arguments.  Imports nothing of JAX
 or of the JAX package.
 """
 
@@ -372,6 +381,15 @@ LIFE_SHAPES = {"server": (65_536, 16, (1, 7, 4096, 16_384)),
 LIFE_TIMING_N = 4096
 # shapes timed at another batch than LIFE_TIMING_N: the ledger's chunk
 LIFE_TIMING_N_AT = {"ledger": LEDGER_CREATE_CHUNK}
+# shapes also timed at a second batch (as "<shape>_n<N>"): the server
+# shape at one name, a per-name wake's create and restore_paused
+LIFE_TIMING_N_ALSO = {"server": 1}
+# the one-launch lifecycle ops (csrc/gp_lifecycle.cu gp_life_rows_kernel)
+# and the edge cases they are also held at: G=301 (word units), 4,096 and
+# 65,536 (int4 units; four a thread at 65,536's sparse batches from W=8)
+# at every W, N in {0, 1, 7, 64, G}
+LIFE_ONE_PASS = ("gp_create_groups", "gp_restore_paused_rows")
+LIFE_EDGE_G, LIFE_EDGE_W = (301, 4096, 65_536), (4, 8, 16, 32)
 DENSITY = dict(names=1_048_576, rows=65_536, window=16, req_lanes=4,
                boot_chunk=16_384, burst=4096, per_name_burst=1024,
                hot_pct=1.0, rounds=10, round_requests=512, zipf_a=1.2,
@@ -557,18 +575,27 @@ def blob_bytes(G: int, W: int) -> int:
     return G * 4 * ((5 + 7 * W) + (4 + 4 * W))
 
 
+# the lifecycle ops that overwrite every touched word of a batch row from
+# its inputs and constants alone (jump keeps the window lanes at and above
+# the new frontier, so it reads its batch rows)
+LIFE_OVERWRITES = ("gp_create_groups", "gp_kill_groups", "gp_restore_paused_rows",
+                   "gp_restore_rows")
+
+
 def lifecycle_bytes(name: str, G: int, W: int, N: int) -> int:
-    """Bytes one lifecycle op must move: every leaf it touches read once
-    and its fresh copy written once, the N row indices and its batch
-    inputs read once (all int32; the leaves from gp_kernels.TOUCHED and
-    INPUTS).  extract_rows reads N whole rows (12 + 7W words) and writes
-    them."""
+    """Bytes one lifecycle op must move: every leaf it touches written
+    once and read once, its batch rows' words only where the op reads them
+    (``LIFE_OVERWRITES``: the G - N other rows alone), the N row indices
+    and its batch inputs read once (all int32; the leaves from
+    gp_kernels.TOUCHED and INPUTS).  extract_rows reads N whole rows
+    (12 + 7W words) and writes them."""
     from gigapaxos_tpu_torch.ops.gp_kernels import GW_LEAVES, INPUTS, TOUCHED
 
     words = lambda leaves: sum(W if f in GW_LEAVES else 1 for f in leaves)
     if name == "gp_extract_rows":
         return 4 * (N + 2 * N * (12 + 7 * W))
-    return 4 * (2 * G * words(TOUCHED[name]) + N * (1 + words(INPUTS[name])))
+    read = G - N if name in LIFE_OVERWRITES else G
+    return 4 * ((read + G) * words(TOUCHED[name]) + N * (1 + words(INPUTS[name])))
 
 
 def ptxas_summary(text: str) -> list:
@@ -940,6 +967,15 @@ def life_args(name: str, rng, G: int, W: int, N: int, other, host_rows=False):
     return (idx,), {}   # kill, extract
 
 
+def life_kernels_a_call(name: str, N: int) -> int:
+    """Kernels one lifecycle call launches: jump and restore_rows a copy
+    pass and, for N > 0, a row pass; extract one gather for N > 0; the
+    others one launch."""
+    if name in ("gp_jump_rows", "gp_restore_rows"):
+        return 1 + (N > 0)
+    return int(N > 0) if name == "gp_extract_rows" else 1
+
+
 def library_fn(name: str, state, want, idx_t):
     """One PyTorch call per leaf computing the same function (timed as
     the yardstick, used nowhere in the port): ``index_copy`` of the
@@ -953,10 +989,189 @@ def library_fn(name: str, state, want, idx_t):
     return lambda: [leaf.index_copy(0, idx_t, v) for leaf, v in rows]
 
 
+def stage_parts(fn, iters: int) -> dict:
+    """ms per call of each part of a lifecycle call's staging over
+    ``iters`` calls of ``fn(parts)`` (``gp_kernels.stage(..., parts=)``),
+    on the host's clock."""
+    import torch
+
+    fn(None)
+    torch.cuda.synchronize()
+    parts = {}
+    for _ in range(iters):
+        fn(parts)
+    torch.cuda.synchronize()
+    return {k: v * 1e3 / iters for k, v in sorted(parts.items())}
+
+
+def time_life(name: str, fn: str, state, args, kw, G: int, W: int, N: int,
+              device, bw: float) -> dict:
+    """One lifecycle op's times at (G, W, N): the staged launch alone on
+    the device (``graph_ms``: a CUDA graph of launches) and by the events
+    around a loop of launches, its kernels a launch, the call's host side
+    alone (checks, staging upload, outputs, argument block; and by its
+    parts) and the whole call on the host's clock, the plain version and
+    the per-leaf library calls, beside the bound."""
+    import torch
+
+    from gigapaxos_tpu_torch.ops import gp_kernels
+    from gigapaxos_tpu_torch.ops import lifecycle as tl
+
+    staged = gp_kernels.stage(name, state, *args, **kw)
+    ms = graph_ms(staged.launch)
+    ms_events = cuda_ms(staged.launch, TIMING_ITERS)
+    kernels = staged.kernels
+    # the one-pass kernel at either unit count a thread (the launcher's
+    # rule picks one)
+    ms_units = {}
+    if name in LIFE_ONE_PASS:
+        for units in (1, 4):
+            staged.args.units = units
+            ms_units[units] = graph_ms(staged.launch)
+        staged.args.units = 0
+    stage = lambda parts=None: gp_kernels.stage(name, state, *args, parts=parts, **kw)
+    ms_stage = host_ms(stage, TIMING_ITERS)
+    parts = stage_parts(stage, TIMING_ITERS)
+    ms_call = host_ms(lambda: getattr(tl, fn)(state, *args, **kw), TIMING_ITERS)
+    plain = getattr(tl, fn + "_plain")
+    want = plain(state, *args, **kw)
+    plain_ms = cuda_ms(lambda: plain(state, *args, **kw), 5)
+    idx_t = torch.as_tensor(args[0], dtype=torch.long, device=device)
+    library_ms = graph_ms(library_fn(name, state, want, idx_t))
+    nbytes = lifecycle_bytes(name, G, W, N)
+    return {"G": G, "W": W, "N": N, "ms": ms, "ms_events": ms_events,
+            "kernels_a_call": kernels, "ms_units": ms_units, "ms_call": ms_call,
+            "ms_stage": ms_stage,
+            "ms_stage_parts": parts, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bytes": nbytes, "bound_ms": nbytes / bw * 1e3}
+
+
+# --host-ms: the shapes at N=1 and the runs of calls each median takes
+HOST_MS_SHAPES = {"scenario": (SCENARIO["G"], SCENARIO["W"]),
+                  "server": (SERVER["G"], SERVER["W"])}
+HOST_MS_RUNS, HOST_MS_CALLS = 5, 200
+
+
+def host_side_ms(device) -> dict:
+    """The host side of one create and one restore_paused call at N=1 at
+    each shape of ``HOST_MS_SHAPES``: ``ms_call`` (the public wrapper)
+    and ``ms_stage`` (``gp_kernels.stage`` alone), each the median of
+    ``HOST_MS_RUNS`` runs of ``HOST_MS_CALLS`` calls on the host's clock,
+    with the runs.  It uses only the wrappers' arguments, so it times any
+    tree of the port (``--host-ms ROOT``) and two trees compare in turns,
+    one process each."""
+    import statistics
+
+    import numpy as np
+
+    from gigapaxos_tpu_torch.ops import gp_kernels
+    from gigapaxos_tpu_torch.ops import lifecycle as tl
+
+    gp_kernels.lib("gp_lifecycle")
+    out = {}
+    for si, (shape, (G, W)) in enumerate(HOST_MS_SHAPES.items()):
+        state = random_state(G, W, 400 + si, device)
+        other = random_state(G, W, 500 + si, device)
+        rng = np.random.default_rng(600 + si)
+        for name, fn in (("gp_create_groups", "create_groups"),
+                         ("gp_restore_paused_rows", "restore_paused_rows")):
+            args, kw = life_args(name, rng, G, W, 1, other)
+            call = lambda: getattr(tl, fn)(state, *args, **kw)
+            stage = lambda: gp_kernels.stage(name, state, *args, **kw)
+            for key, f in (("ms_call", call), ("ms_stage", stage)):
+                runs = [host_ms(f, HOST_MS_CALLS) for _ in range(HOST_MS_RUNS)]
+                out[f"{shape} {name} {key}"] = {"median": statistics.median(runs),
+                                                "runs": runs}
+        del state, other
+    return out
+
+
+def life_time_text(t: dict) -> str:
+    units = "".join(f"; {u} units a thread {ms:.6g} ms" for u, ms in t["ms_units"].items())
+    return (f"{t['ms']:.6g} ms launch on the device ({t['kernels_a_call']} kernels{units}; "
+            f"{t['ms_events']:.6g} ms by events around a loop; bound "
+            f"{t['bound_ms']:.6g} ms, {t['bytes']} B); on the host's clock "
+            f"{t['ms_call']:.6g} ms a call, {t['ms_stage']:.6g} ms its staging "
+            f"(parts, ms: { {k: round(v, 5) for k, v in t['ms_stage_parts'].items()} }); "
+            f"plain {t['plain_ms']:.6g} ms, index_copy {t['library_ms']:.6g} ms")
+
+
+def life_edge_cases(diff: Diff, device) -> int:
+    """The one-launch ops (``LIFE_ONE_PASS``) at the edge cases
+    (``LIFE_EDGE_G`` x ``LIFE_EDGE_W``: word units, int4 units, one or
+    four a thread), N in {0, 1, 7, 64, G}, unsorted batches, the rows on
+    both sides of a bitmap word's edge, batch inputs as CUDA int32
+    tensors in the caller's order, a staged call launched twice; each
+    bit-equal to the
+    plain version, one kernel a call, the input state unchanged and the
+    untouched leaves the input's own; duplicate and out-of-range rows
+    refused before any launch.  Returns the calls checked."""
+    import numpy as np
+    import torch
+
+    from gigapaxos_tpu_torch.ops import engine as te
+    from gigapaxos_tpu_torch.ops import gp_kernels
+    from gigapaxos_tpu_torch.ops import lifecycle as tl
+
+    fns = {name: fn for name, fn, *_ in LIFE_KERNELS}
+    calls = 0
+    for G in LIFE_EDGE_G:
+        for W in LIFE_EDGE_W:
+            state = random_state(G, W, 700 + G + W, device)
+            other = random_state(G, W, 800 + G + W, device)
+            keep = [x.clone() for x in state]
+            rng = np.random.default_rng(900 + G + W)
+            edge = np.array([31, 32, 0, G - 1, 63, 64, 95])
+            for name in LIFE_ONE_PASS:
+                fn = fns[name]
+                batches = [rng.choice(G, size=n, replace=False) for n in (0, 1, 7, 64, G)]
+                batches.append(rng.permutation(edge))
+                for bi, idx in enumerate(batches):
+                    args, kw = life_args(name, rng, G, W, len(idx), other)
+                    args = (idx,) + args[1:]
+                    if bi % 2:   # batch inputs on the card, in the caller's order
+                        on = lambda x: torch.as_tensor(np.asarray(x).astype(np.int32),
+                                                       device=device)
+                        args = (idx,) + tuple(on(x) for x in args[1:])
+                        kw = {k: on(v) if k != "my_id" else v for k, v in kw.items()}
+                    tag = f"edge G{G} W{W} batch{bi} N{len(idx)}"
+                    n0, k0 = te.LAUNCHES[name], te.KERNEL_LAUNCHES[name]
+                    got = getattr(tl, fn)(state, *args, **kw)
+                    want = getattr(tl, fn + "_plain")(state, *args, **kw)
+                    diff.tree(name, tag, got, want)
+                    diff.same(name, f"{tag}: kernels a call",
+                              te.LAUNCHES[name] - n0 == 1 and te.KERNEL_LAUNCHES[name] - k0 == 1)
+                    for f in te.EngineState._fields:
+                        new, old = getattr(got, f), getattr(state, f)
+                        diff.same(name, f"{tag}.{f}: fresh or shared leaf",
+                                  (new is not old) == (f in gp_kernels.TOUCHED[name]))
+                    st = gp_kernels.stage(name, state, *args, **kw)
+                    st.launch()
+                    st.launch()
+                    diff.tree(name, f"{tag}.twice", st.result, want)
+                    calls += 1
+                for bad in (np.array([5, 9, 5]), np.array([0, G])):
+                    args, kw = life_args(name, rng, G, W, len(bad), other)
+                    n0 = te.LAUNCHES[name]
+                    try:
+                        getattr(tl, fn)(state, bad, *args[1:], **kw)
+                        refused = False
+                    except ValueError:
+                        refused = True
+                    diff.same(name, f"edge G{G} W{W}: bad rows {bad.tolist()} refused "
+                              "before a launch", refused and te.LAUNCHES[name] == n0)
+            torch.cuda.synchronize()
+            for f, a, b in zip(te.EngineState._fields, state, keep):
+                diff.eq("gp_create_groups", f"edge G{G} W{W}.input.{f}", a, b)
+            del state, other, keep
+    return calls
+
+
 def phase_lifecycle(diff: Diff, device, bw: float) -> dict:
     """Every lifecycle kernel against its plain version on the card at
-    both shapes (module docstring), then its times at N=4,096 (the
-    ledger's at its 32,768-name chunk)."""
+    every shape (module docstring), its kernels a call, the one-launch
+    ops' edge cases, then its times at N=4,096 (the ledger's at its
+    32,768-name chunk; the server shape's at N=1 too)."""
     import numpy as np
     import torch
 
@@ -966,7 +1181,7 @@ def phase_lifecycle(diff: Diff, device, bw: float) -> dict:
 
     fields = te.EngineState._fields
     t0 = time.perf_counter()
-    times = {name: {"parity_launches": 0} for name, *_ in LIFE_KERNELS}
+    times = {name: {"parity_launches": 0, "parity_kernels": 0} for name, *_ in LIFE_KERNELS}
     for si, (shape, (G, W, Ns)) in enumerate(LIFE_SHAPES.items()):
         te.reset_launch_counts()
         state = random_state(G, W, 400 + si, device)
@@ -978,9 +1193,13 @@ def phase_lifecycle(diff: Diff, device, bw: float) -> dict:
                 variants = [False, True] if name == "gp_restore_rows" and N == 7 else [False]
                 for host_rows in variants:
                     args, kw = life_args(name, rng, G, W, N, other, host_rows)
+                    k0 = te.KERNEL_LAUNCHES[name]
                     got = getattr(tl, fn)(state, *args, **kw)
                     want = getattr(tl, fn + "_plain")(state, *args, **kw)
                     tag = f"{shape}.N{N}" + (".host_rows" if host_rows else "")
+                    k = te.KERNEL_LAUNCHES[name] - k0
+                    diff.same(name, f"{tag}: {k} kernels a call",
+                              k == life_kernels_a_call(name, N))
                     if name == "gp_extract_rows":
                         for f, a, b in zip(fields, got, want):
                             diff.eq(name, f"{tag}.{f}", a, b)
@@ -1018,45 +1237,22 @@ def phase_lifecycle(diff: Diff, device, bw: float) -> dict:
         torch.cuda.synchronize()
         for name, *_ in LIFE_KERNELS:
             times[name]["parity_launches"] += te.LAUNCHES[name]
+            times[name]["parity_kernels"] += te.KERNEL_LAUNCHES[name]
         # times at N=4,096 (the shape's largest batch if smaller, the
-        # ledger's create chunk at its shape): the
-        # staged launch alone (copy + row pass, or the gather) on the
-        # device (a CUDA graph of launches) and by the events around a
-        # loop of launches, the full call (checks, staging upload,
-        # outputs, launch), the plain version and the per-leaf library
-        # calls
-        N = LIFE_TIMING_N_AT.get(shape, min(LIFE_TIMING_N, max(Ns)))
-        for name, fn, _ref, _path in LIFE_KERNELS:
-            args, kw = life_args(name, rng, G, W, N, other)
-            staged = gp_kernels.stage(name, state, *args, **kw)
-            ms = graph_ms(staged.launch)
-            ms_events = cuda_ms(staged.launch, TIMING_ITERS)
-            # the call's host side alone (checks, staging upload, outputs)
-            # and the whole call, on the host's clock
-            ms_stage = host_ms(lambda: gp_kernels.stage(name, state, *args, **kw),
-                               TIMING_ITERS)
-            ms_call = host_ms(lambda: getattr(tl, fn)(state, *args, **kw), TIMING_ITERS)
-            plain = getattr(tl, fn + "_plain")
-            want = plain(state, *args, **kw)
-            plain_ms = cuda_ms(lambda: plain(state, *args, **kw), 5)
-            idx_t = torch.as_tensor(args[0], dtype=torch.long, device=device)
-            library_ms = graph_ms(library_fn(name, state, want, idx_t))
-            nbytes = lifecycle_bytes(name, G, W, N)
-            times[name][shape] = {
-                "G": G, "W": W, "N": N, "ms": ms, "ms_events": ms_events,
-                "ms_call": ms_call,
-                "ms_stage": ms_stage,
-                "plain_ms": plain_ms, "library_ms": library_ms,
-                "bytes": nbytes, "bound_ms": nbytes / bw * 1e3,
-            }
-            log(f"lifecycle {shape} {name}: {ms:.6g} ms launch on the device "
-                f"({ms_events:.6g} ms by events around a loop; bound "
-                f"{nbytes / bw * 1e3:.6g} ms, {nbytes} B); on the host's clock "
-                f"{ms_call:.6g} ms a call, {ms_stage:.6g} ms its staging; plain "
-                f"{plain_ms:.6g} ms, index_copy {library_ms:.6g} ms")
-            del staged, want
+        # ledger's create chunk at its shape; the server shape at N=1 too)
+        timed = [(shape, LIFE_TIMING_N_AT.get(shape, min(LIFE_TIMING_N, max(Ns))))]
+        if shape in LIFE_TIMING_N_ALSO:
+            n1 = LIFE_TIMING_N_ALSO[shape]
+            timed.append((f"{shape}_n{n1}", n1))
+        for label, n in timed:
+            for name, fn, _ref, _path in LIFE_KERNELS:
+                args, kw = life_args(name, rng, G, W, n, other)
+                times[name][label] = time_life(name, fn, state, args, kw, G, W, n,
+                                               device, bw)
+                log(f"lifecycle {label} {name}: " + life_time_text(times[name][label]))
         del state, other, keep
         torch.cuda.empty_cache()
+    log(f"lifecycle edge cases: {life_edge_cases(diff, device)} calls bit-equal")
     log(f"lifecycle parity: "
         f"{ {k: diff.checked[k] for k, *_ in LIFE_KERNELS} } checks bit-equal "
         f"({time.perf_counter() - t0:.1f} s)")
@@ -1179,11 +1375,13 @@ def phase_density(device) -> dict:
         except DensityCheckFailed as e:
             fail(f"density: {e}")
         launches = dict(te.LAUNCHES)
+        kernel_launches = dict(te.KERNEL_LAUNCHES)
     for name in ("gp_create_groups", "gp_kill_groups", "gp_restore_paused_rows",
                  "gp_step", "gp_make_blob"):
         if launches[name] <= 0:
             fail(f"density: {name} never launched: {launches}")
     res["launches_total"] = launches
+    res["kernel_launches_total"] = kernel_launches
     ab, ch, bo = res["ablation"], res["churn"], res["boot"]
     log(f"density: {res['names']} names on {res['rows']} rows: boot "
         f"{bo['names_per_s']:.6g} names/s, host {res['bytes_per_name']['host_rss']:.6g} "
@@ -4879,13 +5077,23 @@ def kernels_line(diff: Diff, head: dict, step_t: dict, life: dict, dens: dict,
             "bound_ms": t_srv["bound_ms"], "bound_by": "bytes",
             "library_ms": t_srv["library_ms"], "ms_events": t_srv["ms_events"],
             "ms_call": t_srv["ms_call"], "ms_stage": t_srv["ms_stage"],
+            "ms_stage_parts": t_srv["ms_stage_parts"],
+            "kernels_a_call": t_srv["kernels_a_call"],
+            "parity_kernels_a_call": life[name]["parity_kernels"]
+            / max(1, life[name]["parity_launches"]),
             "shape": {"G": t_srv["G"], "W": t_srv["W"], "N": t_srv["N"]},
             "comparisons": diff.checked[name],
             **{p: {k: life[name][p][k] for k in
-                   ("G", "W", "N", "ms", "ms_events", "ms_call", "ms_stage",
-                    "plain_ms", "library_ms", "bound_ms")}
-               for p in ("headline", "rc", "recovery", "ledger")},
+                   ("G", "W", "N", "ms", "ms_events", "kernels_a_call", "ms_call",
+                    "ms_stage", "ms_stage_parts", "plain_ms", "library_ms", "bound_ms")}
+               for p in ("server_n1", "headline", "rc", "recovery", "ledger", "scenario")},
             "checked_shapes": {k: LIFE_SHAPES[k][:2] for k in LIFE_SHAPES},
+            **({"density_wake_us_per_name": {
+                "per_name": dens["ablation"]["per_name_us"],
+                "batched": dens["ablation"]["batched_us_per_name"]},
+                "density_kernels_a_call": dens["kernel_launches_total"][name]
+                / max(1, dens["launches_total"][name])}
+               if name in LIFE_ONE_PASS else {}),
         })
     t_pack = pack["ar4"]
     kernels.append({
@@ -4913,6 +5121,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description="the port's chip smoke (one card)")
     ap.add_argument("--phases", help="comma-separated subset of phases to run "
                     "(no kernels or device line is printed); default: all")
+    ap.add_argument("--host-ms", metavar="ROOT",
+                    help="only time the host side of create and restore_paused at "
+                    "N=1 (host_side_ms) on the port's tree at ROOT and print it as "
+                    "one JSON line")
     args = ap.parse_args()
     try:
         import torch
@@ -4920,6 +5132,13 @@ def main() -> int:
         fail("torch is not installed")
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures the port on the card")
+    if args.host_ms:
+        root = os.path.abspath(args.host_ms)
+        if not os.path.isdir(os.path.join(root, "gigapaxos_tpu_torch")):
+            fail(f"--host-ms: no gigapaxos_tpu_torch/ under {root}")
+        sys.path.insert(0, root)
+        log(json.dumps({"root": root, **host_side_ms(torch.device("cuda", 0))}))
+        return 0
     if not os.path.isdir(os.path.join(HERE, "gigapaxos_tpu_torch", "csrc")):
         fail("run from a checkout: gigapaxos_tpu_torch/ is missing")
     sys.path.insert(0, HERE)

@@ -18,8 +18,28 @@
 // plus the N batch rows' inputs.  Device-memory bandwidth bounds every op;
 // at small G the launches' fixed cost does.
 //
-// Design.  Create, jump and the two restores: two launches on the caller's
-// stream.
+// Design.  Create and restore_paused: ONE launch of gp_life_rows_kernel
+// over a flat map of (touched leaf, 16-byte unit), the 12 [G] leaves' units
+// first, then the [G, W] leaves', each leaf's units padded to whole blocks
+// (so a block serves one leaf and no block is empty), sized by the touched
+// leaves alone.  A unit is 4 rows of a [G] leaf (int4, where G % 4 == 0 and
+// the leaf's pointers are 16-byte aligned) or 4 lanes of one row of a
+// [G, W] leaf (int4, where W % 4 == 0 and its pointers, the batch inputs'
+// too, are aligned); one word otherwise.  A thread takes one unit, or four
+// (256 apart) where the batch is sparse and the state large (the launcher
+// says which, unless the caller fixes it), every load issued before any
+// lookup.  The batch is found as kill finds it: a thread reads the word of
+// the batch bitmap that holds its unit's rows.  A row outside the batch copies its unit of the input leaf; only a
+// batch row looks up its position n in the caller's batch, by a binary
+// search of the batch's rows sorted on the host (`idx`), bounded by the
+// count of batch rows below each 256-row chunk (`cnt`), then `pos[i]`, the
+// caller's position of sorted row i.  Create writes a batch row from its
+// batch inputs and constants alone; restore_paused from in[L][n] or
+// in[L][n * W + j].  Every output word is written once and every input word
+// read at most once (a unit whose rows are all in the batch reads nothing
+// of the input leaf).  The wrapper stages the sorted rows, the positions,
+// the counts, the bitmap and the host inputs in one upload.
+// Jump and restore_rows: two launches on the caller's stream.
 //   (a) gp_copy_leaves_kernel copies every touched leaf st_in -> st_out:
 //       grid.y = leaf, a grid-stride loop over 16-byte vectors (int4) where
 //       both pointers are 16-byte aligned, words otherwise.
@@ -51,6 +71,7 @@
 // 32-bit pattern.
 
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 #define GP_NLEAF 19
@@ -73,8 +94,20 @@ struct GpLifeArgs {
   //                   g % 32 of word g / 32 set: row g is killed)
   const int32_t* in[GP_NLEAF];
   int32_t* rows_out[GP_NLEAF];     // extract: [N] / [N, W] gathered rows
-  const int32_t* idx;              // [N] unique rows in [0, G)
+  // [N] unique rows in [0, G): the caller's order, or (create and
+  // restore_paused) sorted ascending
+  const int32_t* idx;
+  // create and restore_paused: [N] the caller's position of sorted row i;
+  // [ceil(G / 256) + 1] batch rows below each 256-row chunk; the batch as
+  // a bitmap of G bits ((G + 31) / 32 words, bit g % 32 of word g / 32)
+  const int32_t* pos;
+  const int32_t* cnt;
+  const uint32_t* bits;
   int32_t G, W, N, op, my_id;
+  // create and restore_paused: 16-byte units a thread, 1 or 4; 0 (the
+  // wrappers' value): the launcher's rule below
+  int32_t units;
+  int32_t kernels;                 // set by the launcher: kernels launched
 };
 
 namespace {
@@ -126,34 +159,6 @@ __global__ void __launch_bounds__(GP_LIFE_BLOCK) gp_rows_kernel(const GpLifeArgs
   const int32_t* const* in = a.in;
 
   switch (a.op) {
-    case OP_CREATE: {
-      o[L_ACC_BAL][gw] = NULLV;
-      o[L_ACC_VID][gw] = NULLV;
-      o[L_ACC_SLOT][gw] = NULLV;
-      o[L_DEC_VID][gw] = NULLV;
-      o[L_DEC_SLOT][gw] = NULLV;
-      o[L_C_PROP_VID][gw] = NULLV;
-      o[L_C_PROP_SLOT][gw] = NULLV;
-      if (j == 0) {
-        const int32_t mask = in[L_MEMBER_MASK][n];
-        const int32_t coord0 = in[L_BAL][n];
-        const bool me = coord0 == a.my_id;
-        // encode_ballot(0, coord0) = (0 << COORD_BITS) | coord0 = coord0
-        o[L_MEMBER_MASK][g] = mask;
-        o[L_MAJORITY][g] = (int32_t)(__popc((unsigned)mask) / 2 + 1);
-        o[L_VERSION][g] = in[L_VERSION][n];
-        o[L_STOPPED][g] = 0;
-        o[L_TAG][g] = in[L_TAG][n];
-        o[L_BAL][g] = coord0;
-        o[L_EXEC_SLOT][g] = 0;
-        o[L_APP_HASH][g] = 0;
-        o[L_N_EXECD][g] = 0;
-        o[L_C_PHASE][g] = me ? ACTIVE : IDLE;
-        o[L_C_BAL][g] = me ? coord0 : NULLV;
-        o[L_C_NEXT_SLOT][g] = 0;
-      }
-      break;
-    }
     case OP_JUMP: {
       // lanes at/above the adopted frontier keep (live votes), the rest clear
       const int32_t ne = in[L_EXEC_SLOT][n];
@@ -179,22 +184,6 @@ __global__ void __launch_bounds__(GP_LIFE_BLOCK) gp_rows_kernel(const GpLifeArgs
         o[L_C_PHASE][g] = IDLE;
         o[L_C_BAL][g] = NULLV;
         o[L_C_NEXT_SLOT][g] = ne;
-      }
-      break;
-    }
-    case OP_RESTORE_PAUSED: {
-      o[L_ACC_BAL][gw] = in[L_ACC_BAL][nw];
-      o[L_ACC_VID][gw] = in[L_ACC_VID][nw];
-      o[L_ACC_SLOT][gw] = in[L_ACC_SLOT][nw];
-      o[L_DEC_VID][gw] = in[L_DEC_VID][nw];
-      o[L_DEC_SLOT][gw] = in[L_DEC_SLOT][nw];
-      if (j == 0) {
-        const int32_t ex = in[L_EXEC_SLOT][n];
-        o[L_EXEC_SLOT][g] = ex;
-        o[L_BAL][g] = in[L_BAL][n];
-        o[L_APP_HASH][g] = in[L_APP_HASH][n];
-        o[L_N_EXECD][g] = in[L_N_EXECD][n];
-        o[L_C_NEXT_SLOT][g] = ex;
       }
       break;
     }
@@ -305,6 +294,134 @@ __global__ void __launch_bounds__(GP_LIFE_BLOCK) gp_extract_kernel(const GpLifeA
     a.rows_out[L][u] = a.st_in[L][from];
 }
 
+// The flat map of gp_life_rows_kernel: the touched leaves in map order
+// (n_g [G] leaves, then n_gw [G, W] leaves) and the blocks each leaf's
+// units take (whole blocks: a block never serves two leaves).
+struct LifeMap {
+  int32_t leaf[GP_NLEAF];
+  int32_t n_g, n_gw, blocks_g, blocks_gw;
+};
+
+constexpr int CHUNK_SHIFT = 8;  // rows per count of `cnt`: 256
+
+// The caller's position n of batch row g (its bit is set): a binary search
+// of the sorted rows of g's 256-row chunk, then pos[].
+__device__ __forceinline__ int batch_pos(const GpLifeArgs& a, int g) {
+  const int c = g >> CHUNK_SHIFT;
+  int lo = __ldg(a.cnt + c), hi = __ldg(a.cnt + c + 1);  // g in idx[lo, hi)
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) >> 1;
+    if (__ldg(a.idx + mid) <= g) lo = mid; else hi = mid;
+  }
+  return __ldg(a.pos + lo);
+}
+
+__device__ __forceinline__ bool in_batch(const GpLifeArgs& a, int g) {
+  return (__ldg(a.bits + (g >> 5)) >> (g & 31)) & 1u;
+}
+
+// A batch row's new word of [G] leaf L, from the caller's batch row n.
+__device__ __forceinline__ int32_t row_word(const GpLifeArgs& a, int L, int n) {
+  const int32_t* const* in = a.in;
+  if (a.op == OP_CREATE) {
+    // encode_ballot(0, coord0) = (0 << COORD_BITS) | coord0 = coord0
+    switch (L) {
+      case L_MEMBER_MASK: return __ldg(in[L_MEMBER_MASK] + n);
+      case L_MAJORITY: return (int32_t)(__popc((unsigned)__ldg(in[L_MEMBER_MASK] + n)) / 2 + 1);
+      case L_VERSION: return __ldg(in[L_VERSION] + n);
+      case L_TAG: return __ldg(in[L_TAG] + n);
+      case L_BAL: return __ldg(in[L_BAL] + n);
+      case L_C_PHASE: return __ldg(in[L_BAL] + n) == a.my_id ? ACTIVE : IDLE;
+      case L_C_BAL: {
+        const int32_t coord0 = __ldg(in[L_BAL] + n);
+        return coord0 == a.my_id ? coord0 : NULLV;
+      }
+      default: return 0;  // stopped, exec_slot, app_hash, n_execd, c_next_slot
+    }
+  }
+  // OP_RESTORE_PAUSED: bal, exec_slot, app_hash, n_execd; c_next_slot takes
+  // the record's exec_slot
+  return __ldg(in[L == L_C_NEXT_SLOT ? L_EXEC_SLOT : L] + n);
+}
+
+__device__ __forceinline__ void set_null(int4& v) { v = make_int4(NULLV, NULLV, NULLV, NULLV); }
+__device__ __forceinline__ void set_null(int32_t& v) { v = NULLV; }
+
+// Create and restore_paused in one launch (the design above).  VG: [G]
+// leaves in int4 units of 4 rows; VW: [G, W] leaves in int4 units of 4
+// lanes.  A block serves UNITS x 256 units of one leaf, a thread UNITS of
+// them 256 apart (neighbouring threads on neighbouring units), all their
+// loads issued before any batch row's lookup.
+template <bool VG, bool VW, int UNITS>
+__global__ void __launch_bounds__(GP_LIFE_BLOCK) gp_life_rows_kernel(const GpLifeArgs a,
+                                                                      const LifeMap m) {
+  constexpr int SPAN = GP_LIFE_BLOCK * UNITS;
+  int b = blockIdx.x;
+  if (b < m.n_g * m.blocks_g) {
+    const int k = b / m.blocks_g;
+    const int L = m.leaf[k];
+    const int units = VG ? a.G >> 2 : a.G;
+    const int u0 = (b - k * m.blocks_g) * SPAN + threadIdx.x;
+    typedef typename std::conditional<VG, int4, int32_t>::type unit_t;
+    constexpr unsigned ALL = VG ? 0xfu : 1u;
+    unit_t v[UNITS];
+    unsigned f[UNITS];  // the unit's rows in the batch
+#pragma unroll
+    for (int i = 0; i < UNITS; ++i) {
+      const int u = u0 + i * GP_LIFE_BLOCK;
+      const int r0 = VG ? u << 2 : u;  // VG: r0 % 4 == 0, the 4 rows' bits in one word
+      f[i] = u < units ? (__ldg(a.bits + (r0 >> 5)) >> (r0 & 31)) & ALL : ALL;
+      if (f[i] != ALL) v[i] = __ldg(reinterpret_cast<const unit_t*>(a.st_in[L]) + u);
+    }
+#pragma unroll
+    for (int i = 0; i < UNITS; ++i) {
+      const int u = u0 + i * GP_LIFE_BLOCK;
+      if (u >= units || !f[i]) continue;
+      const int r0 = VG ? u << 2 : u;
+      int32_t* w = reinterpret_cast<int32_t*>(&v[i]);
+#pragma unroll
+      for (int c = 0; c < (VG ? 4 : 1); ++c)
+        if ((f[i] >> c) & 1u) w[c] = row_word(a, L, batch_pos(a, r0 + c));
+    }
+#pragma unroll
+    for (int i = 0; i < UNITS; ++i) {
+      const int u = u0 + i * GP_LIFE_BLOCK;
+      if (u < units) reinterpret_cast<unit_t*>(a.st_out[L])[u] = v[i];
+    }
+    return;
+  }
+  b -= m.n_g * m.blocks_g;
+  const int k = b / m.blocks_gw;
+  const int L = m.leaf[m.n_g + k];
+  const int U = VW ? a.W >> 2 : a.W;  // units of a window row
+  const int units = a.G * U;
+  const int u0 = (b - k * m.blocks_gw) * SPAN + threadIdx.x;
+  typedef typename std::conditional<VW, int4, int32_t>::type unit_t;
+  unit_t v[UNITS];
+  int g[UNITS];
+  bool hit[UNITS];
+#pragma unroll
+  for (int i = 0; i < UNITS; ++i) {
+    const int u = u0 + i * GP_LIFE_BLOCK;
+    g[i] = u < units ? u / U : -1;
+    hit[i] = g[i] >= 0 && in_batch(a, g[i]);
+    if (g[i] >= 0 && !hit[i]) v[i] = __ldg(reinterpret_cast<const unit_t*>(a.st_in[L]) + u);
+  }
+#pragma unroll
+  for (int i = 0; i < UNITS; ++i) {
+    if (!hit[i]) continue;
+    const int u = u0 + i * GP_LIFE_BLOCK;
+    if (a.op == OP_CREATE)
+      set_null(v[i]);
+    else
+      v[i] = __ldg(reinterpret_cast<const unit_t*>(a.in[L]) +
+                   (batch_pos(a, g[i]) * U + (u - g[i] * U)));
+  }
+#pragma unroll
+  for (int i = 0; i < UNITS; ++i)
+    if (g[i] >= 0) reinterpret_cast<unit_t*>(a.st_out[L])[u0 + i * GP_LIFE_BLOCK] = v[i];
+}
+
 }  // namespace
 
 extern "C" {
@@ -313,13 +430,74 @@ int gp_life_args_size() { return (int)sizeof(GpLifeArgs); }
 
 static bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
-// Launch one lifecycle op on `stream` (kill and extract: one launch each;
-// the other ops a copy pass, then a row pass); returns cudaGetLastError()
-// (0 = ok).
-int gp_lifecycle_launch(const GpLifeArgs* a, void* stream) {
+// Create and restore_paused: one launch of gp_life_rows_kernel over the
+// touched leaves' units.
+static int life_rows_launch(GpLifeArgs* a, cudaStream_t st) {
+  if (a->idx == nullptr && a->N > 0) return (int)cudaErrorInvalidValue;
+  if (a->pos == nullptr || a->cnt == nullptr || a->bits == nullptr)
+    return (int)cudaErrorInvalidValue;
+  if (a->units != 0 && a->units != 1 && a->units != 4) return (int)cudaErrorInvalidValue;
+  // the flat map's indices are 32-bit, a block's span past the last unit too
+  if ((long long)a->G * a->W >= (1LL << 31) - 4LL * GP_LIFE_BLOCK)
+    return (int)cudaErrorInvalidValue;
+  LifeMap m = {};
+  bool vg = a->G % 4 == 0, vw = a->W % 4 == 0;
+  for (int gw = 0; gw < 2; ++gw)
+    for (int L = 0; L < GP_NLEAF; ++L) {
+      if (a->st_out[L] == nullptr || is_gw(L) != (gw == 1)) continue;
+      m.leaf[m.n_g + m.n_gw] = L;
+      const bool al = aligned16(a->st_in[L]) && aligned16(a->st_out[L]);
+      if (gw) {
+        ++m.n_gw;
+        // restore_paused reads its window rows in units too
+        vw = vw && al && (a->op != OP_RESTORE_PAUSED || aligned16(a->in[L]));
+      } else {
+        ++m.n_g;
+        vg = vg && al;
+      }
+    }
+  // units a thread: 4 where the batch is sparse (under one row in 16) and
+  // a window leaf holds 2^19 words or more, where 4 keep more bytes in
+  // flight a thread; else 1: a dense batch puts more rows' lookups, each a
+  // chain of dependent loads, one after another in a thread, and a small
+  // state needs every thread it can get (chip_smoke.py times both counts
+  // at the lifecycle shapes through a->units)
+  const bool sparse = (long long)a->G * a->W >= (1LL << 19) && 16LL * a->N < a->G;
+  const int units = a->units ? a->units : sparse ? 4 : 1;
+  const long long span = (long long)GP_LIFE_BLOCK * units;
+  const long long ug = vg ? a->G / 4 : a->G;
+  const long long ugw = (long long)a->G * (vw ? a->W / 4 : a->W);
+  m.blocks_g = (int)((ug + span - 1) / span);
+  m.blocks_gw = (int)((ugw + span - 1) / span);
+  const long long blocks = (long long)m.n_g * m.blocks_g + (long long)m.n_gw * m.blocks_gw;
+  if (blocks == 0) return (int)cudaGetLastError();
+  if (blocks >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)blocks);
+  const int pick = (vg ? 4 : 0) | (vw ? 2 : 0) | (units == 4 ? 1 : 0);
+  switch (pick) {
+    case 7: gp_life_rows_kernel<true, true, 4><<<grid, GP_LIFE_BLOCK, 0, st>>>(*a, m); break;
+    case 6: gp_life_rows_kernel<true, true, 1><<<grid, GP_LIFE_BLOCK, 0, st>>>(*a, m); break;
+    case 5: gp_life_rows_kernel<true, false, 4><<<grid, GP_LIFE_BLOCK, 0, st>>>(*a, m); break;
+    case 4: gp_life_rows_kernel<true, false, 1><<<grid, GP_LIFE_BLOCK, 0, st>>>(*a, m); break;
+    case 3: gp_life_rows_kernel<false, true, 4><<<grid, GP_LIFE_BLOCK, 0, st>>>(*a, m); break;
+    case 2: gp_life_rows_kernel<false, true, 1><<<grid, GP_LIFE_BLOCK, 0, st>>>(*a, m); break;
+    case 1: gp_life_rows_kernel<false, false, 4><<<grid, GP_LIFE_BLOCK, 0, st>>>(*a, m); break;
+    default: gp_life_rows_kernel<false, false, 1><<<grid, GP_LIFE_BLOCK, 0, st>>>(*a, m); break;
+  }
+  a->kernels = 1;
+  return (int)cudaGetLastError();
+}
+
+// Launch one lifecycle op on `stream` (create, restore_paused, kill and
+// extract: one launch each; jump and restore_rows a copy pass, then a row
+// pass); sets a->kernels to the launches made and returns
+// cudaGetLastError() (0 = ok).
+int gp_lifecycle_launch(GpLifeArgs* a, void* stream) {
+  a->kernels = 0;
   if (a->G < 1 || a->W < 1 || a->N < 0 || a->op < OP_CREATE || a->op > OP_EXTRACT)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  if (a->op == OP_CREATE || a->op == OP_RESTORE_PAUSED) return life_rows_launch(a, st);
   if (a->op == OP_KILL) {
     if (a->in[0] == nullptr) return (int)cudaErrorInvalidValue;  // no bitmap
     bool vec = a->G % 4 == 0;
@@ -332,6 +510,7 @@ int gp_lifecycle_launch(const GpLifeArgs* a, void* stream) {
       gp_kill_kernel<true><<<(unsigned)blocks, GP_LIFE_BLOCK, 0, st>>>(*a);
     else
       gp_kill_kernel<false><<<(unsigned)blocks, GP_LIFE_BLOCK, 0, st>>>(*a);
+    a->kernels = 1;
     return (int)cudaGetLastError();
   }
   if (a->op == OP_EXTRACT) {
@@ -348,6 +527,7 @@ int gp_lifecycle_launch(const GpLifeArgs* a, void* stream) {
       gp_extract_kernel<true><<<(unsigned)blocks, GP_LIFE_BLOCK, 0, st>>>(*a);
     else
       gp_extract_kernel<false><<<(unsigned)blocks, GP_LIFE_BLOCK, 0, st>>>(*a);
+    a->kernels = 1;
     return (int)cudaGetLastError();
   }
   long long most = 0;
@@ -360,12 +540,14 @@ int gp_lifecycle_launch(const GpLifeArgs* a, void* stream) {
     long long blocks = ((most + 3) / 4 + GP_LIFE_BLOCK - 1) / GP_LIFE_BLOCK;
     if (blocks > GP_COPY_MAX_BLOCKS) blocks = GP_COPY_MAX_BLOCKS;
     gp_copy_leaves_kernel<<<dim3((unsigned)blocks, GP_NLEAF), GP_LIFE_BLOCK, 0, st>>>(*a);
+    ++a->kernels;
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   if (a->N > 0) {
     const long long blocks = ((long long)a->N * a->W + GP_LIFE_BLOCK - 1) / GP_LIFE_BLOCK;
     gp_rows_kernel<<<(unsigned)blocks, GP_LIFE_BLOCK, 0, st>>>(*a);
+    ++a->kernels;
   }
   return (int)cudaGetLastError();
 }

@@ -122,9 +122,19 @@ LAUNCHES = {
 }
 
 
+# kernels launched by the lifecycle calls counted in LAUNCHES (a call of
+# gp_jump_rows or gp_restore_rows launches two, a copy pass and a row pass;
+# each other op one)
+KERNEL_LAUNCHES = {
+    "gp_create_groups": 0, "gp_kill_groups": 0, "gp_jump_rows": 0,
+    "gp_restore_paused_rows": 0, "gp_restore_rows": 0, "gp_extract_rows": 0,
+}
+
+
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, KERNEL_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 class EngineConfig(NamedTuple):

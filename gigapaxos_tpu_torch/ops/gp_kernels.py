@@ -30,6 +30,7 @@ Nothing is compiled or loaded at import time.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -43,6 +44,7 @@ import torch
 
 from . import engine as _engine
 from .engine import (
+    KERNEL_LAUNCHES,
     LAUNCHES,
     Blob,
     EngineConfig,
@@ -125,11 +127,16 @@ class _LifeArgs(ctypes.Structure):
         ("inp", ctypes.c_void_p * _NLEAF),
         ("rows_out", ctypes.c_void_p * _NLEAF),
         ("idx", ctypes.c_void_p),
+        ("pos", ctypes.c_void_p),
+        ("cnt", ctypes.c_void_p),
+        ("bits", ctypes.c_void_p),
         ("G", ctypes.c_int32),
         ("W", ctypes.c_int32),
         ("N", ctypes.c_int32),
         ("op", ctypes.c_int32),
         ("my_id", ctypes.c_int32),
+        ("units", ctypes.c_int32),     # 0: the launcher's rule
+        ("kernels", ctypes.c_int32),   # set by the C launcher
     ]
 
 
@@ -246,13 +253,14 @@ def lib(name: str = "gp_step") -> ctypes.CDLL:
 def _check(t: torch.Tensor, name: str, shape, dtype, device) -> int:
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name}: expected a torch.Tensor, got {type(t)}")
-    if t.device != device:
-        raise ValueError(f"{name}: on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if not t.is_contiguous():
+    if (t.dtype is not dtype or t.shape != tuple(shape) or t.device != device
+            or not t.is_contiguous()):
+        if t.device != device:
+            raise ValueError(f"{name}: on {t.device}, expected {device}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
         raise ValueError(f"{name}: must be contiguous")
     return t.data_ptr()
 
@@ -263,11 +271,10 @@ def _bytes(t: torch.Tensor) -> torch.Tensor:
 
 
 def _state_ptrs(state: EngineState, lead, G: int, W: int, device, what: str):
-    ptrs = []
-    for name, leaf in zip(EngineState._fields, state):
-        shape = lead + ((G,) if leaf.dim() == len(lead) + 1 else (G, W))
-        ptrs.append(_check(leaf, f"{what}.{name}", shape, torch.int32, device))
-    return ptrs
+    g, gw = lead + (G,), lead + (G, W)
+    return [_check(leaf, f"{what}.{name}", gw if name in GW_LEAVES else g,
+                   torch.int32, device)
+            for name, leaf in zip(EngineState._fields, state)]
 
 
 def _empty_state(state: EngineState) -> EngineState:
@@ -631,56 +638,237 @@ INPUTS = {
 }
 
 
-def _rows(idx, G: int, what: str, dedupe: bool = False) -> np.ndarray:
-    """Host copy of a row batch as int32, checked: 1-D, integer, every row
-    in [0, G) and no row twice (the reference's ``.at[idx].set`` leaves
-    duplicates unordered and drops out-of-range rows; the kernels would
-    race or write out of bounds, so both are refused here).  ``dedupe``
-    (an op that writes only constants, where a repeated row is written
-    the same each time): repeated rows are dropped instead."""
+# rows per entry of the batch's chunk counts (csrc/gp_lifecycle.cu CHUNK_SHIFT)
+CHUNK_ROWS = 256
+
+
+def _check_rows(idx, G: int, what: str) -> np.ndarray:
+    """Host copy of a row batch as int32, in the caller's order, checked:
+    1-D, integer, every row in [0, G) (checked before the cast, so no wide
+    value wraps into range)."""
     h = idx.detach().cpu().numpy() if isinstance(idx, torch.Tensor) else np.asarray(idx)
     if h.ndim != 1:
         raise ValueError(f"{what}: idx must be 1-D, got shape {h.shape}")
     if h.size == 0:
         return np.zeros(0, np.int32)
-    if not np.issubdtype(h.dtype, np.integer):
+    if h.dtype.kind not in "iu":
         raise TypeError(f"{what}: idx dtype {h.dtype}, expected integers")
-    h = h.astype(np.int64)
-    lo, hi = int(h.min()), int(h.max())
+    lo, hi = h.min(), h.max()
     if lo < 0 or hi >= G:
         raise ValueError(f"{what}: rows [{lo}, {hi}] outside [0, {G})")
-    if dedupe:
-        h = np.unique(h)
-    elif np.unique(h).size != h.size:
-        raise ValueError(f"{what}: duplicate rows in idx")
-    return h.astype(np.int32)
+    return h.astype(np.int32, copy=False)
 
 
-def kill_bitmap(rows: np.ndarray, G: int) -> np.ndarray:
-    """The batch of ``gp_kill_kernel`` as a bitmap: bit ``g % 32`` of word
-    ``g // 32`` is set where row ``g`` is killed (int32 words)."""
-    bits = np.zeros(-(-G // 32), np.uint32)
-    r = rows.astype(np.int64)
-    np.bitwise_or.at(bits, r >> 5, (np.uint32(1) << (r & 31).astype(np.uint32)))
-    return bits.view(np.int32)
+def _sort_rows(rows: np.ndarray, what: str, dedupe: bool = False):
+    """(sorted rows, the caller's position of each): a row twice is refused
+    (the reference's ``.at[idx].set`` leaves duplicates unordered; the
+    kernels would race), or with ``dedupe`` (an op that writes only
+    constants, where a repeated row is written the same each time)
+    dropped."""
+    order = np.argsort(rows)   # the rows are unique once checked: no tie to order
+    srt = rows[order]
+    dup = srt[1:] == srt[:-1]
+    if dup.any():
+        if not dedupe:
+            raise ValueError(f"{what}: duplicate rows in idx")
+        keep = np.concatenate(([True], ~dup))
+        srt, order = srt[keep], order[keep]
+    return srt, order
 
 
-def _host_i32(val, shape, what: str) -> np.ndarray:
-    """Host values -> a contiguous int32 array of ``shape`` (broadcast as
-    the plain version's row assignment broadcasts; int32 wraparound as
+def batch_bitmap(srt: np.ndarray, G: int, out: Optional[np.ndarray] = None) -> np.ndarray:
+    """The batch of sorted rows ``srt`` as the bitmap ``gp_kill_kernel`` and
+    ``gp_life_rows_kernel`` read: bit ``g % 32`` of word ``g // 32`` is set
+    where row ``g`` is in the batch (int32 words; into ``out`` when
+    given)."""
+    bits = np.zeros(-(-G // 32), np.int32) if out is None else out
+    bits.fill(0)
+    # unique rows: their bits are distinct, so a sum is their OR
+    np.add.at(bits.view(np.uint32), srt >> 5,
+              np.left_shift(np.uint32(1), (srt & 31).astype(np.uint32)))
+    return bits
+
+
+@functools.lru_cache(maxsize=64)
+def _chunk_starts(G: int) -> np.ndarray:
+    starts = np.arange(-(-G // CHUNK_ROWS) + 1) * CHUNK_ROWS
+    starts.flags.writeable = False
+    return starts
+
+
+def _chunk_counts(srt: np.ndarray, G: int, out: np.ndarray) -> None:
+    """``out[c]``: the sorted rows ``srt`` below chunk c's first row."""
+    out[:] = np.searchsorted(srt, _chunk_starts(G))
+
+
+def _lap(parts: Optional[dict], part: str, t: float) -> float:
+    """Add the seconds since ``t`` to ``parts[part]`` and return the
+    clock, when timing a lifecycle call's staging by part (``parts``, a
+    dict the caller passes, else None): "args" (the argument block and its
+    checks), "checks" (the row batch's), "build" (the host buffer),
+    "upload", "alloc" (the fresh leaves)."""
+    if parts is None:
+        return t
+    now = time.perf_counter()
+    parts[part] = parts.get(part, 0.0) + now - t
+    return now
+
+
+def _clock(parts: Optional[dict]) -> float:
+    return time.perf_counter() if parts is not None else 0.0
+
+
+def _put(buf: np.ndarray, off: int, val, shape, what: str) -> None:
+    """Host values -> ``buf[off:]`` as int32 of ``shape`` (broadcast as the
+    plain version's row assignment broadcasts; int32 wraparound as
     ``torch.as_tensor(..., dtype=int32)``)."""
     if isinstance(val, torch.Tensor):
         val = val.detach().cpu().numpy()
-    arr = np.asarray(val).astype(np.int32)
+    arr = np.asarray(val)
+    dst = buf[off:off + shape[0] * (shape[1] if len(shape) == 2 else 1)]
     try:
-        return np.ascontiguousarray(np.broadcast_to(arr, shape))
+        if arr.ndim == 0:
+            dst[...] = arr
+        else:
+            dst.reshape(shape)[...] = arr
     except ValueError:
         raise ValueError(f"{what}: shape {arr.shape} does not fit {shape}") from None
 
 
+def _layout(layout) -> tuple:
+    """Word offsets of the parts of ``layout`` ((name, words) pairs) in
+    one buffer, each starting on a 16-byte boundary, and the buffer's
+    words."""
+    off, at = {}, 0
+    for name, words in layout:
+        off[name] = at
+        at += -(-int(words) // 4) * 4
+    return off, max(at, 4)
+
+
+def life_batch_host(rows, inputs: dict, G: int, W: int, what: str = "batch",
+                    alloc=None, parts: Optional[dict] = None):
+    """The staged batch of ``gp_create_groups`` / ``gp_restore_paused_rows``
+    (``gp_life_rows_kernel``), built on the host: ``(buf, off)``, one
+    flat int32 buffer and the word offset of each part in it:
+
+    * ``idx``: the batch's rows sorted ascending;
+    * ``pos``: the caller's position of each sorted row;
+    * ``cnt``: ``ceil(G / CHUNK_ROWS) + 1`` counts, the batch rows below
+      each chunk of :data:`CHUNK_ROWS` rows (the bounds of the kernel's
+      binary search);
+    * ``bits``: the batch as a bitmap of G bits (:func:`batch_bitmap`);
+    * one part per entry of ``inputs`` (leaf -> host values, [N] or
+      [N, W] for a window leaf), in the caller's order;
+
+    and ``off["N"]``, the batch's rows.
+
+    ``rows`` is checked as the wrappers check it (1-D, integer, in
+    [0, G), no row twice: :func:`_check_rows`, :func:`_sort_rows`) in
+    int32.  ``alloc(words)`` (default: a new numpy array) gives the int32
+    array to fill; ``parts`` (optional) sums the seconds of the checks and
+    the build."""
+    t = _clock(parts)
+    r = _check_rows(rows, G, what)
+    srt, order = _sort_rows(r, what)
+    t = _lap(parts, "checks", t)
+    N = int(r.size)
+    nchunk = -(-G // CHUNK_ROWS)
+    layout = [("idx", N), ("pos", N), ("cnt", nchunk + 1), ("bits", -(-G // 32))]
+    shape_of = lambda leaf: (N, W) if leaf in GW_LEAVES else (N,)
+    layout += [(leaf, N * (W if leaf in GW_LEAVES else 1)) for leaf in inputs]
+    off, words = _layout(layout)
+    buf = np.empty(words, np.int32) if alloc is None else alloc(words)
+    buf[off["idx"]:off["idx"] + N] = srt
+    buf[off["pos"]:off["pos"] + N] = order
+    _chunk_counts(srt, G, buf[off["cnt"]:off["cnt"] + nchunk + 1])
+    batch_bitmap(srt, G, buf[off["bits"]:off["bits"] + -(-G // 32)])
+    for leaf, val in inputs.items():
+        _put(buf, off[leaf], val, shape_of(leaf), f"{what}.{leaf}")
+    off["N"] = N
+    _lap(parts, "build", t)
+    return buf, off
+
+
+def rows_batch_host(rows, inputs: dict, G: int, W: int, what: str = "batch",
+                    kill: bool = False, alloc=None, parts: Optional[dict] = None):
+    """The staged batch of the other lifecycle ops, as
+    :func:`life_batch_host` returns it: ``idx``, the rows in the caller's
+    order (kill: unique and sorted, with ``bits``, the bitmap its kernel
+    reads), then the host inputs."""
+    t = _clock(parts)
+    r = _check_rows(rows, G, what)
+    srt, _ = _sort_rows(r, what, dedupe=kill)
+    if kill:
+        r = srt
+    t = _lap(parts, "checks", t)
+    N = int(r.size)
+    layout = [("idx", N)] + ([("bits", -(-G // 32))] if kill else [])
+    layout += [(leaf, N * (W if leaf in GW_LEAVES else 1)) for leaf in inputs]
+    off, words = _layout(layout)
+    buf = np.empty(words, np.int32) if alloc is None else alloc(words)
+    buf[off["idx"]:off["idx"] + N] = r
+    if kill:
+        batch_bitmap(r, G, buf[off["bits"]:off["bits"] + -(-G // 32)])
+    for leaf, val in inputs.items():
+        _put(buf, off[leaf], val, (N, W) if leaf in GW_LEAVES else (N,),
+             f"{what}.{leaf}")
+    off["N"] = N
+    _lap(parts, "build", t)
+    return buf, off
+
+
+class _Pinned:
+    """A device's reusable pinned host buffer for the lifecycle uploads,
+    and the event after its last upload (the buffer is rewritten only
+    once that copy has read it)."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.host = torch.empty(0, dtype=torch.int32)
+        self.view = self.host.numpy()
+        self.done = torch.cuda.Event()
+
+    def words(self, n: int) -> np.ndarray:
+        if n > self.view.size:
+            self.host = torch.empty(max(n, 2 * self.view.size, 1 << 16),
+                                    dtype=torch.int32, pin_memory=True)
+            self.view = self.host.numpy()
+        return self.view[:n]
+
+
+_PINNED: Dict[torch.device, _Pinned] = {}
+_pin_lock = threading.Lock()
+
+
+def _upload(dev: torch.device, build, parts: Optional[dict] = None) -> tuple:
+    """``build(alloc)`` -> ``(buf, off)`` filled on the host and uploaded
+    to ``dev`` in one copy: on a card, from the device's pinned buffer,
+    ``non_blocking`` into a fresh device tensor on the current stream;
+    returns (device tensor, off)."""
+    if dev.type != "cuda":
+        buf, off = build(None)
+        return torch.from_numpy(buf), off
+    with _pin_lock:
+        pin = _PINNED.get(dev)
+        if pin is None:
+            pin = _PINNED[dev] = _Pinned()
+    with pin.lock:
+        t = _clock(parts)
+        pin.done.synchronize()
+        _lap(parts, "upload", t)
+        buf, off = build(pin.words)
+        t = _clock(parts)
+        flat = torch.empty(buf.size, dtype=torch.int32, device=dev)
+        flat.copy_(pin.host[:buf.size], non_blocking=True)
+        pin.done.record(torch.cuda.current_stream(dev))
+        _lap(parts, "upload", t)
+    return flat, off
+
+
 def _lifecycle_launch(a: _LifeArgs) -> None:
     """The one call into ``gp_lifecycle_launch`` (raises on a nonzero
-    ``cudaGetLastError()``)."""
+    ``cudaGetLastError()``; the launcher sets ``a.kernels``)."""
     _launch(lib("gp_lifecycle").gp_lifecycle_launch, a)
 
 
@@ -690,14 +878,17 @@ class Staged:
 
     ``values`` are the op's batch rows, one per leaf of ``INPUTS[name]``
     ([N] or [N, W]): a CUDA int32 tensor of that shape is read in place,
-    host values (numpy, python, CPU tensors) go up in ONE staging upload
-    with ``idx``.  ``result`` is
+    host values (numpy, python, CPU tensors) go up in ONE upload with the
+    rows (create and restore_paused: :func:`life_batch_host`; the others:
+    :func:`rows_batch_host`).  ``result`` is
     the new state (touched leaves fresh from ``torch.empty``, the rest
     the input's own tensors) or, for ``gp_extract_rows``, the tuple of
-    gathered rows."""
+    gathered rows.  ``parts`` (optional) sums the seconds of the staging's
+    parts (``_lap``)."""
 
     def __init__(self, name: str, op: int, state: EngineState, idx,
-                 values: tuple = (), my_id: int = 0):
+                 values: tuple = (), my_id: int = 0, parts: Optional[dict] = None):
+        t = _clock(parts)
         dev = state.bal.device
         if not _engine.on_card(state.bal):
             raise ValueError(f"{name} needs CUDA tensors, got {dev}")
@@ -707,45 +898,62 @@ class Staged:
         if len(values) != len(INPUTS[name]):
             raise ValueError(f"{name}: {len(values)} batch inputs, "
                              f"expected {len(INPUTS[name])}")
-        inputs = dict(zip(INPUTS[name], values))
-        rows = _rows(idx, G, name, dedupe=op == OP_KILL)
-        N = int(rows.size)
-        shape_of = lambda leaf: (N, W) if leaf in GW_LEAVES else (N,)
-        staged, on_dev = [rows], {}
-        for leaf, val in inputs.items():
+        host, on_dev = {}, {}
+        for leaf, val in zip(INPUTS[name], values):
             if isinstance(val, torch.Tensor) and val.device == dev:
-                _check(val, f"{name}.{leaf}", shape_of(leaf), torch.int32, dev)
                 on_dev[leaf] = val
             else:
-                staged.append(_host_i32(val, shape_of(leaf), f"{name}.{leaf}"))
+                host[leaf] = val
+        if on_dev:   # their shapes hang on N: refused before any upload
+            idx = _check_rows(idx, G, name)
+            for leaf, val in on_dev.items():
+                shape = (idx.size, W) if leaf in GW_LEAVES else (idx.size,)
+                a.inp[_LEAF[leaf]] = _check(val, f"{name}.{leaf}", shape, torch.int32, dev)
+        if op in (OP_CREATE, OP_RESTORE_PAUSED):
+            build = lambda alloc: life_batch_host(idx, host, G, W, name, alloc, parts)
+        else:
+            build = lambda alloc: rows_batch_host(idx, host, G, W, name,
+                                                  op == OP_KILL, alloc, parts)
+        _lap(parts, "args", t)
+        flat, off = _upload(dev, build, parts)
+        t = _clock(parts)
+        N = off["N"]
+        base = flat.data_ptr()
+        a.idx = base + 4 * off["idx"]
         if op == OP_KILL:
-            staged.append(kill_bitmap(rows, G))
-        flat = torch.from_numpy(np.concatenate([x.ravel() for x in staged])).to(dev)
-        a.idx = flat.data_ptr()
-        if op == OP_KILL:
-            a.inp[0] = flat.data_ptr() + 4 * N
-        off = N
-        for leaf in inputs:
-            if leaf in on_dev:
-                a.inp[_LEAF[leaf]] = on_dev[leaf].data_ptr()
-            else:
-                a.inp[_LEAF[leaf]] = flat.data_ptr() + 4 * off
-                off += int(np.prod(shape_of(leaf)))
+            a.inp[0] = base + 4 * off["bits"]
+        elif op in (OP_CREATE, OP_RESTORE_PAUSED):
+            a.pos = base + 4 * off["pos"]
+            a.cnt = base + 4 * off["cnt"]
+            a.bits = base + 4 * off["bits"]
+        for leaf in host:
+            a.inp[_LEAF[leaf]] = base + 4 * off[leaf]
+        t = _lap(parts, "args", t)
         out = {}
         for leaf in TOUCHED[name]:
             out[leaf] = torch.empty_like(getattr(state, leaf))
             a.st_out[_LEAF[leaf]] = out[leaf].data_ptr()
         if op == OP_EXTRACT:
             self.result = tuple(
-                torch.empty(shape_of(leaf), dtype=torch.int32, device=dev)
+                torch.empty((N, W) if leaf in GW_LEAVES else (N,),
+                            dtype=torch.int32, device=dev)
                 for leaf in EngineState._fields
             )
-            a.rows_out[:] = [t.data_ptr() for t in self.result]
+            a.rows_out[:] = [x.data_ptr() for x in self.result]
         else:
             self.result = state._replace(**out)
+        t = _lap(parts, "alloc", t)
         a.G, a.W, a.N, a.op, a.my_id = G, W, N, op, int(my_id)
         self.name, self.args = name, a
         self._keep = (state, flat, on_dev)
+        _lap(parts, "args", t)
+
+    @property
+    def kernels(self) -> int:
+        """Kernels the last :meth:`launch` launched (the C launcher's
+        count: 1 for create, restore_paused, kill and extract; 2 for jump
+        and restore_rows, a copy pass and a row pass)."""
+        return int(self.args.kernels)
 
     def launch(self) -> None:
         """Launch the op's kernels on the staged arguments (again: the
@@ -757,38 +965,39 @@ class Staged:
 def _run(st: Staged):
     st.launch()
     LAUNCHES[st.name] += 1
+    KERNEL_LAUNCHES[st.name] += st.kernels
     return st.result
 
 
-def _stage_create(state, idx, member_mask, coord0, my_id, version=0, tag=0):
+def _stage_create(state, idx, member_mask, coord0, my_id, version=0, tag=0, parts=None):
     return Staged("gp_create_groups", OP_CREATE, state, idx,
-                  (member_mask, coord0, version, tag), my_id)
+                  (member_mask, coord0, version, tag), my_id, parts)
 
 
-def _stage_kill(state, idx):
+def _stage_kill(state, idx, parts=None):
     # kill writes constants only, so a repeated row (hibernate_batch given
     # a name twice) has the reference's result: it is dropped, not refused
-    return Staged("gp_kill_groups", OP_KILL, state, idx)
+    return Staged("gp_kill_groups", OP_KILL, state, idx, parts=parts)
 
 
-def _stage_jump(state, idx, exec_slot, bal, app_hash, n_execd, stopped):
+def _stage_jump(state, idx, exec_slot, bal, app_hash, n_execd, stopped, parts=None):
     return Staged("gp_jump_rows", OP_JUMP, state, idx,
-                  (exec_slot, bal, app_hash, n_execd, stopped))
+                  (exec_slot, bal, app_hash, n_execd, stopped), parts=parts)
 
 
 def _stage_restore_paused(state, idx, exec_slot, bal, app_hash, n_execd,
-                          acc_bal, acc_vid, acc_slot, dec_vid, dec_slot):
+                          acc_bal, acc_vid, acc_slot, dec_vid, dec_slot, parts=None):
     return Staged("gp_restore_paused_rows", OP_RESTORE_PAUSED, state, idx,
                   (exec_slot, bal, app_hash, n_execd, acc_bal, acc_vid,
-                   acc_slot, dec_vid, dec_slot))
+                   acc_slot, dec_vid, dec_slot), parts=parts)
 
 
-def _stage_restore_rows(state, idx, rows):
-    return Staged("gp_restore_rows", OP_RESTORE_ROWS, state, idx, tuple(rows))
+def _stage_restore_rows(state, idx, rows, parts=None):
+    return Staged("gp_restore_rows", OP_RESTORE_ROWS, state, idx, tuple(rows), parts=parts)
 
 
-def _stage_extract(state, idx):
-    return Staged("gp_extract_rows", OP_EXTRACT, state, idx)
+def _stage_extract(state, idx, parts=None):
+    return Staged("gp_extract_rows", OP_EXTRACT, state, idx, parts=parts)
 
 
 _STAGE = {
@@ -801,16 +1010,18 @@ _STAGE = {
 }
 
 
-def stage(name: str, state: EngineState, *args, **kwargs) -> Staged:
+def stage(name: str, state: EngineState, *args, parts: Optional[dict] = None,
+          **kwargs) -> Staged:
     """Stage one call of lifecycle kernel ``name`` with the public
     wrapper's arguments, without launching it (for timing the launch
-    alone: :meth:`Staged.launch`)."""
-    return _STAGE[name](state, *args, **kwargs)
+    alone: :meth:`Staged.launch`; ``parts``: the staging's seconds by
+    part summed into it)."""
+    return _STAGE[name](state, *args, parts=parts, **kwargs)
 
 
 def create_groups(state: EngineState, idx, member_mask, coord0, my_id: int,
                   version=0, tag=0) -> EngineState:
-    """``gp_create_groups``: fresh rows (every leaf touched)."""
+    """``gp_create_groups``: fresh rows (every leaf touched), one launch."""
     return _run(_stage_create(state, idx, member_mask, coord0, my_id, version, tag))
 
 
@@ -828,7 +1039,8 @@ def jump_rows(state: EngineState, idx, exec_slot, bal, app_hash, n_execd,
 def restore_paused_rows(state: EngineState, idx, exec_slot, bal, app_hash,
                         n_execd, acc_bal, acc_vid, acc_slot, dec_vid,
                         dec_slot) -> EngineState:
-    """``gp_restore_paused_rows``: scatter pause-record remnants."""
+    """``gp_restore_paused_rows``: scatter pause-record remnants, one
+    launch."""
     return _run(_stage_restore_paused(
         state, idx, exec_slot, bal, app_hash, n_execd, acc_bal, acc_vid,
         acc_slot, dec_vid, dec_slot,

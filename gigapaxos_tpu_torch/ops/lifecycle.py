@@ -18,7 +18,11 @@ Two implementations of every op live here, as in :mod:`.engine`:
 * the **plain** version (``*_plain``): PyTorch indexing, the CPU path and
   the yardstick the kernel is held against;
 * the **kernel** (``csrc/gp_lifecycle.cu``, bound in :mod:`.gp_kernels`):
-  a copy pass over the touched leaves and a row pass over the batch.
+  create and restore_paused are ONE launch of ``gp_life_rows_kernel``
+  over the touched leaves (the batch found by its bitmap, a batch row's
+  position by a search of the sorted rows, staged in one pinned upload);
+  kill and extract one launch each; jump and restore_rows a copy pass over
+  the touched leaves, then a row pass over the batch.
 
 The public functions dispatch: CPU tensors take the plain version, CUDA
 tensors launch the kernel or raise.  On the kernel path the row batch
@@ -250,7 +254,8 @@ def restore_rows_plain(state: EngineState, idx, rows: Tuple) -> EngineState:
 
 def create_groups(state: EngineState, idx, member_mask, coord0, my_id: int,
                   version=0, tag=0) -> EngineState:
-    """Batched group creation (see :func:`create_groups_plain`)."""
+    """Batched group creation (see :func:`create_groups_plain`); on the
+    card one ``gp_life_rows_kernel`` launch."""
     if not _engine.on_card(state.bal):
         return create_groups_plain(state, idx, member_mask, coord0, my_id,
                                    version, tag)
@@ -284,7 +289,8 @@ def jump_rows(state: EngineState, idx, exec_slot, bal, app_hash, n_execd,
 def restore_paused_rows(state: EngineState, idx, exec_slot, bal, app_hash,
                         n_execd, acc_bal, acc_vid, acc_slot, dec_vid,
                         dec_slot) -> EngineState:
-    """Batched unpause install (see :func:`restore_paused_rows_plain`)."""
+    """Batched unpause install (see :func:`restore_paused_rows_plain`); on
+    the card one ``gp_life_rows_kernel`` launch."""
     args = (idx, exec_slot, bal, app_hash, n_execd, acc_bal, acc_vid,
             acc_slot, dec_vid, dec_slot)
     if not _engine.on_card(state.bal):

@@ -10,6 +10,16 @@ untouched leaves the input's own tensors, bad row batches refused.  Then
 a manager's hibernate / wake burst / per-name wake on the card in lock
 step with the same manager on the CPU.
 
+``gp_create_groups`` and ``gp_restore_paused_rows`` are one launch of
+``gp_life_rows_kernel`` a call (jump and restore_rows two): their cases
+also cover N in {0, 1, 7, 64, G}, unsorted batches, rows on both sides of
+a bitmap word's edge, batch inputs given as CUDA int32 tensors in the
+caller's order, G=301 (word units), 4,096 and 65,536 (int4 units; four
+a thread at 65,536's sparse batches from W=8) at W in {4, 8, 16, 32}, a
+staged call launched twice and at either unit count a thread, bad
+batches refused before any launch, and misshapen CUDA batch inputs
+refused before any upload.
+
 A CUDA kernel has no CPU mode: every test here skips without a card.
 This file imports nothing of JAX, so it also runs where JAX is absent
 (the chip machine), without the suite's conftest:
@@ -83,6 +93,7 @@ def test_lifecycle_kernel_matches_plain(op, W):
         want = getattr(tl, op + "_plain")(state, *args, **kw)
         torch.cuda.synchronize()
         assert te.LAUNCHES[kname] == 1
+        assert te.KERNEL_LAUNCHES[kname] == (2 if op in ("jump_rows", "restore_rows") else 1)
         for f, a, b in zip(te.EngineState._fields, got, want):
             assert torch.equal(a, b), (N, f)
         for a, b in zip(state, keep):
@@ -103,6 +114,113 @@ def test_lifecycle_kernel_matches_plain(op, W):
             getattr(tl, op)(state, repeated, *args[1:], **kw)
     with pytest.raises(ValueError):
         getattr(tl, op)(state, np.array([0, 1, 2, G]), *args[1:], **kw)
+
+
+ONE_PASS = ["create_groups", "restore_paused_rows"]
+
+
+def _state_at(rng, G, W):
+    d = {f: rng.integers(-1, 400, size=(G, W) if f in GW else (G,)).astype(np.int32)
+         for f in te.EngineState._fields}
+    d["app_hash"] = rng.integers(-2 ** 31, 2 ** 31 - 1, size=G).astype(np.int32)
+    return te.EngineState(**{k: torch.as_tensor(v, device="cuda") for k, v in d.items()})
+
+
+def _one_pass_args(op, rng, G, W, idx, on_card):
+    N = len(idx)
+    n = lambda lo, hi: rng.integers(lo, hi, size=N)
+    dev = (lambda x: torch.as_tensor(np.asarray(x).astype(np.int32), device="cuda")) \
+        if on_card else (lambda x: x)
+    if op == "create_groups":
+        masks = rng.integers(-2 ** 31, 2 ** 31 - 1, size=N)
+        masks[::2] = rng.integers(1, 8, size=masks[::2].shape)
+        coord0 = tl.initial_coordinator(idx, masks & 7)
+        return (idx, dev(masks), dev(coord0)), dict(
+            my_id=1, version=dev(n(0, 4)), tag=dev(n(1, 1000)))
+    return (idx,) + tuple(dev(x) for x in (n(-1, 500), n(-1, 500), n(-9, 9), n(0, 9))) \
+        + tuple(dev(rng.integers(-1, 500, size=(N, W))) for _ in range(5)), {}
+
+
+@pytest.mark.parametrize("on_card", [False, True], ids=["host_inputs", "card_inputs"])
+@pytest.mark.parametrize("W", [4, 8, 16, 32])
+@pytest.mark.parametrize("G", [301, 4096, 65536])
+@pytest.mark.parametrize("op", ONE_PASS)
+def test_one_pass_kernel_matches_plain(op, G, W, on_card):
+    """One launch a call, bit-equal to the plain version, at N in {0, 1,
+    7, 64, G} and a batch astride bitmap words' edges, unsorted, with the
+    batch inputs on the host or as CUDA int32 tensors in the caller's
+    order; a staged call launched twice writes the same result."""
+    _need_card()
+    from gigapaxos_tpu_torch.ops import gp_kernels
+
+    rng = np.random.default_rng(ONE_PASS.index(op) * 10_000 + G + W + on_card)
+    state = _state_at(rng, G, W)
+    keep = [x.clone() for x in state]
+    kname = "gp_" + op
+    batches = [rng.choice(G, size=n, replace=False) for n in (0, 1, 7, 64, G)]
+    batches.append(rng.permutation([31, 32, 0, G - 1, 63, 64, 95, 96]))
+    for idx in batches:
+        args, kw = _one_pass_args(op, rng, G, W, idx, on_card)
+        te.reset_launch_counts()
+        got = getattr(tl, op)(state, *args, **kw)
+        want = getattr(tl, op + "_plain")(state, *args, **kw)
+        torch.cuda.synchronize()
+        assert te.LAUNCHES[kname] == 1 and te.KERNEL_LAUNCHES[kname] == 1
+        for f, a, b in zip(te.EngineState._fields, got, want):
+            assert torch.equal(a, b), (len(idx), f)
+        for a, b in zip(state, keep):
+            assert torch.equal(a, b)
+        for f in te.EngineState._fields:
+            fresh = getattr(got, f) is not getattr(state, f)
+            assert fresh == (f in gp_kernels.TOUCHED[kname]), f
+        staged = gp_kernels.stage(kname, state, *args, **kw)
+        staged.launch()
+        staged.launch()
+        torch.cuda.synchronize()
+        assert staged.kernels == 1
+        for f, a, b in zip(te.EngineState._fields, staged.result, want):
+            assert torch.equal(a, b), ("twice", len(idx), f)
+        for units in (1, 4):   # either unit count the launcher may pick
+            staged.args.units = units
+            staged.launch()
+            torch.cuda.synchronize()
+            for f, a, b in zip(te.EngineState._fields, staged.result, want):
+                assert torch.equal(a, b), (units, len(idx), f)
+
+
+@pytest.mark.parametrize("op", ONE_PASS)
+def test_one_pass_refuses_bad_batches_before_a_launch(op):
+    _need_card()
+    rng = np.random.default_rng(7)
+    G, W = 301, 8
+    state = _state_at(rng, G, W)
+    args, kw = _one_pass_args(op, rng, G, W, np.arange(4), False)
+    te.reset_launch_counts()
+    for bad in ([3, 5, 3, 1], [0, 1, 2, G], [0, -1, 2, 3]):
+        with pytest.raises(ValueError):
+            getattr(tl, op)(state, np.array(bad), *args[1:], **kw)
+    assert te.LAUNCHES["gp_" + op] == 0 and te.KERNEL_LAUNCHES["gp_" + op] == 0
+
+
+@pytest.mark.parametrize("op", ONE_PASS)
+def test_one_pass_refuses_misshapen_card_inputs_before_an_upload(op, monkeypatch):
+    """A batch input given as a CUDA tensor of the wrong shape or dtype is
+    refused before the batch is staged: no upload, no launch."""
+    _need_card()
+    from gigapaxos_tpu_torch.ops import gp_kernels
+
+    rng = np.random.default_rng(8)
+    G, W = 301, 8
+    state = _state_at(rng, G, W)
+    args, kw = _one_pass_args(op, rng, G, W, np.arange(4), True)
+    calls = []
+    monkeypatch.setattr(gp_kernels, "_upload", lambda *a, **k: calls.append("upload"))
+    monkeypatch.setattr(gp_kernels, "_lifecycle_launch", lambda *a: calls.append("launch"))
+    for i in range(1, len(args)):
+        for bad in (args[i][:-1], args[i].to(torch.int64)):
+            with pytest.raises((ValueError, TypeError)):
+                getattr(tl, op)(state, *args[:i], bad, *args[i + 1:], **kw)
+    assert calls == []
 
 
 def test_manager_residency_on_card_matches_cpu(tmp_path):

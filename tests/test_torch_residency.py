@@ -84,21 +84,37 @@ def _host(ptr: int, shape) -> np.ndarray:
     return np.ctypeslib.as_array((ctypes.c_int32 * n).from_address(ptr)).reshape(shape)
 
 
-def _popcount(x: int) -> int:
-    return bin(int(x) & 0xFFFFFFFF).count("1")
-
-
 def _emulated_launch(a) -> None:
-    """``gp_lifecycle_launch`` on host memory: the copy pass over every
-    leaf with an output pointer, then the row pass (extract: the gather
-    alone), each row as the CUDA kernel writes it; for kill, the bitmap
-    the kernel reads is checked against the batch first."""
+    """``gp_lifecycle_launch`` on host memory.  Create and restore_paused:
+    ``gp_life_rows_kernel``'s one pass, every row found as the kernel
+    finds it, through the staged bitmap, chunk counts, sorted rows and
+    positions (``test_torch_lifecycle_staging.lookup``).  The other ops:
+    the copy pass over every leaf with an output pointer, then the row
+    pass (extract: the gather alone), each row as the CUDA kernel writes
+    it; for kill, the bitmap the kernel reads is checked against the
+    batch first.  Sets ``a.kernels`` as the C launcher does."""
+    from test_torch_lifecycle_staging import apply_life_rows, lookup
+
     G, W, N, op = int(a.G), int(a.W), int(a.N), int(a.op)
     assert 0 <= op <= gp_kernels.OP_EXTRACT and G >= 1 and W >= 1 and N >= 0
     shape = lambda f, rows: (rows, W) if f in GW else (rows,)
     L = {f: i for i, f in enumerate(FIELDS)}
     s = {f: _host(a.st_in[L[f]], shape(f, G)) for f in FIELDS}
     o = {f: _host(a.st_out[L[f]], shape(f, G)) for f in FIELDS if a.st_out[L[f]]}
+    if op in (gp_kernels.OP_CREATE, gp_kernels.OP_RESTORE_PAUSED):
+        n_of = lookup(_host(a.bits, (-(-G // 32),)),
+                      _host(a.cnt, (-(-G // gp_kernels.CHUNK_ROWS) + 1,)),
+                      _host(a.idx, (N,)) if N else np.zeros(0, np.int32),
+                      _host(a.pos, (N,)) if N else np.zeros(0, np.int32), G)
+        assert np.count_nonzero(n_of >= 0) == N
+        i = {f: _host(a.inp[L[f]], shape(f, N)) for f in FIELDS if a.inp[L[f]] and N}
+        for f, v in apply_life_rows(op, s, i, n_of, int(a.my_id)).items():
+            o[f][...] = v
+        a.kernels = 1
+        return
+    # kill: one launch; extract: one where N > 0; jump, restore_rows: the
+    # copy pass, then the row pass where N > 0
+    a.kernels = {gp_kernels.OP_KILL: 1, gp_kernels.OP_EXTRACT: int(N > 0)}.get(op, 1 + (N > 0))
     if op != gp_kernels.OP_EXTRACT:
         for f, out in o.items():
             out[...] = s[f]
@@ -122,20 +138,7 @@ def _emulated_launch(a) -> None:
             _host(a.rows_out[L[f]], shape(f, N))[...] = s[f][idx]
         return
     for n, g in enumerate(idx):
-        if op == gp_kernels.OP_CREATE:
-            coord0 = int(i["bal"][n])
-            me = coord0 == int(a.my_id)
-            for f in GW:
-                o[f][g] = NULL
-            row = dict(
-                member_mask=i["member_mask"][n],
-                majority=_popcount(i["member_mask"][n]) // 2 + 1,
-                version=i["version"][n], stopped=0, tag=i["tag"][n],
-                bal=coord0, exec_slot=0, app_hash=0, n_execd=0,
-                c_phase=te.ACTIVE if me else te.IDLE,
-                c_bal=coord0 if me else NULL, c_next_slot=0,
-            )
-        elif op == gp_kernels.OP_KILL:
+        if op == gp_kernels.OP_KILL:
             row = dict(member_mask=0, majority=2 ** 30, stopped=0, tag=0,
                        bal=NULL, c_phase=te.IDLE, c_bal=NULL)
         elif op == gp_kernels.OP_JUMP:
@@ -156,12 +159,6 @@ def _emulated_launch(a) -> None:
                 stopped=i["stopped"][n], c_phase=te.IDLE, c_bal=NULL,
                 c_next_slot=ne,
             )
-        elif op == gp_kernels.OP_RESTORE_PAUSED:
-            for f in ("acc_bal", "acc_vid", "acc_slot", "dec_vid", "dec_slot"):
-                o[f][g] = i[f][n]
-            row = dict(exec_slot=i["exec_slot"][n], bal=i["bal"][n],
-                       app_hash=i["app_hash"][n], n_execd=i["n_execd"][n],
-                       c_next_slot=i["exec_slot"][n])
         else:  # OP_RESTORE_ROWS
             row = {}
             for f in FIELDS:

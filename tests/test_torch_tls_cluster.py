@@ -14,6 +14,7 @@ holding its worker.  Certificates come from a local ``openssl``; the
 tests skip without it.
 """
 
+import socket
 import ssl
 import subprocess
 import threading
@@ -73,10 +74,42 @@ def bounded(fn, *args):
     return out["value"]
 
 
+def _paired_ports(n: int, offset: int):
+    """``n`` free loopback ports p whose client-plane partner p + ``offset``
+    is free too.  Every probe socket stays bound until all n are chosen, so
+    no port or partner is handed out twice (``free_ports`` reserves no
+    partner, and another worker could hold it)."""
+    held, ports = [], []
+    try:
+        for _ in range(4096):
+            if len(ports) == n:
+                return ports
+            s = socket.socket()
+            s.bind(("127.0.0.1", 0))
+            held.append(s)
+            p = s.getsockname()[1]
+            if p + offset > 65535:
+                continue
+            t = socket.socket()
+            try:
+                t.bind(("127.0.0.1", p + offset))
+            except OSError:
+                t.close()
+                continue
+            held.append(t)
+            ports.append(p)
+        raise OSError(f"no {n} loopback ports with free partners at +{offset}")
+    finally:
+        for s in held:
+            s.close()
+
+
 def _boot(pkg, key, crt, **extra):
     Config = pkg.mod("utils.config").Config
-    ports = pkg.mod("testing.ports").free_ports(6)
     Config.clear()
+    offset = int(extra.get("CLIENT_PORT_OFFSET",
+                           Config.get_int(pkg.mod("paxos_config").PC.CLIENT_PORT_OFFSET)))
+    ports = _paired_ports(6, offset)
     for i in range(3):
         Config.set(f"active.AR{i}", f"127.0.0.1:{ports[i]}")
         Config.set(f"reconfigurator.RC{i}", f"127.0.0.1:{ports[3 + i]}")
