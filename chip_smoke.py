@@ -36,12 +36,13 @@ Phases (any failure exits nonzero):
              N=1) and the bank ledger's (G=131,072, W=4; N in {1, 1,696,
              32,768}, timed at 32,768); the input state unchanged, untouched leaves the input's own
              tensors, bad row batches refused, the kernels a call (one
-             for create, restore_paused, kill and extract; two for jump
-             and restore_rows); create and restore_paused also at G=301,
+             for every op); create, jump, restore_paused and restore_rows
+             also at G=301,
              4,096 and 65,536, W in {4, 8, 16, 32}, N in {0, 1, 7, 64, G}, rows
              astride bitmap words, inputs on the card, a staged call
              launched twice; then each op's launch time (on the device: a
-             CUDA graph of launches; and by events around a loop), full
+             CUDA graph of launches, the one-launch row ops at one and at
+             four units a thread too; and by events around a loop), full
              call time and its staging by part (also at the server shape
              at N=1), plain and index_copy times.
    pack_rows — gp_pack_rows against pack_rows_plain, bit for bit, at
@@ -111,7 +112,8 @@ Phases (any failure exits nonzero):
 5. state transfer — 3 managers (ManagerCluster) at the server shape,
              batching off: replica 2 dies, the others run more than 5W
              slots ahead, replica 2 restarts from its journal and adopts a
-             donor's frontier (gp_jump_rows); all three agree.
+             donor's frontier (gp_jump_rows, one kernel a call); all
+             three agree.
 6. server  — 3 PaxosServers on loopback sockets in this process, on the
              card at G=65,536, W=16, K=8, R=3, with StatefulAdderApp and
              PaxosClientAsync: a few dozen names, a few hundred requests;
@@ -212,7 +214,8 @@ Phases (any failure exits nonzero):
              idle active.  Each scenario's own checks within a step cap
              and a wall budget; its launches; every kernel shape launched
              must be one phases 2-3 hold against the plain version, and
-             gp_jump_rows must launch in each frontier-stall scenario.
+             gp_jump_rows must launch in each frontier-stall scenario,
+             one kernel a call.
 14. mesh   — the mesh faces of make_step at the headline shape
              (G=1,048,576, W=32, K=16, R=3), every logical device on this
              card: the ('g',) face over 4 shards, also at G=1,048,573
@@ -274,9 +277,10 @@ counts (read through the stats admin op at the phase's end) plus this
 process's (the reconfigurators); phase 12's scripted soaks' are their
 child's; phase 15's are its node processes' own (each process counts
 from 0 when it starts), read through the stats admin op.  ``--phases a,b`` runs a subset and prints no report (for
-iterating); ``--host-ms ROOT`` only times the host side of a create and
-a restore_paused call at N=1 on the port's tree at ROOT (two trees, such
-as a parent and its change, are compared in turns, one process each);
+iterating); ``--host-ms ROOT`` only times the host side of a create, a
+jump, a restore_paused and a restore_rows call at N=1 on the port's tree
+at ROOT (two trees, such as a parent and its change, are compared in
+turns, one process each);
 the contract run takes no arguments.  Imports nothing of JAX
 or of the JAX package.
 """
@@ -384,11 +388,12 @@ LIFE_TIMING_N_AT = {"ledger": LEDGER_CREATE_CHUNK}
 # shapes also timed at a second batch (as "<shape>_n<N>"): the server
 # shape at one name, a per-name wake's create and restore_paused
 LIFE_TIMING_N_ALSO = {"server": 1}
-# the one-launch lifecycle ops (csrc/gp_lifecycle.cu gp_life_rows_kernel)
-# and the edge cases they are also held at: G=301 (word units), 4,096 and
-# 65,536 (int4 units; four a thread at 65,536's sparse batches from W=8)
-# at every W, N in {0, 1, 7, 64, G}
-LIFE_ONE_PASS = ("gp_create_groups", "gp_restore_paused_rows")
+# the lifecycle ops on gp_life_rows_kernel (csrc/gp_lifecycle.cu) and the
+# edge cases they are also held at: G=301 (word units), 4,096 and 65,536
+# (int4 units; four a thread at 65,536's sparse batches from W=8) at every
+# W, N in {0, 1, 7, 64, G}
+LIFE_ONE_PASS = ("gp_create_groups", "gp_jump_rows", "gp_restore_paused_rows",
+                 "gp_restore_rows")
 LIFE_EDGE_G, LIFE_EDGE_W = (301, 4096, 65_536), (4, 8, 16, 32)
 DENSITY = dict(names=1_048_576, rows=65_536, window=16, req_lanes=4,
                boot_chunk=16_384, burst=4096, per_name_burst=1024,
@@ -575,18 +580,20 @@ def blob_bytes(G: int, W: int) -> int:
     return G * 4 * ((5 + 7 * W) + (4 + 4 * W))
 
 
-# the lifecycle ops that overwrite every touched word of a batch row from
-# its inputs and constants alone (jump keeps the window lanes at and above
-# the new frontier, so it reads its batch rows)
-LIFE_OVERWRITES = ("gp_create_groups", "gp_kill_groups", "gp_restore_paused_rows",
-                   "gp_restore_rows")
+# the touched leaves whose batch rows' input words a lifecycle op reads:
+# jump's bal (the max with the donor's) and the window planes whose lanes
+# at and above the new frontier it keeps (the kept slot planes decide);
+# every other touched word of a batch row, and every op but jump, comes
+# from the batch inputs and constants alone
+LIFE_BATCH_READS = {"gp_jump_rows": ("bal", "acc_bal", "acc_vid", "acc_slot",
+                                     "dec_vid", "dec_slot")}
 
 
 def lifecycle_bytes(name: str, G: int, W: int, N: int) -> int:
     """Bytes one lifecycle op must move: every leaf it touches written
-    once and read once, its batch rows' words only where the op reads them
-    (``LIFE_OVERWRITES``: the G - N other rows alone), the N row indices
-    and its batch inputs read once (all int32; the leaves from
+    once, read once in its G - N other rows, and in its N batch rows only
+    where the op reads them (``LIFE_BATCH_READS``), the N row indices and
+    its batch inputs read once (all int32; the leaves from
     gp_kernels.TOUCHED and INPUTS).  extract_rows reads N whole rows
     (12 + 7W words) and writes them."""
     from gigapaxos_tpu_torch.ops.gp_kernels import GW_LEAVES, INPUTS, TOUCHED
@@ -594,14 +601,17 @@ def lifecycle_bytes(name: str, G: int, W: int, N: int) -> int:
     words = lambda leaves: sum(W if f in GW_LEAVES else 1 for f in leaves)
     if name == "gp_extract_rows":
         return 4 * (N + 2 * N * (12 + 7 * W))
-    read = G - N if name in LIFE_OVERWRITES else G
-    return 4 * ((read + G) * words(TOUCHED[name]) + N * (1 + words(INPUTS[name])))
+    touched = words(TOUCHED[name])
+    return 4 * ((2 * G - N) * touched + N * words(LIFE_BATCH_READS.get(name, ()))
+                + N * (1 + words(INPUTS[name])))
 
 
 def ptxas_summary(text: str) -> list:
     """ptxas' ``-v`` report as one entry per kernel: its name (gp_step's
-    instantiations as ``gp_step<R,W>``, R = W = 0 the generic one), its
-    registers, spill bytes and static shared memory."""
+    instantiations as ``gp_step<R,W>``, R = W = 0 the generic one;
+    gp_life_rows_kernel's as ``gp_life_rows<op,VG,VW,units>``, op the
+    code of gp_lifecycle.cu), its registers, stack frame, spill bytes and
+    static shared memory."""
     import re
 
     out, cur = [], None
@@ -610,17 +620,23 @@ def ptxas_summary(text: str) -> list:
         if m:
             name = m.group(1)
             t = re.search(r"gp_step_kernelILi(\d+)ELi(\d+)E", name)
+            life = re.search(r"gp_life_rows_kernelILi(\d+)ELb([01])ELb([01])ELi(\d+)E", name)
             if t:
                 name = f"gp_step<{t.group(1)},{t.group(2)}>"
+            elif life:
+                name = "gp_life_rows<{},{},{},{}>".format(*life.groups())
             else:
                 t = re.search(r"\d+(gp_\w+?_kernel)", name)
                 name = t.group(1) if t else name
-            cur = {"kernel": name, "registers": None, "spill_stores": None,
+            cur = {"kernel": name, "registers": None, "stack": None, "spill_stores": None,
                    "spill_loads": None, "smem": 0}
             out.append(cur)
             continue
         if cur is None:
             continue
+        m = re.search(r"(\d+) bytes stack frame", line)
+        if m:
+            cur["stack"] = int(m.group(1))
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m:
             cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
@@ -968,11 +984,8 @@ def life_args(name: str, rng, G: int, W: int, N: int, other, host_rows=False):
 
 
 def life_kernels_a_call(name: str, N: int) -> int:
-    """Kernels one lifecycle call launches: jump and restore_rows a copy
-    pass and, for N > 0, a row pass; extract one gather for N > 0; the
-    others one launch."""
-    if name in ("gp_jump_rows", "gp_restore_rows"):
-        return 1 + (N > 0)
+    """Kernels one lifecycle call launches: extract one gather for N > 0;
+    every other op one launch."""
     return int(N > 0) if name == "gp_extract_rows" else 1
 
 
@@ -1053,8 +1066,10 @@ HOST_MS_RUNS, HOST_MS_CALLS = 5, 200
 
 
 def host_side_ms(device) -> dict:
-    """The host side of one create and one restore_paused call at N=1 at
-    each shape of ``HOST_MS_SHAPES``: ``ms_call`` (the public wrapper)
+    """The host side of one call of each op on ``gp_life_rows_kernel``
+    (``LIFE_ONE_PASS``) at N=1 at each shape of ``HOST_MS_SHAPES``
+    (restore_rows' rows gathered on the card, as ``extract_rows`` gives
+    them): ``ms_call`` (the public wrapper)
     and ``ms_stage`` (``gp_kernels.stage`` alone), each the median of
     ``HOST_MS_RUNS`` runs of ``HOST_MS_CALLS`` calls on the host's clock,
     with the runs.  It uses only the wrappers' arguments, so it times any
@@ -1073,8 +1088,8 @@ def host_side_ms(device) -> dict:
         state = random_state(G, W, 400 + si, device)
         other = random_state(G, W, 500 + si, device)
         rng = np.random.default_rng(600 + si)
-        for name, fn in (("gp_create_groups", "create_groups"),
-                         ("gp_restore_paused_rows", "restore_paused_rows")):
+        for name in LIFE_ONE_PASS:
+            fn = {k: f for k, f, *_ in LIFE_KERNELS}[name]
             args, kw = life_args(name, rng, G, W, 1, other)
             call = lambda: getattr(tl, fn)(state, *args, **kw)
             stage = lambda: gp_kernels.stage(name, state, *args, **kw)
@@ -1127,9 +1142,13 @@ def life_edge_cases(diff: Diff, device) -> int:
                 batches = [rng.choice(G, size=n, replace=False) for n in (0, 1, 7, 64, G)]
                 batches.append(rng.permutation(edge))
                 for bi, idx in enumerate(batches):
-                    args, kw = life_args(name, rng, G, W, len(idx), other)
+                    # restore_rows' rows: gathered on the card, or (even
+                    # batches) copied to the host
+                    args, kw = life_args(name, rng, G, W, len(idx), other,
+                                         host_rows=bi % 2 == 0)
                     args = (idx,) + args[1:]
-                    if bi % 2:   # batch inputs on the card, in the caller's order
+                    if bi % 2 and name != "gp_restore_rows":
+                        # batch inputs on the card, in the caller's order
                         on = lambda x: torch.as_tensor(np.asarray(x).astype(np.int32),
                                                        device=device)
                         args = (idx,) + tuple(on(x) for x in args[1:])
@@ -1457,6 +1476,7 @@ def phase_state_transfer(device) -> dict:
             for _ in range(5):   # let every replica execute them
                 c.step_all()
             launches = dict(te.LAUNCHES)
+            kernel_launches = dict(te.KERNEL_LAUNCHES)
             hashes = [int(m._np("app_hash")[row]) for m in c.managers]
             states = [m.app.state.get(name) for m in c.managers]
             n_exec = [m.app.n_executed.get(name) for m in c.managers]
@@ -1470,6 +1490,9 @@ def phase_state_transfer(device) -> dict:
                 m.close()
     if launches["gp_jump_rows"] < 1:
         fail(f"state transfer: gp_jump_rows never launched: {launches}")
+    if kernel_launches["gp_jump_rows"] != launches["gp_jump_rows"]:
+        fail(f"state transfer: gp_jump_rows not one kernel a call: "
+             f"{kernel_launches['gp_jump_rows']} kernels, {launches['gp_jump_rows']} calls")
     if len(set(hashes)) != 1 or len(set(states)) != 1 or len(set(n_exec)) != 1:
         fail(f"state transfer: replicas disagree: hashes {hashes}, executed {n_exec}")
     res = {"gap_slots": live - behind, "rejoin_steps": steps, "launches": launches,
@@ -4181,6 +4204,7 @@ def phase_heal(device) -> dict:
             te.reset_launch_counts()
             r = run(device)
             r["launches"] = {k: v for k, v in te.LAUNCHES.items() if v}
+            r["kernel_launches"] = {k: v for k, v in te.KERNEL_LAUNCHES.items() if v}
             r["seconds"] = time.perf_counter() - t0
             for k, v in te.LAUNCHES.items():
                 total[k] = total.get(k, 0) + v
@@ -4192,6 +4216,11 @@ def phase_heal(device) -> dict:
     for name in ("frontier_small_gap", "frontier_majority_behind"):
         if res[name]["launches"].get("gp_jump_rows", 0) < 1:
             fail(f"heal {name}: gp_jump_rows never launched: {res[name]['launches']}")
+    for name, r in res.items():
+        calls = r["launches"].get("gp_jump_rows", 0)
+        if r["kernel_launches"].get("gp_jump_rows", 0) != calls:
+            fail(f"heal {name}: gp_jump_rows not one kernel a call: "
+                 f"{r['kernel_launches']} against {r['launches']}")
     res["launches"] = total
     res["shapes"] = {"step": sorted(shapes.step), "blob": sorted(shapes.blob),
                      "life": sorted(shapes.life), "pack": sorted(shapes.pack)}
@@ -5078,14 +5107,15 @@ def kernels_line(diff: Diff, head: dict, step_t: dict, life: dict, dens: dict,
             "library_ms": t_srv["library_ms"], "ms_events": t_srv["ms_events"],
             "ms_call": t_srv["ms_call"], "ms_stage": t_srv["ms_stage"],
             "ms_stage_parts": t_srv["ms_stage_parts"],
-            "kernels_a_call": t_srv["kernels_a_call"],
+            "kernels_a_call": t_srv["kernels_a_call"], "ms_units": t_srv["ms_units"],
             "parity_kernels_a_call": life[name]["parity_kernels"]
             / max(1, life[name]["parity_launches"]),
             "shape": {"G": t_srv["G"], "W": t_srv["W"], "N": t_srv["N"]},
             "comparisons": diff.checked[name],
             **{p: {k: life[name][p][k] for k in
-                   ("G", "W", "N", "ms", "ms_events", "kernels_a_call", "ms_call",
-                    "ms_stage", "ms_stage_parts", "plain_ms", "library_ms", "bound_ms")}
+                   ("G", "W", "N", "ms", "ms_events", "kernels_a_call", "ms_units",
+                    "ms_call", "ms_stage", "ms_stage_parts", "plain_ms", "library_ms",
+                    "bound_ms")}
                for p in ("server_n1", "headline", "rc", "recovery", "ledger", "scenario")},
             "checked_shapes": {k: LIFE_SHAPES[k][:2] for k in LIFE_SHAPES},
             **({"density_wake_us_per_name": {
@@ -5093,7 +5123,7 @@ def kernels_line(diff: Diff, head: dict, step_t: dict, life: dict, dens: dict,
                 "batched": dens["ablation"]["batched_us_per_name"]},
                 "density_kernels_a_call": dens["kernel_launches_total"][name]
                 / max(1, dens["launches_total"][name])}
-               if name in LIFE_ONE_PASS else {}),
+               if name in LIFE_ONE_PASS and path == "density" else {}),
         })
     t_pack = pack["ar4"]
     kernels.append({
@@ -5122,9 +5152,9 @@ def main() -> int:
     ap.add_argument("--phases", help="comma-separated subset of phases to run "
                     "(no kernels or device line is printed); default: all")
     ap.add_argument("--host-ms", metavar="ROOT",
-                    help="only time the host side of create and restore_paused at "
-                    "N=1 (host_side_ms) on the port's tree at ROOT and print it as "
-                    "one JSON line")
+                    help="only time the host side of create, jump, restore_paused "
+                    "and restore_rows at N=1 (host_side_ms) on the port's tree at "
+                    "ROOT and print it as one JSON line")
     args = ap.parse_args()
     try:
         import torch
@@ -5170,6 +5200,7 @@ def main() -> int:
     for src, text in gp_kernels.BUILD_INFO.get("ptxas", {}).items():
         for k in ptxas_summary(text):
             log(f"  ptxas {src}: {k['kernel']}: {k['registers']} registers, "
+                f"{k['stack']} B stack frame, "
                 f"{k['spill_stores']} B spill stores, {k['spill_loads']} B spill "
                 f"loads, {k['smem']} B static shared memory")
 

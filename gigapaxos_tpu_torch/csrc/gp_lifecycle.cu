@@ -18,37 +18,42 @@
 // plus the N batch rows' inputs.  Device-memory bandwidth bounds every op;
 // at small G the launches' fixed cost does.
 //
-// Design.  Create and restore_paused: ONE launch of gp_life_rows_kernel
-// over a flat map of (touched leaf, 16-byte unit), the 12 [G] leaves' units
-// first, then the [G, W] leaves', each leaf's units padded to whole blocks
-// (so a block serves one leaf and no block is empty), sized by the touched
-// leaves alone.  A unit is 4 rows of a [G] leaf (int4, where G % 4 == 0 and
-// the leaf's pointers are 16-byte aligned) or 4 lanes of one row of a
-// [G, W] leaf (int4, where W % 4 == 0 and its pointers, the batch inputs'
-// too, are aligned); one word otherwise.  A thread takes one unit, or four
-// (256 apart) where the batch is sparse and the state large (the launcher
-// says which, unless the caller fixes it), every load issued before any
-// lookup.  The batch is found as kill finds it: a thread reads the word of
-// the batch bitmap that holds its unit's rows.  A row outside the batch copies its unit of the input leaf; only a
-// batch row looks up its position n in the caller's batch, by a binary
-// search of the batch's rows sorted on the host (`idx`), bounded by the
-// count of batch rows below each 256-row chunk (`cnt`), then `pos[i]`, the
-// caller's position of sorted row i.  Create writes a batch row from its
-// batch inputs and constants alone; restore_paused from in[L][n] or
-// in[L][n * W + j].  Every output word is written once and every input word
-// read at most once (a unit whose rows are all in the batch reads nothing
-// of the input leaf).  The wrapper stages the sorted rows, the positions,
-// the counts, the bitmap and the host inputs in one upload.
-// Jump and restore_rows: two launches on the caller's stream.
-//   (a) gp_copy_leaves_kernel copies every touched leaf st_in -> st_out:
-//       grid.y = leaf, a grid-stride loop over 16-byte vectors (int4) where
-//       both pointers are 16-byte aligned, words otherwise.
-//   (b) gp_rows_kernel then overwrites the N batch rows: one thread per
-//       (batch row, window lane), the [G] leaves written by lane 0.  It
-//       reads the INPUT state, which jump's keep mask and max(bal) need, so
-//       it never reads what (a) wrote.  Stream order puts (b) after (a); the
-//       rows are unique (the wrapper checks), so no two threads write one
-//       word.
+// Design.  Create, jump, restore_paused and restore_rows: ONE launch of
+// gp_life_rows_kernel over a flat map of (touched leaf, 16-byte unit), the
+// touched [G] leaves' units first, then the [G, W] leaves', each leaf's
+// units padded to whole blocks (so a block serves one leaf and no block is
+// empty), sized by the touched leaves alone.  A unit is 4 rows of a [G]
+// leaf (int4, where G % 4 == 0 and the leaf's pointers are 16-byte
+// aligned) or 4 lanes of one row of a [G, W] leaf (int4, where W % 4 == 0
+// and its pointers, the window batch inputs' too, are aligned); one word
+// otherwise.  A thread takes one unit, or four (256 apart) where the batch
+// is sparse and the state large (the launcher says which, unless the
+// caller fixes it), every load issued before any lookup.  The batch is
+// found as kill finds it: a thread reads the word of the batch bitmap that
+// holds its unit's rows.  A row outside the batch copies its unit of the
+// input leaf; only a batch row looks up its position n in the caller's
+// batch, by a binary search of the batch's rows sorted on the host
+// (`idx`), bounded by the count of batch rows below each 256-row chunk
+// (`cnt`), then `pos[i]`, the caller's position of sorted row i.  A batch
+// row's words:
+//   create:         its batch inputs and constants alone;
+//   restore_paused: in[L][n] or in[L][n * W + j] (c_next_slot: exec_slot);
+//   restore_rows:   the same, over all 19 leaves;
+//   jump:           bal = max(old bal, in[L_BAL][n]); exec_slot and
+//                   c_next_slot in[L_EXEC_SLOT][n]; app_hash, n_execd,
+//                   stopped their inputs; c_phase IDLE, c_bal and the two
+//                   c_prop planes NULL; acc_bal/acc_vid/acc_slot keep a
+//                   lane whose old acc_slot is not NULL and >= the new
+//                   exec_slot (signed), dec_vid/dec_slot the same on the
+//                   old dec_slot, any other lane NULL.  So a batch unit of
+//                   a kept plane reads its own old unit and, outside the
+//                   slot plane itself, the old slot unit at its place.
+// Every output word is written once, and an input leaf's unit is read only
+// where its value is needed (a row outside the batch; bal and the kept
+// planes of a jump).  The wrapper stages the sorted rows, the positions,
+// the counts, the bitmap and the host inputs in one upload.  (This launch
+// replaced, for jump and restore_rows, a copy pass over every touched leaf
+// and then a row pass over the batch, which wrote each batch row twice.)
 // Kill writes constants into 7 [G] leaves: one launch, gp_kill_kernel, a
 // thread for 4 consecutive rows (one int4 of each leaf).  The wrapper
 // passes, in in[0], the batch as a bitmap of G bits (staged in the same
@@ -76,7 +81,6 @@
 
 #define GP_NLEAF 19
 #define GP_LIFE_BLOCK 256
-#define GP_COPY_MAX_BLOCKS 1056  // 8 blocks of 256 threads on each of 132 SMs
 
 // op codes (gp_kernels.py mirrors them)
 enum { OP_CREATE = 0, OP_KILL = 1, OP_JUMP = 2, OP_RESTORE_PAUSED = 3,
@@ -94,17 +98,18 @@ struct GpLifeArgs {
   //                   g % 32 of word g / 32 set: row g is killed)
   const int32_t* in[GP_NLEAF];
   int32_t* rows_out[GP_NLEAF];     // extract: [N] / [N, W] gathered rows
-  // [N] unique rows in [0, G): the caller's order, or (create and
-  // restore_paused) sorted ascending
+  // [N] unique rows in [0, G): the caller's order (extract), or sorted
+  // ascending (the others)
   const int32_t* idx;
-  // create and restore_paused: [N] the caller's position of sorted row i;
+  // create, jump, restore_paused, restore_rows: [N] the caller's position
+  // of sorted row i;
   // [ceil(G / 256) + 1] batch rows below each 256-row chunk; the batch as
   // a bitmap of G bits ((G + 31) / 32 words, bit g % 32 of word g / 32)
   const int32_t* pos;
   const int32_t* cnt;
   const uint32_t* bits;
   int32_t G, W, N, op, my_id;
-  // create and restore_paused: 16-byte units a thread, 1 or 4; 0 (the
+  // gp_life_rows_kernel: 16-byte units a thread, 1 or 4; 0 (the
   // wrappers' value): the launcher's rule below
   int32_t units;
   int32_t kernels;                 // set by the launcher: kernels launched
@@ -125,81 +130,6 @@ constexpr int32_t IDLE = 0, ACTIVE = 2;
 // the [G, W] leaves (window planes)
 __host__ __device__ __forceinline__ bool is_gw(int L) {
   return (L >= L_ACC_BAL && L <= L_DEC_SLOT) || L == L_C_PROP_VID || L == L_C_PROP_SLOT;
-}
-
-__global__ void __launch_bounds__(GP_LIFE_BLOCK) gp_copy_leaves_kernel(const GpLifeArgs a) {
-  const int L = blockIdx.y;
-  int32_t* dst = a.st_out[L];
-  if (dst == nullptr) return;
-  const int32_t* src = a.st_in[L];
-  const long long n = is_gw(L) ? (long long)a.G * a.W : (long long)a.G;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (((reinterpret_cast<uintptr_t>(src) | reinterpret_cast<uintptr_t>(dst)) & 15) == 0) {
-    const long long n4 = n >> 2;
-    const int4* s4 = reinterpret_cast<const int4*>(src);
-    int4* d4 = reinterpret_cast<int4*>(dst);
-    for (long long i = t; i < n4; i += stride) d4[i] = s4[i];
-    for (long long i = (n4 << 2) + t; i < n; i += stride) dst[i] = src[i];
-  } else {
-    for (long long i = t; i < n; i += stride) dst[i] = src[i];
-  }
-}
-
-__global__ void __launch_bounds__(GP_LIFE_BLOCK) gp_rows_kernel(const GpLifeArgs a) {
-  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= (long long)a.N * a.W) return;
-  const long long n = e / a.W;
-  const int j = (int)(e % a.W);
-  const long long g = a.idx[n];
-  const long long gw = g * a.W + j;
-  const long long nw = n * a.W + j;
-  int32_t* const* o = a.st_out;
-  const int32_t* const* s = a.st_in;
-  const int32_t* const* in = a.in;
-
-  switch (a.op) {
-    case OP_JUMP: {
-      // lanes at/above the adopted frontier keep (live votes), the rest clear
-      const int32_t ne = in[L_EXEC_SLOT][n];
-      const int32_t as = s[L_ACC_SLOT][gw];
-      const bool ak = as != NULLV && as >= ne;
-      o[L_ACC_BAL][gw] = ak ? s[L_ACC_BAL][gw] : NULLV;
-      o[L_ACC_VID][gw] = ak ? s[L_ACC_VID][gw] : NULLV;
-      o[L_ACC_SLOT][gw] = ak ? as : NULLV;
-      const int32_t ds = s[L_DEC_SLOT][gw];
-      const bool dk = ds != NULLV && ds >= ne;
-      o[L_DEC_VID][gw] = dk ? s[L_DEC_VID][gw] : NULLV;
-      o[L_DEC_SLOT][gw] = dk ? ds : NULLV;
-      o[L_C_PROP_VID][gw] = NULLV;
-      o[L_C_PROP_SLOT][gw] = NULLV;
-      if (j == 0) {
-        const int32_t b0 = s[L_BAL][g];
-        const int32_t b1 = in[L_BAL][n];
-        o[L_BAL][g] = b0 > b1 ? b0 : b1;
-        o[L_EXEC_SLOT][g] = ne;
-        o[L_APP_HASH][g] = in[L_APP_HASH][n];
-        o[L_N_EXECD][g] = in[L_N_EXECD][n];
-        o[L_STOPPED][g] = in[L_STOPPED][n];
-        o[L_C_PHASE][g] = IDLE;
-        o[L_C_BAL][g] = NULLV;
-        o[L_C_NEXT_SLOT][g] = ne;
-      }
-      break;
-    }
-    case OP_RESTORE_ROWS: {
-#pragma unroll
-      for (int L = 0; L < GP_NLEAF; ++L) {
-        if (is_gw(L))
-          o[L][gw] = in[L][nw];
-        else if (j == 0)
-          o[L][g] = in[L][n];
-      }
-      break;
-    }
-    default:
-      break;
-  }
 }
 
 constexpr int N_KILL = 7;
@@ -320,10 +250,12 @@ __device__ __forceinline__ bool in_batch(const GpLifeArgs& a, int g) {
   return (__ldg(a.bits + (g >> 5)) >> (g & 31)) & 1u;
 }
 
-// A batch row's new word of [G] leaf L, from the caller's batch row n.
+// A batch row's new word of [G] leaf L of op OP, from the caller's batch
+// row n (jump's bal: the donor's, which the caller maxes with the old).
+template <int OP>
 __device__ __forceinline__ int32_t row_word(const GpLifeArgs& a, int L, int n) {
   const int32_t* const* in = a.in;
-  if (a.op == OP_CREATE) {
+  if (OP == OP_CREATE) {
     // encode_ballot(0, coord0) = (0 << COORD_BITS) | coord0 = coord0
     switch (L) {
       case L_MEMBER_MASK: return __ldg(in[L_MEMBER_MASK] + n);
@@ -339,20 +271,49 @@ __device__ __forceinline__ int32_t row_word(const GpLifeArgs& a, int L, int n) {
       default: return 0;  // stopped, exec_slot, app_hash, n_execd, c_next_slot
     }
   }
-  // OP_RESTORE_PAUSED: bal, exec_slot, app_hash, n_execd; c_next_slot takes
-  // the record's exec_slot
+  if (OP == OP_RESTORE_ROWS) return __ldg(in[L] + n);
+  if (OP == OP_JUMP) {
+    if (L == L_C_PHASE) return IDLE;
+    if (L == L_C_BAL) return NULLV;
+  }
+  // restore_paused (bal, exec_slot, app_hash, n_execd) and jump (stopped,
+  // bal, exec_slot, app_hash, n_execd): c_next_slot takes the new exec_slot
   return __ldg(in[L == L_C_NEXT_SLOT ? L_EXEC_SLOT : L] + n);
+}
+
+// Jump's window planes: the slot plane whose old lane decides whether a
+// lane of plane L keeps (acc_* on acc_slot, dec_* on dec_slot), or -1 for a
+// plane a batch row clears (the c_prop planes).
+__device__ __forceinline__ int keep_on(int L) {
+  if (L >= L_ACC_BAL && L <= L_ACC_SLOT) return L_ACC_SLOT;
+  if (L == L_DEC_VID || L == L_DEC_SLOT) return L_DEC_SLOT;
+  return -1;
+}
+
+// A lane keeps where its old slot is not NULL and at or above the new
+// frontier (signed); any other lane takes NULL.
+__device__ __forceinline__ int32_t keep_lane(int32_t v, int32_t s, int32_t ne) {
+  return s != NULLV && s >= ne ? v : NULLV;
+}
+__device__ __forceinline__ void keep_lanes(int4& v, const int4& s, int32_t ne) {
+  v = make_int4(keep_lane(v.x, s.x, ne), keep_lane(v.y, s.y, ne),
+                keep_lane(v.z, s.z, ne), keep_lane(v.w, s.w, ne));
+}
+__device__ __forceinline__ void keep_lanes(int32_t& v, const int32_t& s, int32_t ne) {
+  v = keep_lane(v, s, ne);
 }
 
 __device__ __forceinline__ void set_null(int4& v) { v = make_int4(NULLV, NULLV, NULLV, NULLV); }
 __device__ __forceinline__ void set_null(int32_t& v) { v = NULLV; }
 
-// Create and restore_paused in one launch (the design above).  VG: [G]
-// leaves in int4 units of 4 rows; VW: [G, W] leaves in int4 units of 4
-// lanes.  A block serves UNITS x 256 units of one leaf, a thread UNITS of
-// them 256 apart (neighbouring threads on neighbouring units), all their
-// loads issued before any batch row's lookup.
-template <bool VG, bool VW, int UNITS>
+// Create, jump, restore_paused and restore_rows in one launch (the design
+// above), one instantiation an op, so that no op's kernel carries another's
+// branches or registers.  VG: [G] leaves in int4 units of 4 rows; VW:
+// [G, W] leaves in int4 units of 4 lanes.  A block serves UNITS x 256 units
+// of one leaf, a thread UNITS of them 256 apart (neighbouring threads on
+// neighbouring units), all their loads issued before any batch row's
+// lookup.
+template <int OP, bool VG, bool VW, int UNITS>
 __global__ void __launch_bounds__(GP_LIFE_BLOCK) gp_life_rows_kernel(const GpLifeArgs a,
                                                                       const LifeMap m) {
   constexpr int SPAN = GP_LIFE_BLOCK * UNITS;
@@ -364,6 +325,8 @@ __global__ void __launch_bounds__(GP_LIFE_BLOCK) gp_life_rows_kernel(const GpLif
     const int u0 = (b - k * m.blocks_g) * SPAN + threadIdx.x;
     typedef typename std::conditional<VG, int4, int32_t>::type unit_t;
     constexpr unsigned ALL = VG ? 0xfu : 1u;
+    // jump's bal is the one [G] leaf whose batch words read the old word
+    const bool old_too = OP == OP_JUMP && L == L_BAL;
     unit_t v[UNITS];
     unsigned f[UNITS];  // the unit's rows in the batch
 #pragma unroll
@@ -371,7 +334,8 @@ __global__ void __launch_bounds__(GP_LIFE_BLOCK) gp_life_rows_kernel(const GpLif
       const int u = u0 + i * GP_LIFE_BLOCK;
       const int r0 = VG ? u << 2 : u;  // VG: r0 % 4 == 0, the 4 rows' bits in one word
       f[i] = u < units ? (__ldg(a.bits + (r0 >> 5)) >> (r0 & 31)) & ALL : ALL;
-      if (f[i] != ALL) v[i] = __ldg(reinterpret_cast<const unit_t*>(a.st_in[L]) + u);
+      if (f[i] != ALL || (old_too && u < units))
+        v[i] = __ldg(reinterpret_cast<const unit_t*>(a.st_in[L]) + u);
     }
 #pragma unroll
     for (int i = 0; i < UNITS; ++i) {
@@ -381,7 +345,10 @@ __global__ void __launch_bounds__(GP_LIFE_BLOCK) gp_life_rows_kernel(const GpLif
       int32_t* w = reinterpret_cast<int32_t*>(&v[i]);
 #pragma unroll
       for (int c = 0; c < (VG ? 4 : 1); ++c)
-        if ((f[i] >> c) & 1u) w[c] = row_word(a, L, batch_pos(a, r0 + c));
+        if ((f[i] >> c) & 1u) {
+          const int32_t x = row_word<OP>(a, L, batch_pos(a, r0 + c));
+          w[c] = old_too && w[c] > x ? w[c] : x;  // jump: max(old bal, donor's)
+        }
     }
 #pragma unroll
     for (int i = 0; i < UNITS; ++i) {
@@ -397,7 +364,12 @@ __global__ void __launch_bounds__(GP_LIFE_BLOCK) gp_life_rows_kernel(const GpLif
   const int units = a.G * U;
   const int u0 = (b - k * m.blocks_gw) * SPAN + threadIdx.x;
   typedef typename std::conditional<VW, int4, int32_t>::type unit_t;
-  unit_t v[UNITS];
+  // jump: a kept plane's batch unit masks its old unit by the old slot
+  // unit of plane S (its own where L is the slot plane); a c_prop plane's
+  // is NULL, as every create plane's
+  const int S = OP == OP_JUMP ? keep_on(L) : -1;
+  const bool to_null = OP == OP_CREATE || (OP == OP_JUMP && S < 0);
+  unit_t v[UNITS], sl[UNITS];
   int g[UNITS];
   bool hit[UNITS];
 #pragma unroll
@@ -405,21 +377,46 @@ __global__ void __launch_bounds__(GP_LIFE_BLOCK) gp_life_rows_kernel(const GpLif
     const int u = u0 + i * GP_LIFE_BLOCK;
     g[i] = u < units ? u / U : -1;
     hit[i] = g[i] >= 0 && in_batch(a, g[i]);
-    if (g[i] >= 0 && !hit[i]) v[i] = __ldg(reinterpret_cast<const unit_t*>(a.st_in[L]) + u);
+    // a row outside the batch, and (jump's kept planes) every row: the old
+    // unit; a kept plane's batch row: the old slot unit too
+    if (g[i] >= 0 && (!hit[i] || S >= 0))
+      v[i] = __ldg(reinterpret_cast<const unit_t*>(a.st_in[L]) + u);
+    if (hit[i] && S >= 0)
+      sl[i] = S == L ? v[i] : __ldg(reinterpret_cast<const unit_t*>(a.st_in[S]) + u);
   }
 #pragma unroll
   for (int i = 0; i < UNITS; ++i) {
     if (!hit[i]) continue;
     const int u = u0 + i * GP_LIFE_BLOCK;
-    if (a.op == OP_CREATE)
+    if (to_null) {
       set_null(v[i]);
-    else
-      v[i] = __ldg(reinterpret_cast<const unit_t*>(a.in[L]) +
-                   (batch_pos(a, g[i]) * U + (u - g[i] * U)));
+    } else {
+      const int n = batch_pos(a, g[i]);
+      if (S >= 0)
+        keep_lanes(v[i], sl[i], __ldg(a.in[L_EXEC_SLOT] + n));
+      else
+        v[i] = __ldg(reinterpret_cast<const unit_t*>(a.in[L]) + (n * U + (u - g[i] * U)));
+    }
   }
 #pragma unroll
   for (int i = 0; i < UNITS; ++i)
     if (g[i] >= 0) reinterpret_cast<unit_t*>(a.st_out[L])[u0 + i * GP_LIFE_BLOCK] = v[i];
+}
+
+// gp_life_rows_kernel's instantiation for op OP and `pick` (VG, VW, four
+// units a thread: bits 2, 1, 0).
+template <int OP>
+void rows_kernel(int pick, dim3 grid, cudaStream_t st, const GpLifeArgs& a, const LifeMap& m) {
+  switch (pick) {
+    case 7: gp_life_rows_kernel<OP, true, true, 4><<<grid, GP_LIFE_BLOCK, 0, st>>>(a, m); break;
+    case 6: gp_life_rows_kernel<OP, true, true, 1><<<grid, GP_LIFE_BLOCK, 0, st>>>(a, m); break;
+    case 5: gp_life_rows_kernel<OP, true, false, 4><<<grid, GP_LIFE_BLOCK, 0, st>>>(a, m); break;
+    case 4: gp_life_rows_kernel<OP, true, false, 1><<<grid, GP_LIFE_BLOCK, 0, st>>>(a, m); break;
+    case 3: gp_life_rows_kernel<OP, false, true, 4><<<grid, GP_LIFE_BLOCK, 0, st>>>(a, m); break;
+    case 2: gp_life_rows_kernel<OP, false, true, 1><<<grid, GP_LIFE_BLOCK, 0, st>>>(a, m); break;
+    case 1: gp_life_rows_kernel<OP, false, false, 4><<<grid, GP_LIFE_BLOCK, 0, st>>>(a, m); break;
+    default: gp_life_rows_kernel<OP, false, false, 1><<<grid, GP_LIFE_BLOCK, 0, st>>>(a, m); break;
+  }
 }
 
 }  // namespace
@@ -430,8 +427,8 @@ int gp_life_args_size() { return (int)sizeof(GpLifeArgs); }
 
 static bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
-// Create and restore_paused: one launch of gp_life_rows_kernel over the
-// touched leaves' units.
+// Create, jump, restore_paused and restore_rows: one launch of
+// gp_life_rows_kernel over the touched leaves' units.
 static int life_rows_launch(GpLifeArgs* a, cudaStream_t st) {
   if (a->idx == nullptr && a->N > 0) return (int)cudaErrorInvalidValue;
   if (a->pos == nullptr || a->cnt == nullptr || a->bits == nullptr)
@@ -440,6 +437,8 @@ static int life_rows_launch(GpLifeArgs* a, cudaStream_t st) {
   // the flat map's indices are 32-bit, a block's span past the last unit too
   if ((long long)a->G * a->W >= (1LL << 31) - 4LL * GP_LIFE_BLOCK)
     return (int)cudaErrorInvalidValue;
+  // restore_paused and restore_rows: a batch row's words are its inputs
+  const bool restore = a->op == OP_RESTORE_PAUSED || a->op == OP_RESTORE_ROWS;
   LifeMap m = {};
   bool vg = a->G % 4 == 0, vw = a->W % 4 == 0;
   for (int gw = 0; gw < 2; ++gw)
@@ -449,20 +448,22 @@ static int life_rows_launch(GpLifeArgs* a, cudaStream_t st) {
       const bool al = aligned16(a->st_in[L]) && aligned16(a->st_out[L]);
       if (gw) {
         ++m.n_gw;
-        // restore_paused reads its window rows in units too
-        vw = vw && al && (a->op != OP_RESTORE_PAUSED || aligned16(a->in[L]));
+        // the restores read their window rows in units too
+        vw = vw && al && (!restore || aligned16(a->in[L]));
       } else {
         ++m.n_g;
         vg = vg && al;
       }
     }
-  // units a thread: 4 where the batch is sparse (under one row in 16) and
-  // a window leaf holds 2^19 words or more, where 4 keep more bytes in
-  // flight a thread; else 1: a dense batch puts more rows' lookups, each a
-  // chain of dependent loads, one after another in a thread, and a small
-  // state needs every thread it can get (chip_smoke.py times both counts
-  // at the lifecycle shapes through a->units)
-  const bool sparse = (long long)a->G * a->W >= (1LL << 19) && 16LL * a->N < a->G;
+  // units a thread: 4 where the batch is sparse (under one row in 16; in
+  // 8 for the restores, whose batch units read their inputs) and a window
+  // leaf holds 2^19 words or more, where 4 keep more bytes in flight a
+  // thread; else 1: a dense batch puts more rows' lookups, each a chain of
+  // dependent loads, one after another in a thread, and a small state
+  // needs every thread it can get (chip_smoke.py times both counts at the
+  // lifecycle shapes through a->units)
+  const bool sparse =
+      (long long)a->G * a->W >= (1LL << 19) && (restore ? 8LL : 16LL) * a->N < a->G;
   const int units = a->units ? a->units : sparse ? 4 : 1;
   const long long span = (long long)GP_LIFE_BLOCK * units;
   const long long ug = vg ? a->G / 4 : a->G;
@@ -474,30 +475,25 @@ static int life_rows_launch(GpLifeArgs* a, cudaStream_t st) {
   if (blocks >= (1LL << 31)) return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)blocks);
   const int pick = (vg ? 4 : 0) | (vw ? 2 : 0) | (units == 4 ? 1 : 0);
-  switch (pick) {
-    case 7: gp_life_rows_kernel<true, true, 4><<<grid, GP_LIFE_BLOCK, 0, st>>>(*a, m); break;
-    case 6: gp_life_rows_kernel<true, true, 1><<<grid, GP_LIFE_BLOCK, 0, st>>>(*a, m); break;
-    case 5: gp_life_rows_kernel<true, false, 4><<<grid, GP_LIFE_BLOCK, 0, st>>>(*a, m); break;
-    case 4: gp_life_rows_kernel<true, false, 1><<<grid, GP_LIFE_BLOCK, 0, st>>>(*a, m); break;
-    case 3: gp_life_rows_kernel<false, true, 4><<<grid, GP_LIFE_BLOCK, 0, st>>>(*a, m); break;
-    case 2: gp_life_rows_kernel<false, true, 1><<<grid, GP_LIFE_BLOCK, 0, st>>>(*a, m); break;
-    case 1: gp_life_rows_kernel<false, false, 4><<<grid, GP_LIFE_BLOCK, 0, st>>>(*a, m); break;
-    default: gp_life_rows_kernel<false, false, 1><<<grid, GP_LIFE_BLOCK, 0, st>>>(*a, m); break;
+  switch (a->op) {
+    case OP_CREATE: rows_kernel<OP_CREATE>(pick, grid, st, *a, m); break;
+    case OP_JUMP: rows_kernel<OP_JUMP>(pick, grid, st, *a, m); break;
+    case OP_RESTORE_PAUSED: rows_kernel<OP_RESTORE_PAUSED>(pick, grid, st, *a, m); break;
+    case OP_RESTORE_ROWS: rows_kernel<OP_RESTORE_ROWS>(pick, grid, st, *a, m); break;
+    default: return (int)cudaErrorInvalidValue;
   }
   a->kernels = 1;
   return (int)cudaGetLastError();
 }
 
-// Launch one lifecycle op on `stream` (create, restore_paused, kill and
-// extract: one launch each; jump and restore_rows a copy pass, then a row
-// pass); sets a->kernels to the launches made and returns
+// Launch one lifecycle op on `stream` (one launch; none for an empty
+// extract); sets a->kernels to the launches made and returns
 // cudaGetLastError() (0 = ok).
 int gp_lifecycle_launch(GpLifeArgs* a, void* stream) {
   a->kernels = 0;
   if (a->G < 1 || a->W < 1 || a->N < 0 || a->op < OP_CREATE || a->op > OP_EXTRACT)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (a->op == OP_CREATE || a->op == OP_RESTORE_PAUSED) return life_rows_launch(a, st);
   if (a->op == OP_KILL) {
     if (a->in[0] == nullptr) return (int)cudaErrorInvalidValue;  // no bitmap
     bool vec = a->G % 4 == 0;
@@ -530,26 +526,7 @@ int gp_lifecycle_launch(GpLifeArgs* a, void* stream) {
     a->kernels = 1;
     return (int)cudaGetLastError();
   }
-  long long most = 0;
-  for (int L = 0; L < GP_NLEAF; ++L) {
-    if (a->st_out[L] == nullptr) continue;
-    const long long n = is_gw(L) ? (long long)a->G * a->W : (long long)a->G;
-    if (n > most) most = n;
-  }
-  if (most > 0) {
-    long long blocks = ((most + 3) / 4 + GP_LIFE_BLOCK - 1) / GP_LIFE_BLOCK;
-    if (blocks > GP_COPY_MAX_BLOCKS) blocks = GP_COPY_MAX_BLOCKS;
-    gp_copy_leaves_kernel<<<dim3((unsigned)blocks, GP_NLEAF), GP_LIFE_BLOCK, 0, st>>>(*a);
-    ++a->kernels;
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  if (a->N > 0) {
-    const long long blocks = ((long long)a->N * a->W + GP_LIFE_BLOCK - 1) / GP_LIFE_BLOCK;
-    gp_rows_kernel<<<(unsigned)blocks, GP_LIFE_BLOCK, 0, st>>>(*a);
-    ++a->kernels;
-  }
-  return (int)cudaGetLastError();
+  return life_rows_launch(a, st);
 }
 
 }  // extern "C"

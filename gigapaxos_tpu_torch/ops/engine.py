@@ -122,9 +122,8 @@ LAUNCHES = {
 }
 
 
-# kernels launched by the lifecycle calls counted in LAUNCHES (a call of
-# gp_jump_rows or gp_restore_rows launches two, a copy pass and a row pass;
-# each other op one)
+# kernels launched by the lifecycle calls counted in LAUNCHES (one a call
+# for every op, none for an empty gp_extract_rows)
 KERNEL_LAUNCHES = {
     "gp_create_groups": 0, "gp_kill_groups": 0, "gp_jump_rows": 0,
     "gp_restore_paused_rows": 0, "gp_restore_rows": 0, "gp_extract_rows": 0,

@@ -748,7 +748,8 @@ def _layout(layout) -> tuple:
 
 def life_batch_host(rows, inputs: dict, G: int, W: int, what: str = "batch",
                     alloc=None, parts: Optional[dict] = None):
-    """The staged batch of ``gp_create_groups`` / ``gp_restore_paused_rows``
+    """The staged batch of ``gp_create_groups``, ``gp_jump_rows``,
+    ``gp_restore_paused_rows`` and ``gp_restore_rows``
     (``gp_life_rows_kernel``), built on the host: ``(buf, off)``, one
     flat int32 buffer and the word offset of each part in it:
 
@@ -790,12 +791,12 @@ def life_batch_host(rows, inputs: dict, G: int, W: int, what: str = "batch",
     return buf, off
 
 
-def rows_batch_host(rows, inputs: dict, G: int, W: int, what: str = "batch",
-                    kill: bool = False, alloc=None, parts: Optional[dict] = None):
-    """The staged batch of the other lifecycle ops, as
-    :func:`life_batch_host` returns it: ``idx``, the rows in the caller's
-    order (kill: unique and sorted, with ``bits``, the bitmap its kernel
-    reads), then the host inputs."""
+def rows_batch_host(rows, G: int, what: str = "batch", kill: bool = False,
+                    alloc=None, parts: Optional[dict] = None):
+    """The staged batch of ``gp_kill_groups`` and ``gp_extract_rows``
+    (neither takes batch inputs), as :func:`life_batch_host` returns it:
+    ``idx``, the rows in the caller's order (kill: unique and sorted, with
+    ``bits``, the bitmap its kernel reads)."""
     t = _clock(parts)
     r = _check_rows(rows, G, what)
     srt, _ = _sort_rows(r, what, dedupe=kill)
@@ -803,16 +804,11 @@ def rows_batch_host(rows, inputs: dict, G: int, W: int, what: str = "batch",
         r = srt
     t = _lap(parts, "checks", t)
     N = int(r.size)
-    layout = [("idx", N)] + ([("bits", -(-G // 32))] if kill else [])
-    layout += [(leaf, N * (W if leaf in GW_LEAVES else 1)) for leaf in inputs]
-    off, words = _layout(layout)
+    off, words = _layout([("idx", N)] + ([("bits", -(-G // 32))] if kill else []))
     buf = np.empty(words, np.int32) if alloc is None else alloc(words)
     buf[off["idx"]:off["idx"] + N] = r
     if kill:
         batch_bitmap(r, G, buf[off["bits"]:off["bits"] + -(-G // 32)])
-    for leaf, val in inputs.items():
-        _put(buf, off[leaf], val, (N, W) if leaf in GW_LEAVES else (N,),
-             f"{what}.{leaf}")
     off["N"] = N
     _lap(parts, "build", t)
     return buf, off
@@ -879,7 +875,7 @@ class Staged:
     ``values`` are the op's batch rows, one per leaf of ``INPUTS[name]``
     ([N] or [N, W]): a CUDA int32 tensor of that shape is read in place,
     host values (numpy, python, CPU tensors) go up in ONE upload with the
-    rows (create and restore_paused: :func:`life_batch_host`; the others:
+    rows (the row ops: :func:`life_batch_host`; kill and extract:
     :func:`rows_batch_host`).  ``result`` is
     the new state (touched leaves fresh from ``torch.empty``, the rest
     the input's own tensors) or, for ``gp_extract_rows``, the tuple of
@@ -909,11 +905,11 @@ class Staged:
             for leaf, val in on_dev.items():
                 shape = (idx.size, W) if leaf in GW_LEAVES else (idx.size,)
                 a.inp[_LEAF[leaf]] = _check(val, f"{name}.{leaf}", shape, torch.int32, dev)
-        if op in (OP_CREATE, OP_RESTORE_PAUSED):
+        rows_op = op not in (OP_KILL, OP_EXTRACT)
+        if rows_op:
             build = lambda alloc: life_batch_host(idx, host, G, W, name, alloc, parts)
         else:
-            build = lambda alloc: rows_batch_host(idx, host, G, W, name,
-                                                  op == OP_KILL, alloc, parts)
+            build = lambda alloc: rows_batch_host(idx, G, name, op == OP_KILL, alloc, parts)
         _lap(parts, "args", t)
         flat, off = _upload(dev, build, parts)
         t = _clock(parts)
@@ -922,7 +918,7 @@ class Staged:
         a.idx = base + 4 * off["idx"]
         if op == OP_KILL:
             a.inp[0] = base + 4 * off["bits"]
-        elif op in (OP_CREATE, OP_RESTORE_PAUSED):
+        elif rows_op:
             a.pos = base + 4 * off["pos"]
             a.cnt = base + 4 * off["cnt"]
             a.bits = base + 4 * off["bits"]
@@ -951,8 +947,7 @@ class Staged:
     @property
     def kernels(self) -> int:
         """Kernels the last :meth:`launch` launched (the C launcher's
-        count: 1 for create, restore_paused, kill and extract; 2 for jump
-        and restore_rows, a copy pass and a row pass)."""
+        count: 1 for every op, 0 for an empty extract)."""
         return int(self.args.kernels)
 
     def launch(self) -> None:
@@ -1032,7 +1027,7 @@ def kill_groups(state: EngineState, idx) -> EngineState:
 
 def jump_rows(state: EngineState, idx, exec_slot, bal, app_hash, n_execd,
               stopped) -> EngineState:
-    """``gp_jump_rows``: adopt donor frontiers."""
+    """``gp_jump_rows``: adopt donor frontiers, one launch."""
     return _run(_stage_jump(state, idx, exec_slot, bal, app_hash, n_execd, stopped))
 
 
@@ -1048,7 +1043,8 @@ def restore_paused_rows(state: EngineState, idx, exec_slot, bal, app_hash,
 
 
 def restore_rows(state: EngineState, idx, rows) -> EngineState:
-    """``gp_restore_rows``: scatter whole rows (EngineState field order)."""
+    """``gp_restore_rows``: scatter whole rows (EngineState field order),
+    one launch."""
     return _run(_stage_restore_rows(state, idx, rows))
 
 

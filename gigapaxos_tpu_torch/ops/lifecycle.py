@@ -18,11 +18,10 @@ Two implementations of every op live here, as in :mod:`.engine`:
 * the **plain** version (``*_plain``): PyTorch indexing, the CPU path and
   the yardstick the kernel is held against;
 * the **kernel** (``csrc/gp_lifecycle.cu``, bound in :mod:`.gp_kernels`):
-  create and restore_paused are ONE launch of ``gp_life_rows_kernel``
-  over the touched leaves (the batch found by its bitmap, a batch row's
-  position by a search of the sorted rows, staged in one pinned upload);
-  kill and extract one launch each; jump and restore_rows a copy pass over
-  the touched leaves, then a row pass over the batch.
+  create, jump, restore_paused and restore_rows are ONE launch of
+  ``gp_life_rows_kernel`` over the touched leaves (the batch found by its
+  bitmap, a batch row's position by a search of the sorted rows, staged
+  in one pinned upload); kill and extract one launch each.
 
 The public functions dispatch: CPU tensors take the plain version, CUDA
 tensors launch the kernel or raise.  On the kernel path the row batch
@@ -276,7 +275,8 @@ def kill_groups(state: EngineState, idx) -> EngineState:
 
 def jump_rows(state: EngineState, idx, exec_slot, bal, app_hash, n_execd,
               stopped) -> EngineState:
-    """Checkpoint-transfer jump (see :func:`jump_rows_plain`)."""
+    """Checkpoint-transfer jump (see :func:`jump_rows_plain`); on the card
+    one ``gp_life_rows_kernel`` launch."""
     if not _engine.on_card(state.bal):
         return jump_rows_plain(state, idx, exec_slot, bal, app_hash, n_execd,
                                stopped)
@@ -310,7 +310,8 @@ def extract_rows(state: EngineState, idx) -> Tuple:
 
 
 def restore_rows(state: EngineState, idx, rows: Tuple) -> EngineState:
-    """Scatter extracted rows back (see :func:`restore_rows_plain`)."""
+    """Scatter extracted rows back (see :func:`restore_rows_plain`); on the
+    card one ``gp_life_rows_kernel`` launch."""
     if not _engine.on_card(state.bal):
         return restore_rows_plain(state, idx, rows)
     from . import gp_kernels

@@ -10,15 +10,17 @@ untouched leaves the input's own tensors, bad row batches refused.  Then
 a manager's hibernate / wake burst / per-name wake on the card in lock
 step with the same manager on the CPU.
 
-``gp_create_groups`` and ``gp_restore_paused_rows`` are one launch of
-``gp_life_rows_kernel`` a call (jump and restore_rows two): their cases
-also cover N in {0, 1, 7, 64, G}, unsorted batches, rows on both sides of
-a bitmap word's edge, batch inputs given as CUDA int32 tensors in the
-caller's order, G=301 (word units), 4,096 and 65,536 (int4 units; four
-a thread at 65,536's sparse batches from W=8) at W in {4, 8, 16, 32}, a
-staged call launched twice and at either unit count a thread, bad
-batches refused before any launch, and misshapen CUDA batch inputs
-refused before any upload.
+Every op is one launch a call.  ``gp_create_groups``, ``gp_jump_rows``,
+``gp_restore_paused_rows`` and ``gp_restore_rows`` are one launch of
+``gp_life_rows_kernel``: their cases also cover N in {0, 1, 7, 64, G},
+unsorted batches, rows on both sides of a bitmap word's edge, batch
+inputs given as CUDA int32 tensors in the caller's order, G=301 (word
+units), 4,096 and 65,536 (int4 units; four a thread at 65,536's sparse
+batches from W=8) at W in {4, 8, 16, 32}, a staged call launched twice
+and at either unit count a thread, bad batches refused before any
+launch, and misshapen CUDA batch inputs refused before any upload; and
+a jump whose batch rows hold kept and cleared lanes, NULL slots and
+negative frontiers.
 
 A CUDA kernel has no CPU mode: every test here skips without a card.
 This file imports nothing of JAX, so it also runs where JAX is absent
@@ -93,7 +95,7 @@ def test_lifecycle_kernel_matches_plain(op, W):
         want = getattr(tl, op + "_plain")(state, *args, **kw)
         torch.cuda.synchronize()
         assert te.LAUNCHES[kname] == 1
-        assert te.KERNEL_LAUNCHES[kname] == (2 if op in ("jump_rows", "restore_rows") else 1)
+        assert te.KERNEL_LAUNCHES[kname] == 1
         for f, a, b in zip(te.EngineState._fields, got, want):
             assert torch.equal(a, b), (N, f)
         for a, b in zip(state, keep):
@@ -116,7 +118,7 @@ def test_lifecycle_kernel_matches_plain(op, W):
         getattr(tl, op)(state, np.array([0, 1, 2, G]), *args[1:], **kw)
 
 
-ONE_PASS = ["create_groups", "restore_paused_rows"]
+ONE_PASS = ["create_groups", "restore_paused_rows", "jump_rows", "restore_rows"]
 
 
 def _state_at(rng, G, W):
@@ -137,6 +139,12 @@ def _one_pass_args(op, rng, G, W, idx, on_card):
         coord0 = tl.initial_coordinator(idx, masks & 7)
         return (idx, dev(masks), dev(coord0)), dict(
             my_id=1, version=dev(n(0, 4)), tag=dev(n(1, 1000)))
+    if op == "jump_rows":
+        return (idx,) + tuple(dev(x) for x in (n(-1, 500), n(-1, 500), n(-9, 9), n(0, 9),
+                                               n(0, 2))), {}
+    if op == "restore_rows":
+        return (idx, tuple(dev(rng.integers(-1, 500, size=(N, W) if f in GW else N))
+                           for f in te.EngineState._fields)), {}
     return (idx,) + tuple(dev(x) for x in (n(-1, 500), n(-1, 500), n(-9, 9), n(0, 9))) \
         + tuple(dev(rng.integers(-1, 500, size=(N, W))) for _ in range(5)), {}
 
@@ -216,11 +224,59 @@ def test_one_pass_refuses_misshapen_card_inputs_before_an_upload(op, monkeypatch
     calls = []
     monkeypatch.setattr(gp_kernels, "_upload", lambda *a, **k: calls.append("upload"))
     monkeypatch.setattr(gp_kernels, "_lifecycle_launch", lambda *a: calls.append("launch"))
-    for i in range(1, len(args)):
-        for bad in (args[i][:-1], args[i].to(torch.int64)):
+    # each batch input in turn (restore_rows': each leaf of its rows)
+    rows = op == "restore_rows"
+    values = list(args[1] if rows else args[1:])
+    call = lambda vals: getattr(tl, op)(state, args[0], *((tuple(vals),) if rows else vals),
+                                        **kw)
+    for i, good in enumerate(values):
+        for bad in (good[:-1], good.to(torch.int64)):
             with pytest.raises((ValueError, TypeError)):
-                getattr(tl, op)(state, *args[:i], bad, *args[i + 1:], **kw)
+                call(values[:i] + [bad] + values[i + 1:])
     assert calls == []
+
+
+@pytest.mark.parametrize("W", [4, 16, 32])
+@pytest.mark.parametrize("G", [301, 65536])
+def test_jump_keeps_and_clears_lanes(G, W):
+    """A jump whose batch rows' window lanes sit below, at and above the
+    new frontier or hold NULL, at frontiers that are negative, NULL, zero
+    and large (signed comparisons), with donor ballots below and above the
+    row's: bit-equal to ``jump_rows_plain``, with both kept and cleared
+    lanes in the batch, under either unit count a thread."""
+    _need_card()
+    from gigapaxos_tpu_torch.ops import gp_kernels
+
+    rng = np.random.default_rng(G + W)
+    state = _state_at(rng, G, W)
+    N = min(G, 256)
+    idx = rng.choice(G, size=N, replace=False)
+    frontier = rng.choice(np.array([-2 ** 31, -7, -1, 0, 5, 300, 2 ** 30], np.int64), size=N)
+    slots = {}
+    for slot in ("acc_slot", "dec_slot"):
+        off = rng.choice(np.array([-2, -1, 0, 1, 2]), size=(N, W))
+        near = np.clip(frontier[:, None] + off, -2 ** 31, 2 ** 31 - 1)
+        near[rng.random((N, W)) < 0.2] = NULL
+        leaf = getattr(state, slot).clone()
+        leaf[torch.as_tensor(idx, device="cuda")] = torch.as_tensor(near.astype(np.int32),
+                                                                     device="cuda")
+        slots[slot] = leaf
+    state = state._replace(**slots)
+    old_bal = getattr(state, "bal").cpu().numpy()[idx]
+    bal = old_bal + rng.choice(np.array([-3, 0, 3]), size=N)
+    args = (idx, frontier, bal, rng.integers(-2 ** 31, 2 ** 31 - 1, size=N),
+            rng.integers(0, 9, size=N), rng.integers(0, 2, size=N))
+    want = tl.jump_rows_plain(state, *args)
+    kept = (want.acc_slot[torch.as_tensor(idx, device="cuda")] != NULL).sum().item()
+    assert 0 < kept < N * W, kept
+    staged = gp_kernels.stage("gp_jump_rows", state, *args)
+    for units in (0, 1, 4):
+        staged.args.units = units
+        staged.launch()
+        torch.cuda.synchronize()
+        assert staged.kernels == 1
+        for f, a, b in zip(te.EngineState._fields, staged.result, want):
+            assert torch.equal(a, b), (units, f)
 
 
 def test_manager_residency_on_card_matches_cpu(tmp_path):

@@ -1,5 +1,5 @@
-"""The staged batch of ``gp_create_groups`` and ``gp_restore_paused_rows``
-on the CPU.
+"""The staged batch of ``gp_create_groups``, ``gp_jump_rows``,
+``gp_restore_paused_rows`` and ``gp_restore_rows`` on the CPU.
 
 ``gp_life_rows_kernel`` (``csrc/gp_lifecycle.cu``) finds its batch in
 the one buffer :func:`gp_kernels.life_batch_host` builds: a thread tests
@@ -9,9 +9,9 @@ chunk counts, then the positions table.  :func:`lookup` does the same in
 numpy, and :func:`apply_life_rows` writes a state as the kernel writes it
 from that lookup.  Held here, from seeded batches at small shapes: the
 buffer's parts against what they should hold, the lookup against the
-caller's batch, the emulated kernel against ``create_groups_plain`` /
-``restore_paused_rows_plain`` (and the JAX package's functions), and the
-refusals of a bad batch.  No card needed.
+caller's batch, the emulated kernel against the ops' ``*_plain`` versions
+(and the JAX package's functions), and the refusals of a bad batch.  No
+card needed.
 """
 
 import jax.numpy as jnp
@@ -54,13 +54,20 @@ def lookup(bits, cnt, srt, pos, G: int) -> np.ndarray:
     return found
 
 
+LIFE_NAMES = {gp_kernels.OP_CREATE: "gp_create_groups", gp_kernels.OP_JUMP: "gp_jump_rows",
+              gp_kernels.OP_RESTORE_PAUSED: "gp_restore_paused_rows",
+              gp_kernels.OP_RESTORE_ROWS: "gp_restore_rows"}
+
+
 def apply_life_rows(op: int, s: dict, inp: dict, n_of: np.ndarray, my_id: int) -> dict:
-    """The new touched leaves of ``gp_life_rows_kernel`` (create or
-    restore_paused): a row outside the batch keeps the input's words; a
-    batch row's come from its caller's batch row ``n_of[g]``."""
+    """The new touched leaves of ``gp_life_rows_kernel`` (create, jump,
+    restore_paused or restore_rows): a row outside the batch keeps the
+    input's words; a batch row's come from its caller's batch row
+    ``n_of[g]`` (jump's also from the row's input words: bal's max, the
+    window lanes it keeps)."""
     hit = n_of >= 0
     n = n_of[hit]
-    name = "gp_create_groups" if op == gp_kernels.OP_CREATE else "gp_restore_paused_rows"
+    name = LIFE_NAMES[op]
     if not hit.any():
         return {f: s[f].copy() for f in gp_kernels.TOUCHED[name]}
     out = {}
@@ -75,6 +82,20 @@ def apply_life_rows(op: int, s: dict, inp: dict, n_of: np.ndarray, my_id: int) -
                     app_hash=0, n_execd=0, c_phase=np.where(me, te.ACTIVE, te.IDLE),
                     c_bal=np.where(me, coord0, NULL), c_next_slot=0,
                     **{f: NULL for f in GW})
+    elif op == gp_kernels.OP_JUMP:
+        ne = inp["exec_slot"][n]
+        rows = dict(bal=np.maximum(s["bal"][hit], inp["bal"][n]), exec_slot=ne,
+                    app_hash=inp["app_hash"][n], n_execd=inp["n_execd"][n],
+                    stopped=inp["stopped"][n], c_phase=te.IDLE, c_bal=NULL,
+                    c_next_slot=ne, c_prop_vid=NULL, c_prop_slot=NULL)
+        for slot, planes in (("acc_slot", ("acc_bal", "acc_vid", "acc_slot")),
+                             ("dec_slot", ("dec_vid", "dec_slot"))):
+            old = s[slot][hit]
+            keep = (old != NULL) & (old >= ne[:, None])
+            for f in planes:
+                rows[f] = np.where(keep, s[f][hit], NULL)
+    elif op == gp_kernels.OP_RESTORE_ROWS:
+        rows = {f: inp[f][n] for f in FIELDS}
     else:
         rows = {f: inp[f][n] for f in ("bal", "exec_slot", "app_hash", "n_execd",
                                        "acc_bal", "acc_vid", "acc_slot", "dec_vid",
@@ -103,6 +124,14 @@ def _args(op, rng, G, W, N):
         coord0 = tl.initial_coordinator(idx, masks & 7)
         return idx, dict(member_mask=masks, bal=coord0, version=n(0, 4),
                          tag=n(1, 1000))
+    if op == "jump":
+        # frontiers below, among and above the window's slots, negative too
+        return idx, dict(exec_slot=n(-600, 500), bal=n(-1, 500),
+                         app_hash=n(-2 ** 31, 2 ** 31 - 1), n_execd=n(0, 9),
+                         stopped=n(0, 2))
+    if op == "restore_rows":
+        return idx, {f: v[rng.choice(G, size=N, replace=False)]
+                     for f, v in _state(rng, G, W).items()}
     return idx, dict(exec_slot=n(-1, 500), bal=n(-1, 500),
                      app_hash=n(-2 ** 31, 2 ** 31 - 1), n_execd=n(0, 9),
                      **{f: rng.integers(-1, 500, size=(N, W))
@@ -117,16 +146,20 @@ def _parts(buf, off, G, W, N):
 
 CASES = [(G, W, N) for G, W in ((41, 8), (300, 4), (301, 16), (1024, 8), (96, 32))
          for N in (0, 1, 7, 64) if N <= G] + [(64, 8, 64), (513, 4, 300)]
+# the ops on gp_life_rows_kernel: (kernel op, name, seed offset)
+ROW_OPS = {"create": (gp_kernels.OP_CREATE, "gp_create_groups", 1),
+           "restore_paused": (gp_kernels.OP_RESTORE_PAUSED, "gp_restore_paused_rows", 0),
+           "jump": (gp_kernels.OP_JUMP, "gp_jump_rows", 2),
+           "restore_rows": (gp_kernels.OP_RESTORE_ROWS, "gp_restore_rows", 3)}
 
 
-@pytest.mark.parametrize("op", ["create", "restore_paused"])
+@pytest.mark.parametrize("op", list(ROW_OPS))
 @pytest.mark.parametrize("G,W,N", CASES)
 def test_staged_batch_lookup_gives_the_plain_result(op, G, W, N):
-    rng = np.random.default_rng(G * 1000 + W * 10 + N + (op == "create"))
+    kop, name, seed = ROW_OPS[op]
+    rng = np.random.default_rng(G * 1000 + W * 10 + N + seed)
     s = _state(rng, G, W)
     idx, inputs = _args(op, rng, G, W, N)
-    name = "gp_create_groups" if op == "create" else "gp_restore_paused_rows"
-    kop = gp_kernels.OP_CREATE if op == "create" else gp_kernels.OP_RESTORE_PAUSED
     assert tuple(inputs) == gp_kernels.INPUTS[name]
     buf, off = gp_kernels.life_batch_host(idx, inputs, G, W, name)
     assert buf.dtype == np.int32 and off["N"] == N
@@ -156,6 +189,13 @@ def test_staged_batch_lookup_gives_the_plain_result(op, G, W, N):
         kw = dict(my_id=my_id, version=inputs["version"], tag=inputs["tag"])
         plain = tl.create_groups_plain(st, *args, **kw)
         ref = jl.create_groups(js, *args, **kw)
+    elif op == "jump":
+        args = (idx, *inputs.values())
+        plain = tl.jump_rows_plain(st, *args)
+        ref = jl.jump_rows(js, *args)
+    elif op == "restore_rows":
+        plain = tl.restore_rows_plain(st, idx, tuple(inputs.values()))
+        ref = jl.restore_rows(js, idx, tuple(jnp.asarray(v) for v in inputs.values()))
     else:
         args = (idx, *inputs.values())
         plain = tl.restore_paused_rows_plain(st, *args)
@@ -192,7 +232,7 @@ def test_staged_batch_takes_scalars_and_any_integer_rows():
     assert parts(got, off) == p
 
 
-@pytest.mark.parametrize("name", ["gp_create_groups", "gp_restore_paused_rows"])
+@pytest.mark.parametrize("name", [name for _op, name, _seed in ROW_OPS.values()])
 def test_staged_batch_refuses_bad_rows(name):
     G, W = 16, 8
     good = {leaf: np.zeros((4, W) if leaf in GW else 4, np.int64)
@@ -213,16 +253,16 @@ def test_staged_batch_refuses_bad_rows(name):
 
 
 def test_other_ops_stage_rows_in_the_callers_order():
-    """Jump, restore_rows and extract read the rows in the caller's order;
-    kill reads the bitmap of its unique rows."""
-    G, W = 70, 4
+    """Extract reads the rows in the caller's order and nothing else; kill
+    reads the bitmap of its unique rows."""
+    G = 70
     idx = np.array([5, 69, 0, 33])
-    buf, off = gp_kernels.rows_batch_host(idx, {"exec_slot": [1, 2, 3, 4]}, G, W)
+    buf, off = gp_kernels.rows_batch_host(idx, G)
+    assert set(off) == {"idx", "N"} and off["N"] == 4
     np.testing.assert_array_equal(buf[off["idx"]:off["idx"] + 4], idx)
-    np.testing.assert_array_equal(buf[off["exec_slot"]:off["exec_slot"] + 4], [1, 2, 3, 4])
-    buf, off = gp_kernels.rows_batch_host(np.array([5, 69, 5, 0]), {}, G, W, kill=True)
+    buf, off = gp_kernels.rows_batch_host(np.array([5, 69, 5, 0]), G, kill=True)
     assert off["N"] == 3
     bits = buf[off["bits"]:off["bits"] + 3].view(np.uint32)
     assert [g for g in range(G) if (bits[g >> 5] >> (g & 31)) & 1] == [0, 5, 69]
     with pytest.raises(ValueError, match="duplicate"):
-        gp_kernels.rows_batch_host(np.array([5, 69, 5, 0]), {}, G, W)
+        gp_kernels.rows_batch_host(np.array([5, 69, 5, 0]), G)

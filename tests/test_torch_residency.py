@@ -85,14 +85,14 @@ def _host(ptr: int, shape) -> np.ndarray:
 
 
 def _emulated_launch(a) -> None:
-    """``gp_lifecycle_launch`` on host memory.  Create and restore_paused:
-    ``gp_life_rows_kernel``'s one pass, every row found as the kernel
-    finds it, through the staged bitmap, chunk counts, sorted rows and
-    positions (``test_torch_lifecycle_staging.lookup``).  The other ops:
-    the copy pass over every leaf with an output pointer, then the row
-    pass (extract: the gather alone), each row as the CUDA kernel writes
-    it; for kill, the bitmap the kernel reads is checked against the
-    batch first.  Sets ``a.kernels`` as the C launcher does."""
+    """``gp_lifecycle_launch`` on host memory.  Create, jump,
+    restore_paused and restore_rows: ``gp_life_rows_kernel``'s one pass,
+    every row found as the kernel finds it, through the staged bitmap,
+    chunk counts, sorted rows and positions
+    (``test_torch_lifecycle_staging.lookup``).  Kill: the copy of every
+    leaf with an output pointer, then its batch rows' constants, after the
+    bitmap the kernel reads is checked against the batch; extract: the
+    gather.  Sets ``a.kernels`` as the C launcher does."""
     from test_torch_lifecycle_staging import apply_life_rows, lookup
 
     G, W, N, op = int(a.G), int(a.W), int(a.N), int(a.op)
@@ -101,7 +101,7 @@ def _emulated_launch(a) -> None:
     L = {f: i for i, f in enumerate(FIELDS)}
     s = {f: _host(a.st_in[L[f]], shape(f, G)) for f in FIELDS}
     o = {f: _host(a.st_out[L[f]], shape(f, G)) for f in FIELDS if a.st_out[L[f]]}
-    if op in (gp_kernels.OP_CREATE, gp_kernels.OP_RESTORE_PAUSED):
+    if op not in (gp_kernels.OP_KILL, gp_kernels.OP_EXTRACT):
         n_of = lookup(_host(a.bits, (-(-G // 32),)),
                       _host(a.cnt, (-(-G // gp_kernels.CHUNK_ROWS) + 1,)),
                       _host(a.idx, (N,)) if N else np.zeros(0, np.int32),
@@ -112,62 +112,28 @@ def _emulated_launch(a) -> None:
             o[f][...] = v
         a.kernels = 1
         return
-    # kill: one launch; extract: one where N > 0; jump, restore_rows: the
-    # copy pass, then the row pass where N > 0
-    a.kernels = {gp_kernels.OP_KILL: 1, gp_kernels.OP_EXTRACT: int(N > 0)}.get(op, 1 + (N > 0))
-    if op != gp_kernels.OP_EXTRACT:
-        for f, out in o.items():
-            out[...] = s[f]
-    elif o:
-        raise AssertionError("extract got state outputs")
-    if op == gp_kernels.OP_KILL:
-        # what the kernel reads instead of idx: the batch as a bitmap
-        bits = _host(a.inp[0], (-(-G // 32),)).view(np.uint32)
-        want = np.zeros(G, bool)
-        want[_host(a.idx, (N,)) if N else []] = True
-        got = ((bits[np.arange(G) >> 5] >> (np.arange(G) & 31).astype(np.uint32)) & 1) == 1
-        assert (got == want).all(), "kill bitmap does not mark exactly the batch"
-    if N == 0:
-        return
-    i = {f: _host(a.inp[L[f]], shape(f, N)) for f in FIELDS
-         if a.inp[L[f]] and op != gp_kernels.OP_KILL}
-    idx = _host(a.idx, (N,)).astype(np.int64)
-    assert len(set(idx.tolist())) == N and idx.min() >= 0 and idx.max() < G
+    # kill: one launch; extract: one where N > 0
+    a.kernels = 1 if op == gp_kernels.OP_KILL else int(N > 0)
     if op == gp_kernels.OP_EXTRACT:
-        for f in FIELDS:
-            _host(a.rows_out[L[f]], shape(f, N))[...] = s[f][idx]
-        return
-    for n, g in enumerate(idx):
-        if op == gp_kernels.OP_KILL:
-            row = dict(member_mask=0, majority=2 ** 30, stopped=0, tag=0,
-                       bal=NULL, c_phase=te.IDLE, c_bal=NULL)
-        elif op == gp_kernels.OP_JUMP:
-            ne = int(i["exec_slot"][n])
-            for lane in range(W):
-                a_s, d_s = int(s["acc_slot"][g, lane]), int(s["dec_slot"][g, lane])
-                keep_a = a_s != NULL and a_s >= ne
-                keep_d = d_s != NULL and d_s >= ne
-                for f in ("acc_bal", "acc_vid", "acc_slot"):
-                    o[f][g, lane] = s[f][g, lane] if keep_a else NULL
-                for f in ("dec_vid", "dec_slot"):
-                    o[f][g, lane] = s[f][g, lane] if keep_d else NULL
-            o["c_prop_vid"][g] = NULL
-            o["c_prop_slot"][g] = NULL
-            row = dict(
-                bal=max(int(s["bal"][g]), int(i["bal"][n])), exec_slot=ne,
-                app_hash=i["app_hash"][n], n_execd=i["n_execd"][n],
-                stopped=i["stopped"][n], c_phase=te.IDLE, c_bal=NULL,
-                c_next_slot=ne,
-            )
-        else:  # OP_RESTORE_ROWS
-            row = {}
+        assert not o, "extract got state outputs"
+        if N:
+            idx = _host(a.idx, (N,)).astype(np.int64)
+            assert len(set(idx.tolist())) == N and idx.min() >= 0 and idx.max() < G
             for f in FIELDS:
-                if f in GW:
-                    o[f][g] = i[f][n]
-                else:
-                    row[f] = i[f][n]
-        for f, v in row.items():
-            o[f][g] = np.int32(v)
+                _host(a.rows_out[L[f]], shape(f, N))[...] = s[f][idx]
+        return
+    for f, out in o.items():
+        out[...] = s[f]
+    # what the kernel reads instead of idx: the batch as a bitmap
+    bits = _host(a.inp[0], (-(-G // 32),)).view(np.uint32)
+    want = np.zeros(G, bool)
+    want[_host(a.idx, (N,)) if N else []] = True
+    got = ((bits[np.arange(G) >> 5] >> (np.arange(G) & 31).astype(np.uint32)) & 1) == 1
+    assert (got == want).all(), "kill bitmap does not mark exactly the batch"
+    killed = dict(member_mask=0, majority=2 ** 30, stopped=0, tag=0, bal=NULL,
+                  c_phase=te.IDLE, c_bal=NULL)
+    for f, v in killed.items():
+        o[f][want] = v
 
 
 def _emulate_lifecycle(monkeypatch) -> None:
