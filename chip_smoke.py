@@ -81,13 +81,16 @@ Phases (any failure exits nonzero):
              the last), against N serial one-substep dispatches at
              G=4,100, and at G=65,536 (W=16, R=3, K=8, N=8), where every
              CTA takes three tiles or more; one launch a dispatch and no
-             gp_make_blob on the stacked face; the packed dispatch at the
-             server shape and the headline's width (one replica), N in
-             {1, 4, 8}, and the stacked one at the ablation shape, N in
-             {1, 8}, and the server shape, N=8, each bit for bit against
-             the plain face, then on the device beside the N-launch
-             design, the plain face and the bound (the state read and
-             written once); then phase 6's servers at
+             gp_make_blob on the stacked face; the stacked face at N = 1
+             (one gp_step launch, a CTA a tile of R replicas, gp_step_tile)
+             at every parity shape and G against its plain face and the
+             gp_make_blob + gp_step route it replaced; the packed
+             dispatch at the server shape and the headline's width (one
+             replica), N in {1, 4, 8}, and the stacked one at the
+             ablation shape, N in {1, 8}, and the server shape, N=8, each
+             bit for bit against the plain face, then on the device beside
+             the N-launch design, the plain face and the bound (the state
+             read and written once); then phase 6's servers at
              ENGINE_STEPS_PER_DISPATCH=8 (16 names, 2 requests each, 4
              names hibernated and restored, 1 more each): every response
              correct, each manager one gp_step_n a dispatch and no gp_step.
@@ -238,7 +241,8 @@ Phases (any failure exits nonzero):
              launches (one gp_step, at N=4 one gp_step_n, a dispatch).
              Then, the counts from 0 before each, 20 steps of each face under the bench's
              load (dec/s beside the stacked face's; each logical device's
-             own launches: one gp_make_blob and one gp_step a step), the
+             own launches: on ('g',) one gp_step a step, on (g, r) one
+             gp_make_blob and one gp_step), the
              (g, r) blob exchange's ms per step against its bound
              (r(r-1) G 528 B read and written at the card's memory rate),
              peak memory; the bench's multichip arm over the physical cards
@@ -2004,7 +2008,8 @@ def phase_headline(diff: Diff, device, bw: float, results: str) -> dict:
         res = bench.run_headline(G, W, K, device, failover=arm == "failover",
                                  after_warmup=plain_beside(arm))
         launches = dict(te.LAUNCHES)
-        if launches["gp_step"] < res["steps"] or launches["gp_make_blob"] < 1:
+        # the stacked face at N = 1: one gp_step launch a step, no blob launch
+        if launches["gp_step"] < res["steps"] or launches["gp_make_blob"]:
             fail(f"headline {arm}: main path launched {launches}")
         if res["total"] <= 0:
             fail(f"headline {arm}: no decisions committed")
@@ -2350,13 +2355,54 @@ def residency_case(diff: Diff, device, cfg, states, rng, serial: bool,
                   te.StepOutputs(*(torch.stack(x) for x in zip(*outs))))
 
 
+def stacked_n1_case(diff: Diff, device, cfg, states, rng, launches: dict) -> None:
+    """The stacked face at N = 1 (one gp_step launch, a CTA a tile of R
+    replicas), every replica missing the last, with want pulses, bit for
+    bit against the plain face and against the route it replaced,
+    gp_make_blob and a stacked gp_step through the [R, NB] matrix."""
+    import numpy as np
+    import torch
+
+    from gigapaxos_tpu_torch.ops import engine as te
+    from gigapaxos_tpu_torch.ops import gp_kernels
+    from gigapaxos_tpu_torch.parallel.spmd import make_step, stack_states
+
+    G, W, K, R = cfg.n_groups, cfg.window, cfg.req_lanes, cfg.n_replicas
+    dev = lambda a, dt: torch.as_tensor(a, dtype=dt, device=device)
+    fs = make_step(cfg, None, 1, donate=False, io="stacked", device=device)
+    stacked = stack_states(states)
+    reqs = rng.integers(1, 10 ** 6, size=(R, G, K))
+    reqs = dev(np.where(rng.random((R, G, K)) < 0.3, -1, reqs).astype(np.int32), torch.int32)
+    wants = dev(rng.random((R, G)) < 0.05, torch.bool)
+    hm = np.ones((R, R), bool)
+    if R > 1:
+        hm[:, R - 1] = False   # every replica misses the last one
+    hm = dev(hm | np.eye(R, dtype=bool), torch.bool)
+    tag = f"residency.stacked.G{G}W{W}R{R}K{K}.N1"
+    te.reset_launch_counts()
+    k_st, k_o = fs(stacked, reqs, wants, hm)
+    got = dict(te.LAUNCHES)
+    launches["stacked_n1"].append(got["gp_step"])
+    diff.same("gp_step", tag + ".launches",
+              fs.route == "tile" and got["gp_step"] == 1 and sum(got.values()) == 1)
+    p_st, p_o = fs.plain(stacked, reqs, wants, hm)
+    diff.tree("gp_step", tag + ".state", k_st, p_st)
+    diff.tree("gp_step", tag + ".out", k_o, p_o)
+    o_st, o_mat, _ = gp_kernels.step_stacked(
+        stacked, gp_kernels.make_blob_rows(stacked, R), hm, reqs, wants, cfg)
+    diff.tree("gp_step", tag + ".launches_route.state", k_st, o_st)
+    diff.tree("gp_step", tag + ".launches_route.out", k_o, fs._outs(o_mat))
+
+
 def residency_parity(diff: Diff, device) -> dict:
     """Both N-substep kernels bit for bit against their plain faces at
     every parity shape and G, N in RES_PARITY_N, and against N serial
     one-substep dispatches at the first parity G (:func:`residency_case`);
-    then RES_PARITY_BIG at the deployed N (8), where every CTA of both
-    launches takes three tiles or more, so the ring refills stages the
-    substeps wrote."""
+    the stacked face at N = 1 against its plain face and the two-launch
+    route it replaced at the same shapes (:func:`stacked_n1_case`); then
+    RES_PARITY_BIG at the deployed N (8), where every CTA of both launches
+    takes three tiles or more, so the ring refills stages the substeps
+    wrote."""
     import numpy as np
     import torch
 
@@ -2364,12 +2410,15 @@ def residency_parity(diff: Diff, device) -> dict:
     from gigapaxos_tpu_torch.ops import gp_kernels
 
     t0 = time.perf_counter()
-    launches = {"packed": [], "stacked": []}
+    launches = {"packed": [], "stacked": [], "stacked_n1": []}
     for G in PARITY_GS:
         for i, (W, R, K) in enumerate(PARITY_SHAPES):
             cfg = te.EngineConfig(G, W, K, R)
-            residency_case(diff, device, cfg, seeded_states(cfg, 100 + i + G, device),
-                           np.random.default_rng(500 + i + G), G == PARITY_GS[0], launches)
+            states = seeded_states(cfg, 100 + i + G, device)
+            residency_case(diff, device, cfg, states, np.random.default_rng(500 + i + G),
+                           G == PARITY_GS[0], launches)
+            stacked_n1_case(diff, device, cfg, states, np.random.default_rng(700 + i + G),
+                            launches)
     G, (W, R, K) = RES_PARITY_BIG
     i = PARITY_SHAPES.index((W, R, K))
     cfg = te.EngineConfig(G, W, K, R)
@@ -2394,7 +2443,9 @@ def residency_parity(diff: Diff, device) -> dict:
         f"G={G}, (W, R, K)={(W, R, K)}, N={N} too, the least tiles a CTA (packed, "
         f"cluster) {tiles}; launches a dispatch: packed "
         f"{sorted(set(launches['packed']))} gp_step_n, stacked "
-        f"{sorted(set(launches['stacked']))} gp_step_cluster and no gp_make_blob "
+        f"{sorted(set(launches['stacked']))} gp_step_cluster and no gp_make_blob; "
+        f"stacked N=1 {sorted(set(launches['stacked_n1']))} gp_step (a CTA a tile), "
+        f"bit-equal to the plain face and to gp_make_blob + gp_step "
         f"({secs:.1f} s)")
     return {"seconds": secs, "tiles_per_cta_big": tiles, "launches_per_dispatch": {
         k: sorted(set(v)) for k, v in launches.items()}}
@@ -2514,8 +2565,8 @@ def residency_packed_times(diff: Diff, device, bw: float, label: str, shape: dic
 
 def stacked_n_launches(states, ring, want, h, cfg, mat, blobs, blobs_next):
     """The stacked dispatch as a gp_make_blob and N stacked gp_step launches
-    through a double-buffered blob matrix: the stacked face's route for N =
-    1 and R above the cluster size, timed beside one gp_step_cluster."""
+    through a double-buffered blob matrix: the stacked face's route for R
+    above the cluster size, timed beside the one-launch routes."""
     import torch
 
     from gigapaxos_tpu_torch.ops import gp_kernels
@@ -2534,11 +2585,12 @@ def stacked_n_launches(states, ring, want, h, cfg, mat, blobs, blobs_next):
 
 def residency_stacked_times(diff: Diff, device, bw: float, label: str, shape: dict,
                             ns) -> dict:
-    """The stacked dispatch at ``shape`` for N in ``ns``: N = 1 (the face: a
-    gp_make_blob and a stacked gp_step), N > 1 (one gp_step_cluster
-    launch) bit for bit against the plain face, then timed on the device
-    (a CUDA graph of dispatches) beside the plain face (its one call), the
-    work's bound and, at N > 1, the N-launch route it replaces."""
+    """The stacked dispatch at ``shape`` for N in ``ns``, one launch (a
+    gp_step with a CTA a tile at N = 1, one
+    gp_step_cluster at N > 1), bit for bit against the plain face and the
+    gp_make_blob + N gp_step route it replaced, then timed on the device
+    (a CUDA graph of dispatches) beside that route, the plain face (its
+    one call) and the work's bound."""
     import torch
 
     from gigapaxos_tpu_torch.ops import engine as te
@@ -2555,42 +2607,48 @@ def residency_stacked_times(diff: Diff, device, bw: float, label: str, shape: di
         ring = req[None].expand(N, R, G, K).contiguous()
         face = make_step(cfg, None, N, donate=False, io="stacked", device=device)
         arg = ring if N > 1 else ring[0]
-        name = "gp_step_cluster" if face.route == "cluster" else "gp_step"
         p, plain_ms = timed_once(lambda: face.plain(states, arg, want, h))
+        name = "gp_step_cluster" if N > 1 else "gp_step"
+        te.reset_launch_counts()
         k = face(states, arg, want, h)
+        diff.same(name, f"residency.{label}.N{N}.launches",
+                  face.route == ("cluster" if N > 1 else "tile")
+                  and te.LAUNCHES[name] == 1 and sum(te.LAUNCHES.values()) == 1)
         diff.tree(name, f"residency.{label}.N{N}.state", k[0], p[0])
         diff.tree(name, f"residency.{label}.N{N}.out", k[1], p[1])
-        del k, p
+        out_st = te.EngineState(*(torch.empty_like(x) for x in states))
+        mat = torch.empty((N, R, te.out_vec_len(cfg)), dtype=torch.int32, device=device)
+        blobs = torch.empty((2, R, te.blob_vec_len(cfg)), dtype=torch.int32, device=device)
+        st = stacked_n_launches(states, ring, want, h, cfg, mat, blobs[0], blobs[1])
+        diff.tree(name, f"residency.{label}.N{N}.launches_route.state", k[0], st)
+        diff.tree(name, f"residency.{label}.N{N}.launches_route.out", k[1],
+                  face._outs(mat if N > 1 else mat[0]))
+        del k, p, st
         r = {"route": face.route, "plain_ms": plain_ms,
-             "bound_ms": (cluster_bytes(G, W, K, R, N) if N > 1 else
-                          R * stacked_step_bytes(G, W, K, R) + blob_bytes(G, W) * R)
-             / bw * 1e3}
+             "bound_ms": cluster_bytes(G, W, K, R, N) / bw * 1e3}
         if N > 1:
-            out_st = te.EngineState(*(torch.empty_like(x) for x in states))
-            mat = torch.empty((N, R, te.out_vec_len(cfg)), dtype=torch.int32,
-                              device=device)
-            r["ms"] = graph_ms(lambda: gp_kernels.step_cluster(
-                states, h, ring, want, cfg, out_states=out_st, out_mat=mat),
-                calls=5, reps=4)
+            one = lambda: gp_kernels.step_cluster(
+                states, h, ring, want, cfg, out_states=out_st, out_mat=mat)
             r["plan"] = gp_kernels.step_launch_plan(cfg, n_sub=N, cluster=True)
-            blobs = torch.empty((2, R, te.blob_vec_len(cfg)), dtype=torch.int32,
-                                device=device)
-            r["ms_n_launches"] = graph_ms(lambda: stacked_n_launches(
-                states, ring, want, h, cfg, mat, blobs[0], blobs[1]), calls=5, reps=4)
-            r["n_launch_bound_ms"] = (N * R * stacked_step_bytes(G, W, K, R)
-                                      + R * blob_bytes(G, W)) / bw * 1e3
-            del out_st, mat, blobs
         else:
-            r["ms"] = graph_ms(lambda: face(states, arg, want, h), calls=5, reps=4)
-            r["plan"] = gp_kernels.step_launch_plan(cfg, stacked=True)
+            one = lambda: gp_kernels.step_stacked(
+                states, None, h, ring[0], want, cfg, out_states=out_st, out_mat=mat[0])
+            r["plan"] = gp_kernels.step_launch_plan(cfg, tile=True)
+        r["ms"] = graph_ms(one, calls=5, reps=4)
+        r["ms_n_launches"] = graph_ms(lambda: stacked_n_launches(
+            states, ring, want, h, cfg, mat, blobs[0], blobs[1]), calls=5, reps=4)
+        r["n_launch_bound_ms"] = (N * R * stacked_step_bytes(G, W, K, R)
+                                  + R * blob_bytes(G, W)) / bw * 1e3
+        del out_st, mat, blobs
         r["share"] = r["bound_ms"] / r["ms"]
         res[N] = r
         log(f"residency {label} (G={G}, W={W}, K={K}, R={R}) stacked N={N} "
-            f"({face.route}): bit-equal to the plain face; {r['ms']:.6g} ms a dispatch "
-            f"on the device, {100 * r['share']:.4g}% of the {r['bound_ms']:.6g} ms bound"
-            + (f"; N launches {r['ms_n_launches']:.6g} ms (their own bound "
-               f"{r['n_launch_bound_ms']:.6g} ms)" if N > 1 else "")
-            + f"; plain {r['plain_ms']:.6g} ms; plan {plan_str(r['plan'])}")
+            f"({face.route}): bit-equal to the plain face and to gp_make_blob + N "
+            f"gp_step; {r['ms']:.6g} ms a dispatch on the device, "
+            f"{100 * r['share']:.4g}% of the {r['bound_ms']:.6g} ms bound; gp_make_blob + "
+            f"N launches {r['ms_n_launches']:.6g} ms (their own bound "
+            f"{r['n_launch_bound_ms']:.6g} ms); plain {r['plain_ms']:.6g} ms; plan "
+            f"{plan_str(r['plan'])}")
         del ring
     del states
     torch.cuda.empty_cache()
@@ -4580,7 +4638,10 @@ def phase_mesh(diff: Diff, device, bw: float, results: str) -> dict:
         rates[face] = {"committed": n, "seconds": sec, "dec_per_s": n / sec}
         if face != "stacked":
             per = {str(list(k)): dict(v) for k, v in fn.launches.items()}
-            want_per = {"gp_make_blob": MESH_TIMED_STEPS, "gp_step": MESH_TIMED_STEPS}
+            # ('g',): the stacked face on each shard, one gp_step launch a
+            # step; (g, r): a blob launch and a step launch a device
+            want_per = ({"gp_step": MESH_TIMED_STEPS} if face == "g" else
+                        {"gp_make_blob": MESH_TIMED_STEPS, "gp_step": MESH_TIMED_STEPS})
             if any(v != want_per for v in fn.launches.values()):
                 fail(f"mesh {face}: per-device launches {per}, expected {want_per} each")
             launches[face]["per_device"] = per
@@ -4952,11 +5013,14 @@ def residency_summary(res: dict, chs: dict, smi_line: str) -> str:
           for lbl in ("server", "headline")}
     nl = {lbl: {n: round(v["ms_n_launches"], 6) for n, v in res[f"{lbl}_shape"]["by_n"].items()
                 if "ms_n_launches" in v} for lbl in ("server", "headline")}
+    ab1 = res["ablation_stacked"]["by_n"][1]
     ab8 = res["ablation_stacked"]["by_n"][8]
     sv8 = res["server_stacked"]["by_n"][8]
     rsrv = res["server"]
     return (f"summary: residency: packed dispatch ms by N, one launch {pk}, N launches "
-            f"{nl}; stacked N=8 at G={ABLATION['G']} one gp_step_cluster {ab8['ms']:.6g} "
+            f"{nl}; stacked N=1 at G={ABLATION['G']} one gp_step {ab1['ms']:.6g} ms "
+            f"vs gp_make_blob + gp_step {ab1['ms_n_launches']:.6g} ms; "
+            f"stacked N=8 one gp_step_cluster {ab8['ms']:.6g} "
             f"ms vs N launches {ab8['ms_n_launches']:.6g} ms (bound {ab8['bound_ms']:.6g} "
             f"ms), at G={SERVER['G']}, W={SERVER['W']} {sv8['ms']:.6g} ms vs "
             f"{sv8['ms_n_launches']:.6g} ms; servers at ENGINE_STEPS_PER_DISPATCH={RES_SERVER_N}: "

@@ -16,18 +16,21 @@
 //     (the packed face's lax.fori_loop: N rounds with the state resident,
 //     MY gathered row refreshed from the advancing state, peers' rows
 //     frozen, want at substep 0 only) as ONE launch (n_sub = N);
-//   * the N-substep loop of gigapaxos_tpu/parallel/spmd.py:_build_stacked
-//     (every replica advancing, the blob exchange re-read each substep) as
-//     ONE launch over clusters of R CTAs (cluster = 1), R <= 8.
+//   * gigapaxos_tpu/parallel/spmd.py:_build_stacked (every replica
+//     advancing, the blob exchange re-read each substep) for R <= 8 as ONE
+//     launch: at N = 1 one CTA a tile stepping its R replicas in turn
+//     (mode 3), at N > 1 clusters of R CTAs (cluster = 1).
 // gp_make_blob_kernel is make_blob + pack_blob alone (initial blob, the
-// manager's publish snapshot, the stacked face's first exchange).
+// manager's publish snapshot, the stacked face's first exchange when R
+// exceeds a cluster, the (g, r) mesh face's).
 //
 // Bound.  The step is int32 control logic with no matrix products.  Per
 // group per replica-step it reads the state (12 + 7W words), the R gathered
-// blob rows (R * (4 + 4W); once per launch on the stacked face), K request
-// words, and writes the state, the out vector (6 + 3W) and the blob
-// (4 + 4W): device-memory bandwidth bounds it, and at W = 32 (one warp per
-// group) the instructions a warp issues per group come next.
+// blob rows (R * (4 + 4W); the stacked face's tile and cluster routes read
+// none, their replicas' rows are made on chip), K request words, and
+// writes the state, the out vector (6 + 3W) and the blob (4 + 4W):
+// device-memory bandwidth bounds it, and at W = 32 (one warp per group) the
+// instructions a warp issues per group come next.
 //
 // What held the first design back: R was a runtime loop bound, so each
 // thread issued its gathered-row loads one after another behind
@@ -62,9 +65,26 @@
 //     words, heat) are gathered in shared memory and written once per tile
 //     as coalesced 16-byte stores; the [G, W] planes go out as coalesced
 //     rows straight from the threads.
-//   * Stacked face: the work items are (tile, replica) with the replica
-//     fastest, so the R CTAs stepping one tile run together and read its R
-//     gathered rows through L2: the matrix leaves device memory once.
+//   * Stacked face beyond a cluster (R > 8): the work items are (tile,
+//     replica) with the replica fastest, so the R CTAs stepping one tile
+//     run together and read its R gathered rows through L2: the [R, NB]
+//     matrix gp_make_blob wrote leaves device memory once.
+//   * The stacked face at N = 1 (mode 3), R <= 8: no blob matrix
+//     and no gp_make_blob.  A work item is a tile with all R replicas: its
+//     stage holds the R states of the tile and their request tiles; the
+//     CTA encodes the tile's R blob rows into shared memory once, exactly
+//     as gp_make_blob does, laid out as the stage's gathered rows, then
+//     steps the replicas one after the other reading them there (each
+//     replica's [G] outputs stored while the next one computes).  Every
+//     word is read from device memory once and each row is encoded once:
+//     the exchange costs an encode per (group, lane) in the step and a
+//     barrier a tile.  Designs that lost to gp_make_blob and the stacked
+//     step on an H100 at 2,000,000 groups, W = 32, R = 3: a cluster of R
+//     CTAs a tile, each pushing its own row to its peers (the N > 1
+//     design at N = 1; a cluster barrier every tile held each CTA to its
+//     slowest peer), and a CTA a (tile, replica) encoding all R rows from
+//     its peers' states read through L2 (R encodes a step where one
+//     does).
 //   * Execute: each lane marks the offset of its decided slot from the
 //     frontier in a warp-wide OR; when no two lanes of a segment mark one
 //     offset (always so under the ring convention) the frontier advance is
@@ -104,8 +124,8 @@
 //     and one CTA barrier.  Double buffering keeps it to one cluster
 //     barrier a substep: a CTA stores into the other buffer of its peers
 //     while they may still read this one.  A cluster holds at most 8 CTAs
-//     (the portable size), so R <= 8; the wrapper keeps N launches for
-//     larger R.
+//     (the portable size), so R <= 8; the wrapper keeps gp_make_blob and N
+//     launches for larger R.
 // State is written out of place: the kernel never writes a buffer it reads.
 // The kernel allocates nothing and launches on the caller's stream.
 //
@@ -132,13 +152,18 @@ namespace cg = cooperative_groups;
 #define GP_MAX_DEV 64       // devices the launch plan keeps
 #define GP_MAX_CLUSTER 8    // the portable cluster size
 
-// The source builds three times (ops/gp_kernels.py), one mode each, so the
-// three compile in parallel and the one-substep kernel carries none of the
+// The source builds four times (ops/gp_kernels.py), one mode each, so the
+// four compile in parallel and the one-substep kernels carry none of the
 // substep loop's registers (with the loop in it, it ran 12-16% slower):
 //   0  gp_step: one substep (the packed face at N = 1, the stacked grid),
 //      and gp_make_blob;
 //   1  gp_step_n: the packed face's N substeps in one launch;
-//   2  gp_step_cluster: the stacked face's N substeps over clusters.
+//   2  gp_step_cluster: the stacked face's N substeps over clusters;
+//   3  gp_step_tile: the stacked face's one substep, each CTA stepping
+//      every replica of its tile.
+// Mode 3 is the stacked grid of mode 0 changed only inside GP_STEP_MODE ==
+// 3 blocks: code shared with modes 0-2 moved their register allocation and
+// slowed gp_step_n on an H100, so keep every mode 3 change in those blocks.
 #ifndef GP_STEP_MODE
 #define GP_STEP_MODE 0
 #endif
@@ -149,7 +174,7 @@ namespace cg = cooperative_groups;
 struct GpStepArgs {
   const int32_t* st_in[GP_NLEAF];  // EngineState._fields order
   int32_t* st_out[GP_NLEAF];
-  const int32_t* gathered;  // [R, NB] compact blob rows (cluster: not read)
+  const int32_t* gathered;  // [R, NB] compact blob rows (cluster: not read; tile: null)
   const uint8_t* heard;     // [R] bool (stacked: [R, R], row = replica)
   const int32_t* req;       // [G, K] (stacked: [R, G, K])
   const uint8_t* want;      // [G] bool (stacked: [R, G]); substep 0 only
@@ -197,18 +222,25 @@ __host__ __device__ __forceinline__ int gw_leaf(int i) { return i < 5 ? 7 + i : 
 
 // One ring stage, in words (every segment a multiple of 4 words, T % 4 == 0):
 //   [12][T] state words | [7][T*W] state planes | [R][4][T] gathered words |
-//   [R][4][T*W] gathered lane planes (not in cluster mode) | [NQ][T][K]
-//   requests (NQ = the substeps) | [T] heat
+//   [R][4][T*W] gathered lane planes (not in cluster or tile mode) |
+//   [NQ][T][K] requests (NQ = the substeps) | [T] heat;
+// tile mode: R blocks of o_heat words, replica r's at r * o_heat: its
+// [12][T] state words | [7][T*W] state planes | [T][K] requests; then [T]
+// heat;
 // then, once per CTA: 2 x [23][T] staged [G] outputs (one item stores from
 // one while the next computes into the other) | [T][W] execute scratch |
 // cluster mode: 2 exchange buffers, each the R replicas' blob rows laid out
-// as the stage's gathered rows ([R][4][T] words | [R][4][T*W] lane planes)
-// | GP_RING mbarriers.
+// as the stage's gathered rows ([R][4][T] words | [R][4][T*W] lane planes);
+// tile mode: one such buffer, the rows the CTA encodes | GP_RING mbarriers.
 struct Layout {
   int T, W, R, K, TW, o_sw, o_b1, o_bw, o_req, o_heat, stage, xbuf, xwords;
   __host__ __device__ Layout(int T_, int W_, int R_, int K_, int NQ, bool X)
       : T(T_), W(W_), R(R_), K(K_), TW(T_ * W_) {
+#if GP_STEP_MODE == 3
+    const int rs = 0;  // the rows are encoded in the CTA
+#else
     const int rs = X ? 0 : R;  // gathered rows in the stage
+#endif
     o_sw = 12 * T;
     o_b1 = o_sw + 7 * TW;
     o_bw = o_b1 + 4 * rs * T;
@@ -217,6 +249,10 @@ struct Layout {
     stage = o_heat + T;
     xbuf = 4 * R * (T + TW);
     xwords = X ? 2 * xbuf : 0;
+#if GP_STEP_MODE == 3
+    stage = R * o_heat + T;
+    xwords = xbuf;
+#endif
   }
   __host__ __device__ long long smem_bytes() const {
     return 4LL * ((long long)GP_RING * stage + 2 * GP_NOUT * T + TW + xwords) +
@@ -421,7 +457,9 @@ __device__ __forceinline__ void fence_proxy_async() {
 // its offset in the stage and its length, in words.  Order: the 12 [G]
 // state words, the 7 [G, W] planes, each gathered row's 4 [G] words and 4
 // lane planes (not in cluster mode: the rows come from the peers' shared
-// memory), the n_sub request tiles, the heat (when given).
+// memory), the n_sub request tiles, the heat (when given).  Tile mode:
+// each replica's 12 words, 7 planes and request tile, replica by replica,
+// then the heat.
 struct Seg {
   const int32_t* src;
   int off, words;
@@ -430,13 +468,29 @@ struct Seg {
 // nq: the substeps of the launch (the kernel's NS, a constant 1 in mode 0)
 template <bool CL>
 __device__ __forceinline__ int n_segs(const GpStepArgs& a, int R, int nq) {
+#if GP_STEP_MODE == 3
+  return 20 * R + (a.heat_in != nullptr ? 1 : 0);
+#else
   return 19 + (CL ? 0 : 8 * R) + nq + (a.heat_in != nullptr ? 1 : 0);
+#endif
 }
 
 template <bool CL>
 __device__ __forceinline__ Seg input_seg(const GpStepArgs& a, const Layout& L, int nq, int i,
                                          int rep, long long t0, int n) {
   const long long G = a.G, GW = G * L.W, NB = 4 * G + 4 * GW;
+#if GP_STEP_MODE == 3
+  if (i < 20 * L.R) {
+    const int r = i / 20, l = i - 20 * r;
+    const int base = r * L.o_heat;  // replica r's block
+    if (l < 12) return {a.st_in[g1_leaf(l)] + r * G + t0, base + l * L.T, n};
+    if (l < 19)
+      return {a.st_in[gw_leaf(l - 12)] + r * GW + t0 * L.W, base + L.o_sw + (l - 12) * L.TW,
+              n * L.W};
+    return {a.req + ((long long)r * G + t0) * L.K, base + L.o_req, n * L.K};
+  }
+  return {a.heat_in + t0, L.R * L.o_heat, n};
+#endif
   if (i < 12) return {a.st_in[g1_leaf(i)] + rep * G + t0, i * L.T, n};
   if (i < 19)
     return {a.st_in[gw_leaf(i - 12)] + rep * GW + t0 * L.W, L.o_sw + (i - 12) * L.TW, n * L.W};
@@ -467,8 +521,12 @@ __device__ __forceinline__ void issue_item(const GpStepArgs& a, const Layout& L,
                                            int rep, long long t0, int n, int32_t* stage,
                                            uint64_t* bar, int tid, int nthr) {
   if (tid == 0) {
+#if GP_STEP_MODE == 3
+    const int per = L.R * (12 + 7 * L.W + L.K) + (a.heat_in != nullptr ? 1 : 0);
+#else
     const int per = 12 + 7 * L.W + (CL ? 0 : 4 * L.R * (1 + L.W)) + nq * L.K +
                     (a.heat_in != nullptr ? 1 : 0);
+#endif
     mbar_expect_tx(bar, (uint32_t)(4 * n * per));
   }
   const int ns = n_segs<CL>(a, L.R, nq);
@@ -521,7 +579,9 @@ __device__ __forceinline__ void store_staged(const GpStepArgs& a, const int32_t*
 // registers bounded for 3 CTAs an SM (80 a thread): at W <= 16 three ran
 // faster than four on an H100, and at W = 32 the two read within 2% of each
 // other, either way from one run to the next.  CL: the cluster mode (the
-// stacked face's N substeps, one CTA per replica of a tile).
+// stacked face's N substeps, one CTA per replica of a tile).  Mode 3, the
+// tile mode: the stacked face's one substep, one CTA per tile stepping its
+// R replicas in turn.
 template <int RC, int WC>
 __global__ void __launch_bounds__(GP_MAX_THREADS, 3)
     gp_step_kernel(const __grid_constant__ GpStepArgs a) {
@@ -529,7 +589,11 @@ __global__ void __launch_bounds__(GP_MAX_THREADS, 3)
   const int R = RC > 0 ? RC : a.R;
   const int W = WC > 0 ? WC : a.W;
   const int K = a.K, T = a.T;
+#if GP_STEP_MODE == 3
+  const int NS = 1;
+#else
   const int NS = GP_STEP_MODE == 0 ? 1 : a.n_sub;
+#endif
   constexpr int S = GP_RING;
   const Layout L(T, W, R, K, NS, CL);
   const int TW = L.TW;
@@ -551,10 +615,14 @@ __global__ void __launch_bounds__(GP_MAX_THREADS, 3)
   int32_t* sX = sV + TW;  // cluster mode: the 2 exchange buffers
   uint64_t* bars = reinterpret_cast<uint64_t*>(sX + L.xwords);
 
-  // work items fit an int (the launcher checks): a tile (packed, cluster)
-  // or a (tile, replica) pair (stacked grid)
+  // work items fit an int (the launcher checks): a tile (packed, cluster,
+  // tile mode) or a (tile, replica) pair (stacked grid)
   const int n_tiles = (int)((G + T - 1) / T);
+#if GP_STEP_MODE == 3
+  const int n_items = n_tiles;
+#else
   const int n_items = (a.stacked && !CL) ? n_tiles * R : n_tiles;
+#endif
   // this CTA's walk over the items; the R CTAs of a cluster walk their
   // cluster's tiles together, CTA rank r as replica r
   int first = blockIdx.x, stride = gridDim.x, crank = 0;
@@ -574,8 +642,13 @@ __global__ void __launch_bounds__(GP_MAX_THREADS, 3)
   __syncthreads();
   // the tile and replica of a work item (replica fastest on the grid)
   auto item_at = [&](int item, int& rep, long long& t0, int& n) {
+#if GP_STEP_MODE == 3
+    const int tile = item;
+    rep = 0;
+#else
     const int tile = (a.stacked && !CL) ? item / R : item;
     rep = CL ? crank : (a.stacked ? item - tile * R : 0);
+#endif
     t0 = (long long)tile * T;
     n = (int)(G - t0 < T ? G - t0 : T);
   };
@@ -591,9 +664,11 @@ __global__ void __launch_bounds__(GP_MAX_THREADS, 3)
   }
 
   // item k of this CTA uses stage s = k mod S in phase (k / S) mod 2, and
-  // output stage k mod 2; cluster mode: exchange c of the CTA (counted
-  // over its items: one at an item's start, one after each substep but the
-  // last) goes through buffer c mod 2
+  // output stage k mod 2 (tile mode: replica r of item k k * R + r mod 2,
+  // and the barrier after the encode keeps an item's first stage from its
+  // last item's); cluster mode: exchange c of the CTA (counted over its
+  // items: one at an item's start, one after each substep but the last)
+  // goes through buffer c mod 2
   int s = 0, k = 0;
   uint32_t phase_bit = 0, xc = 0;
   for (int item = first; item < n_items; item += stride, ++k) {
@@ -655,6 +730,41 @@ __global__ void __launch_bounds__(GP_MAX_THREADS, 3)
       }
       cluster_arrive();
     }
+#if GP_STEP_MODE == 3
+    {
+      // the tile's R blob rows, each encoded once from its replica's staged
+      // state as gp_make_blob encodes it, laid out as the stage's gathered
+      // rows (lanes past the last group read that group's rows once the
+      // barrier has passed)
+      if (valid) {
+        for (int r = 0; r < R; ++r) {
+          const int32_t* rs = st + r * L.o_heat;  // replica r's block
+          const int32_t* s1 = rs + gi;
+          const int32_t* sw = rs + L.o_sw + gi * W + j;
+          put4(sX + 4 * R * T + r * 4 * TW + gi * W + j, TW,
+               lane_words(kbits, s1[5 * T], s1[6 * T], s1[9 * T], sw[0], sw[TW], sw[2 * TW],
+                          sw[3 * TW], sw[4 * TW], sw[5 * TW], sw[6 * TW]));
+          if (j == 0)
+            put4(sX + r * 4 * T + gi, T,
+                 group_words(s1[4 * T], s1[5 * T], s1[6 * T], s1[9 * T], s1[10 * T]));
+        }
+      }
+      __syncthreads();
+    }
+    // the tile's R replicas in turn, each one substep in its own block of
+    // the stage, under the names the body reads (which keeps the item's
+    // indentation)
+    int32_t* const st_tile = st;
+    for (int rr = 0; rr < R; ++rr) {
+    int32_t* const st = st_tile + rr * L.o_heat;
+    rep = rr;
+    const int my_id = rr;
+    unsigned heard_bits = 0;
+#pragma unroll
+    for (int r = 0; r < R; ++r) heard_bits |= (a.heard[rr * R + r] != 0 ? 1u : 0u) << r;
+    const bool want0 = a.want[(long long)rr * G + g] != 0;
+    sO = sO2 + ((k * R + rr) & 1) * GP_NOUT * T;
+#endif
 
     // the substeps (their body keeps the item's indentation)
     for (int sub = 0; sub < NS; ++sub) {
@@ -675,10 +785,16 @@ __global__ void __launch_bounds__(GP_MAX_THREADS, 3)
     // ================= one (group, lane) of the tile =================
     const int32_t* s1 = st + gi;                       // [12][T]
     const int32_t* sw = st + L.o_sw + gi * W + j;      // [7][TW]
-    // the gathered rows: the stage's, or (cluster) this exchange's buffer
+    // the gathered rows: the stage's, or (cluster, tile mode) this
+    // exchange's buffer
     const int32_t* xcur = sX + (xc & 1) * L.xbuf;
+#if GP_STEP_MODE == 3
+    const int32_t* b1 = xcur + gi;                          // [R * 4][T]
+    const int32_t* bw = xcur + 4 * R * T + gi * W + j;      // [R * 4][TW]
+#else
     const int32_t* b1 = (CL ? xcur : st + L.o_b1) + gi;                // [R * 4][T]
     const int32_t* bw = (CL ? xcur + 4 * R * T : st + L.o_bw) + gi * W + j;  // [R * 4][TW]
+#endif
     const int32_t* rq = st + L.o_req + (sub * T + gi) * K;  // [K] of this substep
 #define S1(i) s1[(i) * T]
 #define SW(i) sw[(i) * TW]
@@ -1036,6 +1152,16 @@ __global__ void __launch_bounds__(GP_MAX_THREADS, 3)
       }
     }
     }  // substeps
+#if GP_STEP_MODE == 3
+    if (rr < R - 1) {
+      // this replica's [G] outputs are staged: store them while the next
+      // replica computes into the other output stage (the last replica's
+      // go below)
+      __syncthreads();
+      store_staged(a, sO, T, n, t0, rep, rep, bulk, 0, n_out, nb, tid, nthr);
+    }
+    }  // replicas
+#endif
 
     // the stage was written by this CTA's threads (substeps): order those
     // writes before the bulk copies that refill it
@@ -1133,7 +1259,11 @@ int choose_tile(const GpStepArgs& a, int sms) {
   const int t_small = t_min > 8 ? t_min : 8;
   const int threads = a.cluster ? GP_MAX_THREADS / 2 : GP_MAX_THREADS;
   int T = threads / W > t_min ? threads / W : t_min;
+#if GP_STEP_MODE == 3
+  const long long per_tile = 1;  // work items a tile
+#else
   const long long per_tile = a.stacked ? a.R : 1;
+#endif
   while (T > t_small && ((long long)a.G + T - 1) / T * per_tile < sms) T /= 2;
   while (T > t_min &&
          Layout(T, W, a.R, a.K, a.n_sub, a.cluster != 0).smem_bytes() > GP_MAX_SMEM)
@@ -1189,6 +1319,12 @@ int make_plan(GpStepArgs* a, Plan* p) {
   // mode 0 runs one substep; mode 1 is the packed face; a cluster (mode 2)
   // holds the R replicas of the stacked face
   if (GP_STEP_MODE == 0 && a->n_sub != 1) return (int)cudaErrorInvalidValue;
+#if GP_STEP_MODE == 3
+  // the tile mode: the stacked face's one substep, its rows made in the
+  // CTA (no gathered matrix) and no heat (a stacked face has none)
+  if (a->n_sub != 1 || !a->stacked || a->gathered || a->heat_in || a->heat_out)
+    return (int)cudaErrorInvalidValue;
+#endif
   if (GP_STEP_MODE == 1 && a->stacked) return (int)cudaErrorInvalidValue;
   if (cl && (!a->stacked || a->R > GP_MAX_CLUSTER)) return (int)cudaErrorInvalidValue;
   int dev = 0;
@@ -1214,7 +1350,11 @@ int make_plan(GpStepArgs* a, Plan* p) {
   a->aligned = al ? 1 : 0;
   p->threads = a->T * W;
   const long long n_tiles = ((long long)a->G + a->T - 1) / a->T;
+#if GP_STEP_MODE == 3
+  p->n_items = n_tiles;
+#else
   p->n_items = (a->stacked && !cl) ? n_tiles * a->R : n_tiles;
+#endif
   if (p->n_items * (cl ? a->R : 1) > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   // the cap is raised once to the most a block may use: a launch asks for
   // what its tile needs, and the cap does not change the CTAs an SM holds

@@ -4,10 +4,11 @@ Three sources, each with a plain C interface (no PyTorch headers), so
 each builds with ``nvcc`` in seconds:
 
 * ``csrc/gp_step.cu``: ``gp_step`` and ``gp_make_blob`` (the engine).  It
-  builds three times, one library a mode (``GP_STEP_MODE``): ``gp_step``
+  builds four times, one library a mode (``GP_STEP_MODE``): ``gp_step``
   (one substep, and ``gp_make_blob``), ``gp_step_n`` (the packed face's N
-  substeps in one launch) and ``gp_step_cluster`` (the stacked face's N
-  substeps over clusters of R CTAs);
+  substeps in one launch), ``gp_step_cluster`` (the stacked face's N
+  substeps over clusters of R CTAs) and ``gp_step_tile`` (the stacked
+  face's one substep, each CTA stepping every replica of its tile);
 * ``csrc/gp_lifecycle.cu``: the group-lifecycle row ops (create, kill,
   jump, restore_paused, restore_rows, extract_rows);
 * ``csrc/gp_pack_rows.cu``: ``gp_pack_rows``, the gathered blobs' row
@@ -58,12 +59,14 @@ SOURCES = {
     "gp_step": os.path.join(_PKG, "csrc", "gp_step.cu"),
     "gp_step_n": os.path.join(_PKG, "csrc", "gp_step.cu"),
     "gp_step_cluster": os.path.join(_PKG, "csrc", "gp_step.cu"),
+    "gp_step_tile": os.path.join(_PKG, "csrc", "gp_step.cu"),
     "gp_lifecycle": os.path.join(_PKG, "csrc", "gp_lifecycle.cu"),
     "gp_pack_rows": os.path.join(_PKG, "csrc", "gp_pack_rows.cu"),
 }
 # each library's mode of its source (csrc/gp_step.cu's GP_STEP_MODE)
-DEFINES = {"gp_step_n": ["-DGP_STEP_MODE=1"], "gp_step_cluster": ["-DGP_STEP_MODE=2"]}
-_STEP_LIBS = ("gp_step", "gp_step_n", "gp_step_cluster")
+DEFINES = {"gp_step_n": ["-DGP_STEP_MODE=1"], "gp_step_cluster": ["-DGP_STEP_MODE=2"],
+           "gp_step_tile": ["-DGP_STEP_MODE=3"]}
+_STEP_LIBS = ("gp_step", "gp_step_n", "gp_step_cluster", "gp_step_tile")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -73,7 +76,8 @@ _NLEAF = len(EngineState._fields)
 _NBLOB = len(Blob._fields)
 _MAX_W = 32
 # the portable thread-block cluster size: the most replicas one cluster of
-# the stacked N-substep launch holds (csrc/gp_step.cu GP_MAX_CLUSTER)
+# the stacked N-substep launch holds (csrc/gp_step.cu GP_MAX_CLUSTER), and
+# the most the stacked face's one-launch route takes at N = 1
 MAX_CLUSTER = 8
 
 _lock = threading.Lock()
@@ -309,7 +313,7 @@ STEP_PLAN_KEYS = ("instance", "T", "threads", "smem_bytes", "ctas_per_sm", "grid
 
 
 def step_launch_plan(cfg: EngineConfig, stacked: bool = False, n_sub: int = 1,
-                     cluster: bool = False) -> dict:
+                     cluster: bool = False, tile: bool = False) -> dict:
     """The plan ``gp_step_launch`` makes for ``cfg`` on the current card,
     for 16-byte aligned tensors (the caching allocator's): the
     instantiation (R * 100 + W, 0 = generic), the groups per tile, the
@@ -317,14 +321,17 @@ def step_launch_plan(cfg: EngineConfig, stacked: bool = False, n_sub: int = 1,
     (CTAs), bulk copies or plain loads, and the work items.  ``n_sub``
     substeps in one launch (the packed face's :func:`step_n`, or with
     ``cluster`` the stacked face's :func:`step_cluster`); a cluster plan
-    also names its ``cluster`` size (R CTAs, one tile a cluster)."""
+    also names its ``cluster`` size (R CTAs, one tile a cluster).
+    ``tile``: the stacked step with one CTA a tile stepping its R replicas
+    (:func:`step_stacked` without a blob matrix)."""
     _check_cfg(cfg)
     a = _StepArgs()
     a.G, a.W, a.K, a.R = cfg.n_groups, cfg.window, cfg.req_lanes, cfg.n_replicas
-    a.stacked = int(stacked or cluster)
+    a.stacked = int(stacked or cluster or tile)
     a.n_sub, a.cluster = int(n_sub), int(cluster)
     got = (ctypes.c_longlong * len(STEP_PLAN_KEYS))()
-    name = "gp_step_cluster" if cluster else ("gp_step_n" if n_sub > 1 else "gp_step")
+    name = ("gp_step_cluster" if cluster else "gp_step_tile" if tile
+            else "gp_step_n" if n_sub > 1 else "gp_step")
     rc = lib(name).gp_step_launch_info(ctypes.addressof(a), ctypes.addressof(got))
     if rc != 0:
         raise RuntimeError(f"gp_step_launch_info failed: cudaError {rc}")
@@ -336,15 +343,17 @@ def step_launch_plan(cfg: EngineConfig, stacked: bool = False, n_sub: int = 1,
 
 def stacked_route(cfg: EngineConfig, n_steps: int) -> str:
     """How the stacked face runs ``n_steps`` substeps on the card, by shape
-    alone: ``"cluster"`` (one :func:`step_cluster` launch, the replicas
-    exchanging blobs in their cluster's shared memory) for N > 1 and R up
-    to :data:`MAX_CLUSTER`, the portable cluster size; ``"launches"`` (a
+    alone, for R up to :data:`MAX_CLUSTER`: ``"cluster"`` at N > 1 (one
+    :func:`step_cluster` launch, the replicas exchanging blobs in their
+    cluster's shared memory), ``"tile"`` at N = 1 (one stacked ``gp_step``
+    launch, each CTA stepping the R replicas of its tile from blob rows it
+    encodes in its shared memory); for more replicas, ``"launches"`` (a
     ``gp_make_blob`` and N stacked ``gp_step`` launches through a blob
-    matrix in device memory) for N = 1 and for more replicas than a
-    cluster holds."""
-    if n_steps > 1 and cfg.n_replicas <= MAX_CLUSTER:
-        return "cluster"
-    return "launches"
+    matrix in device memory).  No route but ``"launches"`` writes a blob
+    matrix."""
+    if cfg.n_replicas > MAX_CLUSTER:
+        return "launches"
+    return "cluster" if n_steps > 1 else "tile"
 
 
 def step(state: EngineState, gvec: torch.Tensor, heard: torch.Tensor,
@@ -522,17 +531,21 @@ def step_cluster(states: EngineState, heard: torch.Tensor, req_vid: torch.Tensor
     return out_states, out_mat
 
 
-def step_stacked(states: EngineState, blobs: torch.Tensor, heard: torch.Tensor,
-                 req_vid: torch.Tensor, want_coord: torch.Tensor,
-                 cfg: EngineConfig, *, out_states: Optional[EngineState] = None,
+def step_stacked(states: EngineState, blobs: Optional[torch.Tensor],
+                 heard: torch.Tensor, req_vid: torch.Tensor,
+                 want_coord: torch.Tensor, cfg: EngineConfig, *,
+                 out_states: Optional[EngineState] = None,
                  out_blobs: Optional[torch.Tensor] = None,
                  out_mat: Optional[torch.Tensor] = None,
                  launch_log: Optional[dict] = None):
     """One ``gp_step`` launch for ALL R replicas (work items (tile,
     replica), the replica fastest): stacked ``[R, G, ...]`` states, the
     ``[R, NB]`` blob matrix as the gather, ``heard [R, R]``, ``req [R, G,
-    K]``, ``want [R, G]``.  Returns (states', out matrix [R, M], blobs'
-    [R, NB] or None).  ``launch_log``: as :func:`step`'s."""
+    K]``, ``want [R, G]``.  ``blobs=None`` (R up to :data:`MAX_CLUSTER`):
+    no matrix; one CTA a tile steps its R replicas from blob rows it
+    encodes in shared memory, as ``gp_make_blob`` would (``gp_step_tile``).
+    Returns (states', out matrix [R, M], blobs' [R, NB] or None).
+    ``launch_log``: as :func:`step`'s."""
     _check_cfg(cfg)
     G, W, K, R = cfg.n_groups, cfg.window, cfg.req_lanes, cfg.n_replicas
     dev = states.bal.device
@@ -546,7 +559,11 @@ def step_stacked(states: EngineState, blobs: torch.Tensor, heard: torch.Tensor,
     if set(a.st_in) & set(a.st_out):
         raise ValueError("out_states alias the input states")
     NB = blob_vec_len(cfg)
-    a.gathered = _check(blobs, "blobs", (R, NB), torch.int32, dev)
+    if blobs is None:
+        if R > MAX_CLUSTER:
+            raise ValueError(f"gp_step_tile: R={R} replicas, at most {MAX_CLUSTER}")
+    else:
+        a.gathered = _check(blobs, "blobs", (R, NB), torch.int32, dev)
     heard = _bytes(heard)
     a.heard = _check(heard, "heard", (R, R), torch.uint8, dev)
     a.req = _check(req_vid, "req_vid", (R, G, K), torch.int32, dev)
@@ -562,7 +579,7 @@ def step_stacked(states: EngineState, blobs: torch.Tensor, heard: torch.Tensor,
             raise ValueError("out_blobs aliases the gathered blobs")
     a.G, a.W, a.K, a.R, a.my_id, a.stacked = G, W, K, R, 0, 1
     a.n_sub, a.cluster = 1, 0
-    _launch(lib().gp_step_launch, a)
+    _launch(lib("gp_step_tile" if blobs is None else "gp_step").gp_step_launch, a)
     _count("gp_step", launch_log)
     return out_states, out_mat, out_blobs
 

@@ -8,13 +8,15 @@ ONE factory — :func:`make_step` — builds both execution faces of
   N > 1), outputs :class:`StepOutputs` of ``[R, ...]`` (``[N, R, ...]``)
   leaves.  Every replica advances each substep and the blob exchange is
   re-read from the advancing states, so N stacked substeps are exactly N
-  sequential stacked calls.  On the card N > 1 substeps are ONE
-  ``gp_step_cluster`` launch for R up to 8 (a cluster of R CTAs per
-  group tile, the replicas' blobs exchanged in the cluster's shared
-  memory); N = 1, and R above the portable cluster size of 8, take a
-  ``gp_make_blob`` and one ``gp_step`` launch per substep over an (R x
-  group-tile) grid, exchanging through a double-buffered ``[R, NB]`` blob
-  matrix (:func:`gigapaxos_tpu_torch.ops.gp_kernels.stacked_route`).
+  sequential stacked calls.  On the card a call is ONE launch for R up
+  to 8, with no blob matrix: at N > 1 ``gp_step_cluster`` (a cluster of
+  R CTAs per group tile, the replicas' blobs exchanged in the cluster's
+  shared memory), at N = 1 a stacked ``gp_step`` with one CTA per group
+  tile, which encodes the tile's R blob rows in its shared memory and
+  steps the R replicas in turn.  R above the portable cluster size of 8
+  takes a ``gp_make_blob`` and one ``gp_step`` launch per substep over an
+  (R x group-tile) grid, exchanging through a double-buffered ``[R, NB]``
+  blob matrix (:func:`gigapaxos_tpu_torch.ops.gp_kernels.stacked_route`).
 
 * ``io="packed_host"`` — the deployed-runtime face (one replica's state,
   peers' blobs arriving as the packed ``[R, NB]`` gathered matrix == the
@@ -41,9 +43,9 @@ it.  The stacked face takes a ``mesh``:
 * ``None``: one device;
 * a ``('g',)`` mesh (``make_group_mesh``): the state is split over G,
   every shard holding all R replica rows, and each shard runs the stacked
-  face above on its own device (N > 1 with R <= 8: one
-  ``gp_step_cluster``; else one ``gp_make_blob`` and one stacked
-  ``gp_step`` per substep); no exchange, no host sync between shards;
+  face above on its own device (R <= 8: one launch a call; else one
+  ``gp_make_blob`` and one stacked ``gp_step`` per substep); no exchange,
+  no host sync between shards;
 * a ``(g, r)`` mesh (``make_mesh``): device (gi, ri) holds replica ri's
   rows of g-shard gi.  Each substep every device's compact blob
   (``gp_make_blob`` at substep 0, then ``gp_step``'s fresh blob, written
@@ -151,17 +153,21 @@ class _StackedStep:
 
         self.cfg, self.n_steps, self.device = cfg, n_steps, device
         # the kernel path's route, by shape alone (never because a build or
-        # launch failed): a cluster holds the R replicas of a tile for N > 1
-        # substeps while R fits the portable cluster size; else N launches
+        # launch failed): while R fits the portable cluster size, one launch
+        # a call (a cluster holds the R replicas of a tile for N > 1
+        # substeps, one CTA at N = 1); else a blob launch and N step
+        # launches
         self.route = gp_kernels.stacked_route(cfg, n_steps)
         if _engine.on_card(device):
             from ..obs.gplog import get_logger
 
             get_logger("engine").info(
-                "stacked face N=%d R=%d on %s: %s", n_steps, cfg.n_replicas,
-                device, "one gp_step_cluster launch a dispatch"
-                if self.route == "cluster" else
-                "gp_make_blob and N gp_step launches a dispatch")
+                "stacked face N=%d R=%d on %s: %s", n_steps, cfg.n_replicas, device, {
+                    "cluster": "one gp_step_cluster launch a dispatch",
+                    "tile": "one gp_step launch a dispatch, a CTA a tile of R replicas "
+                            "(no gp_make_blob, no blob matrix)",
+                    "launches": "gp_make_blob and N gp_step launches a dispatch",
+                }[self.route])
 
     def _outs(self, mat: torch.Tensor) -> StepOutputs:
         """[..., R, M] out matrix -> StepOutputs of [..., R, ...] leaves."""
@@ -230,7 +236,9 @@ class _StackedStep:
             st, mat = gp_kernels.step_cluster(states, h, req, want, cfg,
                                               out_mat=mat, launch_log=launch_log)
             return st, self._outs(mat)
-        blobs = gp_kernels.make_blob_rows(states, R, launch_log)
+        # "tile" (N = 1): the step encodes the rows itself, no matrix
+        blobs = (None if self.route == "tile" else
+                 gp_kernels.make_blob_rows(states, R, launch_log))
         blobs_next = torch.empty_like(blobs) if N > 1 else None
         st = states
         for i in range(N):

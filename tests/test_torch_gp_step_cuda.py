@@ -12,11 +12,15 @@ last tile);
 the N-substep modes at every shape and G with N in {2, 8}, and at the
 server shape's G=65,536 (three tiles and more a CTA): the packed face's
 dispatch as one ``gp_step_n`` launch and the stacked face's as one
-``gp_step_cluster`` launch, against the plain faces; the launcher's plan
-at the paths' shapes, the stacked route by shape (a cluster for R <= 8, N
-launches beyond), its refusals, and one instantiation launched at two
-tiles from two threads; and a SimCluster on the card in lock step with
-one on the CPU.
+``gp_step_cluster`` launch, against the plain faces; the stacked face at
+N = 1 as one stacked ``gp_step`` launch with a CTA a tile, which encodes
+the tile's blob rows in shared memory (``gp_step_tile``), at every shape
+(and R=8) and G, against the two-launch route it replaced
+(``gp_make_blob`` and a stacked ``gp_step`` through the blob matrix) and
+the plain face; the launcher's plan at the paths' shapes, the stacked
+route by shape (a cluster for R <= 8, N launches beyond), its refusals,
+and one instantiation launched at two tiles from two threads; and a
+SimCluster on the card in lock step with one on the CPU.
 
 A CUDA kernel has no CPU mode: every test here skips without a card.
 This file imports nothing of JAX, so it also runs where JAX is absent
@@ -280,6 +284,82 @@ def test_stacked_route_picks_a_cluster_up_to_8_replicas(R):
         with pytest.raises(ValueError):
             gp_kernels.step_cluster(states, torch.ones((R, R), dtype=torch.bool,
                                                        device="cuda"), req, want, cfg)
+
+
+# every shape, and the generic instantiation at the largest cluster (R=8)
+N1_SHAPES = SHAPES + [(8, 8, 8)]
+
+
+@pytest.mark.parametrize("G", GS)
+@pytest.mark.parametrize("W,R,K", N1_SHAPES)
+def test_stacked_n1_one_launch_matches_two_launch_route(W, R, K, G):
+    """The stacked face at N = 1: one stacked gp_step launch, a CTA a tile
+    stepping its R replicas from blob rows it encodes in shared memory (no
+    gp_make_blob, no blob matrix), with want pulses and stop requests,
+    every replica hearing all and then none hearing one replica, bit for
+    bit against the two-launch route it replaced (gp_make_blob and a
+    stacked gp_step through the [R, NB] matrix) and against the plain
+    face."""
+    _need_card()
+    from gigapaxos_tpu_torch.ops import gp_kernels
+    from gigapaxos_tpu_torch.parallel.spmd import make_step, stack_states
+
+    cfg = te.EngineConfig(G, W, K, R)
+    rng = np.random.default_rng(W * 23 + R + G)
+    fn = make_step(cfg, None, 1, donate=False, io="stacked", device="cuda")
+    assert fn.route == "tile"
+    plan = gp_kernels.step_launch_plan(cfg, tile=True)
+    assert plan["n_items"] == -(-G // plan["T"]) and 1 <= plan["grid"] <= plan["n_items"], plan
+    me = _random_state(rng, W, R, G=G)
+    states = stack_states([_dev(_random_state(rng, W, R, near=me, G=G))
+                           for _ in range(R)])
+    req = np.where(rng.random((R, G, K)) < 0.6, rng.integers(1, 100, (R, G, K)), NULL)
+    req = np.where(rng.random((R, G, K)) < 0.05, req | (1 << 30), req)
+    req = torch.as_tensor(req.astype(np.int32), device="cuda")
+    want = torch.as_tensor(rng.random((R, G)) < 0.3, device="cuda")
+    dropped = torch.ones((R, R), dtype=torch.bool, device="cuda")
+    dropped[:, int(rng.integers(0, R))] = False
+    dropped |= torch.eye(R, dtype=torch.bool, device="cuda")   # as the face forces
+    for heard in (None, dropped):
+        te.reset_launch_counts()
+        k_st, k_o = fn(states, req, want, heard)
+        assert (te.LAUNCHES["gp_step_cluster"], te.LAUNCHES["gp_step"],
+                te.LAUNCHES["gp_make_blob"]) == (0, 1, 0)
+        h = torch.ones((R, R), dtype=torch.bool, device="cuda") if heard is None else heard
+        o_st, o_mat, _ = gp_kernels.step_stacked(
+            states, gp_kernels.make_blob_rows(states, R), h, req, want, cfg)
+        p_st, p_o = fn.plain(states, req, want, heard)
+        torch.cuda.synchronize()
+        _eq(k_st, o_st, "states' against two launches")
+        _eq(k_st, p_st, "states' against plain")
+        _eq(k_o, p_o, "outs against plain")
+        for r in range(R):
+            k_row = te.pack_out(te.StepOutputs(*(x[r] for x in k_o)))
+            assert torch.equal(k_row, o_mat[r]), r
+
+
+@pytest.mark.parametrize("field,value", [("n_sub", 2), ("gathered", 256), ("stacked", 0),
+                                         ("cluster", 1)])
+def test_tile_build_refuses_other_launches(field, value):
+    """The tile build (gp_step_tile) plans the stacked face's one substep
+    with a CTA a tile, and refuses N > 1, a launch that reads a blob
+    matrix, the packed face and clusters."""
+    _need_card()
+    import ctypes
+
+    from gigapaxos_tpu_torch.ops import gp_kernels
+
+    def info(**kw):
+        a = gp_kernels._StepArgs()
+        a.G, a.W, a.K, a.R, a.n_sub, a.stacked = 301, 8, 4, 3, 1, 1
+        for k, v in kw.items():
+            setattr(a, k, v)
+        got = (ctypes.c_longlong * len(gp_kernels.STEP_PLAN_KEYS))()
+        return gp_kernels.lib("gp_step_tile").gp_step_launch_info(
+            ctypes.addressof(a), ctypes.addressof(got))
+
+    assert info() == 0
+    assert info(**{field: value}) != 0
 
 
 # (G, W, K, R, stacked) -> (instantiation, groups per tile)

@@ -821,14 +821,16 @@ def test_stacked_dispatch_n8_matches_jax(monkeypatch, path):
 
 
 def test_stacked_route_by_shape():
-    """The stacked face's kernel route depends on the shape alone: one
-    cluster launch for N > 1 while the R replicas fit the portable
-    cluster size of 8, a blob launch and N step launches otherwise."""
+    """The stacked face's kernel route depends on the shape alone: while
+    the R replicas fit the portable cluster size of 8, one launch a call
+    (a cluster launch for N > 1, at N = 1 a step with a CTA a tile of R
+    replicas), a blob launch and N step launches otherwise."""
     route = lambda n, r: gp_kernels.stacked_route(TConfig(64, 8, 4, r), n)
     assert [route(8, r) for r in (1, 3, 5, 7, 8)] == ["cluster"] * 5
     assert [route(8, r) for r in (9, 16, 32)] == ["launches"] * 3
-    assert [route(1, r) for r in (1, 3, 8, 9)] == ["launches"] * 4
+    assert [route(1, r) for r in (1, 3, 8, 9)] == ["tile"] * 3 + ["launches"]
     assert tspmd.make_step(TConfig(64, 8, 4, 3), None, 2, device="cpu").route == "cluster"
+    assert tspmd.make_step(TConfig(64, 8, 4, 3), None, 1, device="cpu").route == "tile"
 
 
 def _multistep_body(c):

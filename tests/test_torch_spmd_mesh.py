@@ -10,10 +10,10 @@
   CUDA kernels here: the kernel wrappers replaced by the plain emulations
   of ``tests/test_torch_spmd.py`` (``_emulate_kernels``), the mesh faces
   must give the plain path's results, with each logical device's own
-  launch counts: on ``('g',)`` one ``gp_step_cluster`` per shard a call
-  at N > 1, one ``gp_make_blob`` and one stacked ``gp_step`` at N = 1; on
-  ``(g, r)`` one ``gp_make_blob`` per device, then one ``gp_step`` per
-  device per substep.
+  launch counts: on ``('g',)`` one launch per shard a call and no
+  ``gp_make_blob`` (``gp_step_cluster`` at N > 1, a stacked ``gp_step``
+  at N = 1); on ``(g, r)`` one ``gp_make_blob`` per device, then one
+  ``gp_step`` per device per substep.
 """
 
 import jax.numpy as jnp
@@ -163,12 +163,12 @@ def test_mesh_kernel_orchestration_matches_plain(monkeypatch, mesh_key, n):
     for a, b in zip(snap, states):
         assert torch.equal(a, b)
     calls, n_dev = 3, mesh.size
-    if n > 1 and "r" not in mesh.axis_names:
-        # each ('g',) shard runs the stacked face: one cluster launch a call
-        per_dev = {"gp_step_cluster": calls}
+    if "r" not in mesh.axis_names:
+        # each ('g',) shard runs the stacked face: one launch a call
+        per_dev = {"gp_step_cluster" if n > 1 else "gp_step": calls}
     else:
-        # N = 1, and the (g, r) face, which exchanges between devices
-        # every substep: a blob launch and N step launches a device
+        # the (g, r) face, which exchanges between devices every substep:
+        # a blob launch and N step launches a device
         per_dev = {"gp_make_blob": calls, "gp_step": calls * n}
     assert fn.launches == {idx: per_dev for idx in np.ndindex(*mesh.devices.shape)}
     for k, v in per_dev.items():
