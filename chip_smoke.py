@@ -2053,6 +2053,16 @@ def phase_headline(diff: Diff, device, bw: float, results: str) -> dict:
     ms_blob = cuda_ms(lambda: gp_kernels.make_blob_rows(states, R),
                       TIMING_ITERS) / R
     plain_ms = cuda_ms(lambda: step_fn.plain(states, req, no_want), 2) / R
+    # the route the stacked face takes at N = 1 (one gp_step_tile launch),
+    # and the chain its app-hash fold runs: the mean n_committed of a
+    # member (replica, group) step of this state
+    tile_step = lambda: gp_kernels.step_stacked(
+        states, None, hm, req, no_want, cfg, out_states=out_st, out_mat=out_mat)
+    ms_tile = graph_ms(tile_step, calls=5, reps=4) / R
+    tile_step()
+    member = (states.member_mask >> torch.arange(R, device=device)[:, None]) & 1 == 1
+    n_comm = te.unpack_out(out_mat, cfg).n_committed
+    fold_chain = float(n_comm[member].double().mean()) if bool(member.any()) else 0.0
     # a quiet state beside the steady one: 20 steps with no request
     # offered, so nothing is decided or admitted and the execute and
     # admission rounds have nothing to take
@@ -2073,12 +2083,18 @@ def phase_headline(diff: Diff, device, bw: float, results: str) -> dict:
         f"quiet state {ms_quiet:.6g} ms); bound {bound:.6g} ms ({nbytes} B per "
         f"replica-step at {bw:.3g} B/s), plain {plain_ms:.6g} ms; plan "
         f"{plan_str(plan)}; peak device memory {peak} B")
+    log(f"headline gp_step_tile: {ms_tile:.6g} ms per replica-step on the device, "
+        f"{100 * bound / ms_tile:.4g}% of the bound; mean n_committed a member "
+        f"(replica, group) step {fold_chain:.6g} (the hash fold's chain)")
     del states, blobs, out_st, out_mat, out_bl, load, step_fn, req, no_want, no_req
+    del tile_step, member, n_comm
     torch.cuda.empty_cache()
     return {
         "arms": arms, "ms_per_replica_step": ms_step,
         "ms_per_replica_step_events": ms_events, "ms_quiet": ms_quiet,
         "share": bound / ms_step, "plan": plan,
+        "ms_per_replica_step_tile": ms_tile, "tile_share": bound / ms_tile,
+        "mean_n_committed_member": fold_chain,
         "ms_per_replica_step_fresh": ms_fresh, "bound_ms": bound,
         "plain_ms": plain_ms, "make_blob_ms": ms_blob,
         "make_blob_bound_ms": blob_bytes(G, W) / bw * 1e3,

@@ -84,13 +84,22 @@
 //     design at N = 1; a cluster barrier every tile held each CTA to its
 //     slowest peer), and a CTA a (tile, replica) encoding all R rows from
 //     its peers' states read through L2 (R encodes a step where one
-//     does).
+//     does).  The app hash of each (replica, group) is folded once, after
+//     the tile's R steps, by one thread a chain (fold_hashes; the R x T
+//     chains of a W = 32 tile fill one warp): a replica's step leaves the
+//     values it committed in a shared-memory row and its two counts come
+//     from ballots, so no warp runs the serial fold in lockstep for each
+//     replica of every group.
 //   * Execute: each lane marks the offset of its decided slot from the
 //     frontier in a warp-wide OR; when no two lanes of a segment mark one
 //     offset (always so under the ring convention) the frontier advance is
 //     the mask's trailing ones and the hash folds over a shared-memory row,
 //     with no votes.  A segment with a collision (a state off the ring
-//     convention) runs the exact W-round loop.  Admission is exact in O(1):
+//     convention) runs the exact W-round loop.  The hash, a chain in which
+//     each value waits on the last, is the one serial part: modes 0-2 fold
+//     it in the step, on every lane of the segment; the tile mode counts
+//     with ballots (lane j < n_adv holds offset j's value) and folds it
+//     after the tile's steps.  Admission is exact in O(1):
 //     lane j can only take request k = (j - c_next) mod W, so each lane
 //     tests its own k and two ballots give the admitted prefix.
 //   * N substeps in one launch (n_sub > 1).  N launches would read and
@@ -228,7 +237,9 @@ __host__ __device__ __forceinline__ int gw_leaf(int i) { return i < 5 ? 7 + i : 
 // [12][T] state words | [7][T*W] state planes | [T][K] requests; then [T]
 // heat;
 // then, once per CTA: 2 x [23][T] staged [G] outputs (one item stores from
-// one while the next computes into the other) | [T][W] execute scratch |
+// one while the next computes into the other) | [T][W] execute scratch
+// (tile mode: the hash fold's inputs, [R][T] rows of W + 1 words, then
+// [R][T] n_committed and [R][T] app_hash as loaded) |
 // cluster mode: 2 exchange buffers, each the R replicas' blob rows laid out
 // as the stage's gathered rows ([R][4][T] words | [R][4][T*W] lane planes);
 // tile mode: one such buffer, the rows the CTA encodes | GP_RING mbarriers.
@@ -255,9 +266,20 @@ struct Layout {
 #endif
   }
   __host__ __device__ long long smem_bytes() const {
+#if GP_STEP_MODE == 3
+    return 4LL * ((long long)GP_RING * stage + 2 * GP_NOUT * T + fold_words() + xwords) +
+           8LL * GP_RING;
+#else
     return 4LL * ((long long)GP_RING * stage + 2 * GP_NOUT * T + TW + xwords) +
            8LL * GP_RING;
+#endif
   }
+#if GP_STEP_MODE == 3
+  // the tile mode's execute scratch: R * T rows of W + 1 words (the pad
+  // puts the lanes of the fold, one row each, on distinct banks), then
+  // the R * T counts and the R * T hashes
+  __host__ __device__ int fold_words() const { return R * T * (W + 3); }
+#endif
 };
 
 __device__ __forceinline__ int32_t add32(int32_t a, int32_t b) {
@@ -576,6 +598,59 @@ __device__ __forceinline__ void store_staged(const GpStepArgs& a, const int32_t*
   }
 }
 
+#if GP_STEP_MODE == 3
+// Tile mode: store_staged of replica rep's [G] outputs but the app hash
+// (state word 7, out word 16), which fold_hashes stores; the launch has no
+// heat, so the n_out - 2 words are 0-6, 8-15 and 17 up
+__device__ __forceinline__ void store_unhashed(const GpStepArgs& a, const int32_t* sO, int T,
+                                               int n, long long t0, int rep, bool bulk,
+                                               int n_out, int tid, int nthr) {
+  const int cnt = n_out - 2;
+  if (bulk) {
+    const int n4 = n >> 2;
+    for (int e = tid; e < cnt * n4; e += nthr) {
+      const int i = e / n4, q = e - i * n4;
+      const int w = i + (i >= 7 ? 1 : 0) + (i >= 15 ? 1 : 0);
+      reinterpret_cast<int4*>(out_dst(a, w, rep, rep) + t0)[q] =
+          reinterpret_cast<const int4*>(sO + w * T)[q];
+    }
+  } else {
+    for (int e = tid; e < cnt * n; e += nthr) {
+      const int i = e / n, q = e - i * n;
+      const int w = i + (i >= 7 ? 1 : 0) + (i >= 15 ? 1 : 0);
+      out_dst(a, w, rep, rep)[t0 + q] = sO[w * T + q];
+    }
+  }
+}
+
+// Tile mode: the app hash of each (replica, group) of a tile (n groups at
+// t0), folded over the values its step committed and stored as state word
+// 7 and out word 16.  Chain c = r * T + gi (replica r, group gi) reads
+// fold row c (W + 1 words), its count and its loaded hash; thread
+// nthr - 1 - c takes it, so the R * T chains fill the last warps' lanes
+// and each word goes out as R runs of the tile's groups.
+__device__ __forceinline__ void fold_hashes(const GpStepArgs& a, const Layout& L,
+                                            const int32_t* sV, int n, long long t0, int tid,
+                                            int nthr) {
+  const int T = L.T, W = L.W, RT = L.R * T;
+  const long long G = a.G, M = 6 * G + 3 * G * W;
+  const int32_t* sN = sV + RT * (W + 1);
+  for (int c = nthr - 1 - tid; c < RT; c += nthr) {
+    const int r = c / T, gi = c - r * T;
+    if (gi >= n) continue;
+    const int32_t* row = sV + c * (W + 1);
+    const int nc = sN[c];
+    int32_t h = sN[RT + c];
+    for (int o = 0; o < nc; ++o) {
+      const int32_t v = row[o];
+      if (v > 0) h = mix32(h, v);
+    }
+    a.st_out[L_APP_HASH][r * G + t0 + gi] = h;
+    a.out_vec[r * M + 4 * G + G * W + t0 + gi] = h;
+  }
+}
+#endif
+
 // registers bounded for 3 CTAs an SM (80 a thread): at W <= 16 three ran
 // faster than four on an H100, and at W = 32 the two read within 2% of each
 // other, either way from one run to the next.  CL: the cluster mode (the
@@ -612,7 +687,11 @@ __global__ void __launch_bounds__(GP_MAX_THREADS, 3)
   extern __shared__ __align__(16) int32_t smem[];
   int32_t* sO2 = smem + S * L.stage;
   int32_t* sV = sO2 + 2 * GP_NOUT * T;
+#if GP_STEP_MODE == 3
+  int32_t* sX = sV + L.fold_words();  // the tile's encoded rows
+#else
   int32_t* sX = sV + TW;  // cluster mode: the 2 exchange buffers
+#endif
   uint64_t* bars = reinterpret_cast<uint64_t*>(sX + L.xwords);
 
   // work items fit an int (the launcher checks): a tile (packed, cluster,
@@ -877,6 +956,56 @@ __global__ void __launch_bounds__(GP_MAX_THREADS, 3)
                                  : dec_vid0;
     const int32_t dec_slot = have ? best : dec_slot0;
 
+#if GP_STEP_MODE == 3
+    // ---- 4. execute: advance the in-order frontier.  Lane j < n_adv holds
+    // the value at offset j, so the counts are ballots; the hash, the one
+    // serial part, is folded from this replica's row after the tile's R
+    // steps (fold_hashes) ----
+    int32_t n_adv = 0;
+    bool my_run = false;
+    int32_t my_vid_at = NULLV;
+    int32_t* const vrow = sV + (rr * T + gi_raw) * (W + 1);
+    {
+      // the offset of my decided slot from the frontier, if inside the ring
+      const int32_t d_off = sub32(dec_slot, exec0);
+      const bool match = (uint32_t)d_off < (uint32_t)W;
+      const unsigned hits =
+          (__reduce_or_sync(FULL, match ? 1u << (segbase + d_off) : 0u) >> segbase) & wmask;
+      const int n_lanes = __popc(__ballot_sync(FULL, match) & segmask);
+      // two lanes of my segment on one offset: only off the ring convention
+      const bool collide = n_lanes != __popc(hits);
+      // the value the exact loop takes at my offset: the max over the
+      // segment, where every other lane gives NULL
+      if (match && !collide) vrow[d_off] = W > 1 ? imax(dec_vid, NULLV) : dec_vid;
+      __syncwarp();
+      if (!collide) {
+        n_adv = ones_tail(hits);
+        my_run = j < n_adv;
+        if (my_run) my_vid_at = vrow[j];
+      }
+      if (__any_sync(FULL, collide)) {
+        // the exact loop, for the segments with a collision; the row
+        // records the values it takes, for the fold
+        bool run_prev = collide;
+        for (int o = 0; o < W; ++o) {
+          if (!__any_sync(FULL, run_prev)) break;
+          const int32_t slot_o = add32(exec0, o);
+          const bool eq = dec_slot == slot_o;
+          const bool hit = (__ballot_sync(FULL, eq) & segmask) != 0;
+          const int32_t v = __reduce_max_sync(segmask, eq ? dec_vid : NULLV);
+          const bool take = run_prev && hit;
+          n_adv += take ? 1 : 0;
+          if (collide && j == o) { my_run = take; my_vid_at = v; }
+          run_prev = take;
+        }
+        if (collide && my_run) vrow[j] = my_vid_at;
+      }
+    }
+    const int32_t n_execd =
+        add32(n_execd0, __popc(__ballot_sync(FULL, my_run && my_vid_at > 0) & segmask));
+    const bool stop_seen =
+        (__ballot_sync(FULL, my_run && (my_vid_at & STOP_BIT) != 0) & segmask) != 0;
+#else
     // ---- 4. execute: advance the in-order frontier ----
     int32_t h = app_hash0, n_execd = n_execd0, n_adv = 0;
     bool stop_seen = false, my_run = false;
@@ -923,6 +1052,7 @@ __global__ void __launch_bounds__(GP_MAX_THREADS, 3)
         }
       }
     }
+#endif
     const int32_t exec_new = add32(exec0, n_adv);
     const int32_t stopped = imax(stopped0, stop_seen ? 1 : 0);
 
@@ -1054,7 +1184,11 @@ __global__ void __launch_bounds__(GP_MAX_THREADS, 3)
       const int32_t o_acc_slot = m ? acc_slot : acc_slot0;
       const int32_t o_dec_vid = m ? dec_vid : dec_vid0;
       const int32_t o_dec_slot = m ? dec_slot : dec_slot0;
+#if GP_STEP_MODE == 3
+      const int32_t o_hash = app_hash0;  // fold_hashes stores the hash
+#else
       const int32_t o_hash = m ? h : app_hash0;
+#endif
       const int32_t o_n_execd = m ? n_execd : n_execd0;
       const int32_t o_phase = m ? phase : c_phase0;
       const int32_t o_c_bal = m ? c_bal : c_bal0;
@@ -1109,14 +1243,24 @@ __global__ void __launch_bounds__(GP_MAX_THREADS, 3)
         o[13 * T] = exec0;                  // exec_base
         o[14 * T] = n_adm;                  // n_admitted
         o[15 * T] = m ? maj_exec : 0;       // maj_exec
+#if GP_STEP_MODE == 3
+        // the fold's count and hash; out word 16 and state word 7 are its
+        sV[R * T * (W + 1) + rr * T + gi] = n_comm;
+        sV[R * T * (W + 2) + rr * T + gi] = app_hash0;
+#else
         o[16 * T] = o_hash;                 // app_hash
+#endif
         o[17 * T] = o_bal != bal0 ? 1 : 0;  // bal_new
         // the heat word of the group is read and written by this lane only
         const int32_t* heat = st + L.o_heat + gi;
         if (last) {
           o[0 * T] = member_mask;  o[1 * T] = majority;  o[2 * T] = version;
           o[3 * T] = o_stopped;    o[4 * T] = tag;       o[5 * T] = o_bal;
+#if GP_STEP_MODE == 3
+          o[6 * T] = o_exec;       o[8 * T] = o_n_execd;
+#else
           o[6 * T] = o_exec;       o[7 * T] = o_hash;    o[8 * T] = o_n_execd;
+#endif
           o[9 * T] = o_phase;      o[10 * T] = o_c_bal;  o[11 * T] = o_c_next;
           blob_words(o + 18 * T, T, tag, o_bal, o_exec, o_phase, o_c_bal);
           if (a.heat_out != nullptr) o[22 * T] = add32(add32(*heat, n_comm), n_adm);
@@ -1158,7 +1302,7 @@ __global__ void __launch_bounds__(GP_MAX_THREADS, 3)
       // replica computes into the other output stage (the last replica's
       // go below)
       __syncthreads();
-      store_staged(a, sO, T, n, t0, rep, rep, bulk, 0, n_out, nb, tid, nthr);
+      store_unhashed(a, sO, T, n, t0, rep, bulk, n_out, tid, nthr);
     }
     }  // replicas
 #endif
@@ -1167,6 +1311,15 @@ __global__ void __launch_bounds__(GP_MAX_THREADS, 3)
     // writes before the bulk copies that refill it
     if (NS > 1 || CL) fence_proxy_async();
     __syncthreads();  // the stage is read, the [G] outputs are staged
+#if GP_STEP_MODE == 3
+    // the tile's app hashes, folded now that every replica has stepped
+    // (their inputs lie outside the stage, which refills): the generic
+    // instantiation folds before the next item's copies are issued, the
+    // others after them and the last replica's stores.  On an H100 the
+    // generic build folding after the issue spilled 40 bytes more and ran
+    // 3.6-6.5% slower; the fixed ones ran 0.6-2% faster there
+    if constexpr (RC == 0) fold_hashes(a, L, sV, n, t0, tid, nthr);
+#endif
     if (bulk) {
       const long long next = item + (long long)S * stride;
       if (next < n_items) {
@@ -1176,8 +1329,15 @@ __global__ void __launch_bounds__(GP_MAX_THREADS, 3)
         issue_item<CL>(a, L, NS, rep2, t2, n2, st, &bars[s], tid, nthr);
       }
     }
+#if GP_STEP_MODE == 3
+    // the last replica's staged [G] outputs, then the hashes (above in
+    // the generic instantiation)
+    store_unhashed(a, sO, T, n, t0, rep, bulk, n_out, tid, nthr);
+    if constexpr (RC > 0) fold_hashes(a, L, sV, n, t0, tid, nthr);
+#else
     // the staged [G] outputs, one coalesced run per word
     store_staged(a, sO, T, n, t0, rep, (NS - 1) * RS + rep, bulk, 0, n_out, nb, tid, nthr);
+#endif
     if (CL) ++xc;
     if (++s == S) {
       s = 0;

@@ -301,18 +301,85 @@ def test_stacked_n1_one_launch_matches_two_launch_route(W, R, K, G):
     stacked gp_step through the [R, NB] matrix) and against the plain
     face."""
     _need_card()
-    from gigapaxos_tpu_torch.ops import gp_kernels
-    from gigapaxos_tpu_torch.parallel.spmd import make_step, stack_states
+    from gigapaxos_tpu_torch.parallel.spmd import stack_states
 
-    cfg = te.EngineConfig(G, W, K, R)
     rng = np.random.default_rng(W * 23 + R + G)
+    me = _random_state(rng, W, R, G=G)
+    states = stack_states([_dev(_random_state(rng, W, R, near=me, G=G))
+                           for _ in range(R)])
+    _check_n1_tile(te.EngineConfig(G, W, K, R), states, rng)
+
+
+def _decided_windows(rng, W, R, G):
+    """R replicas' states that share each group's decided window, so the
+    learn phase keeps it and the execute takes it: per group, the whole
+    window decided on the ring convention (n_adv = W), a run of the window
+    with two lanes on one slot (the exact loop), or _random_state's
+    window, mixed within every tile; values 0 (no-ops), STOP-bit values
+    and NULL inside the runs; and a replica outside the member mask in
+    about a third of the groups."""
+    me = _random_state(rng, W, R, G=G)
+    ex = me["exec_slot"].astype(np.int64)
+    lanes = np.arange(W)
+    ring = ex[:, None] + ((lanes[None, :] - ex[:, None]) & (W - 1))
+    kind = rng.integers(0, 3, size=G)
+    run = np.where(((lanes[None, :] - ex[:, None]) & (W - 1))
+                   < rng.integers(1, W + 1, size=G)[:, None], ring, NULL)
+    col = (rng.random((G, W)) < 0.25) & (run != NULL)
+    run = np.where(col, ex[:, None] + rng.integers(0, W, size=(G, W)), run)
+    dec_slot = np.where((kind == 0)[:, None], ring,
+                        np.where((kind == 1)[:, None], run, me["dec_slot"]))
+    u = rng.random((G, W))
+    vid = rng.integers(1, 1 << 20, size=(G, W))
+    vid = np.where(u < 0.15, 0, np.where(u < 0.25, vid | (1 << 30),
+                                         np.where(u < 0.32, NULL, vid)))
+    mm = np.full(G, (1 << R) - 1)
+    out = rng.random(G) < 0.35
+    mm = np.where(out, mm & ~(1 << rng.integers(0, R, size=G)), mm)
+    shared = dict(exec_slot=ex, dec_slot=dec_slot, dec_vid=vid, member_mask=mm,
+                  majority=np.array([bin(int(m)).count("1") // 2 + 1 for m in mm]),
+                  tag=me["tag"], stopped=np.zeros(G))
+    reps = []
+    for _ in range(R):
+        d = _random_state(rng, W, R, near=me, G=G)
+        d.update({k: np.asarray(v, np.int32) for k, v in shared.items()})
+        reps.append(d)
+    return reps, kind, mm
+
+
+@pytest.mark.parametrize("G", GS)
+@pytest.mark.parametrize("W,R,K", N1_SHAPES)
+def test_stacked_n1_tile_folds_decided_windows(W, R, K, G):
+    """The tile route's execute on decided windows: whole windows (the
+    fold over W values), collisions beside ring-convention groups in one
+    tile, no-op, STOP and NULL values inside the run, and replicas outside
+    the member mask (their hash and counts frozen), bit for bit against
+    the two-launch route and the plain face."""
+    _need_card()
+    from gigapaxos_tpu_torch.parallel.spmd import stack_states
+
+    rng = np.random.default_rng(W * 31 + R + G)
+    reps, kind, mm = _decided_windows(rng, W, R, G)
+    states = stack_states([_dev(d) for d in reps])
+    k_o = _check_n1_tile(te.EngineConfig(G, W, K, R), states, rng)
+    n_comm = k_o.n_committed.cpu().numpy()
+    member = (mm[None, :] >> np.arange(R)[:, None]) & 1 == 1
+    assert (n_comm[member] == W).any() and (n_comm[~member] == 0).all()
+    assert (kind == 1).any() and (kind != 1).any()
+
+
+def _check_n1_tile(cfg, states, rng):
+    """One stacked launch of the tile route at N = 1 against the two-launch
+    route and the plain face, every replica hearing all and then none
+    hearing one replica; returns the outputs of the first."""
+    from gigapaxos_tpu_torch.ops import gp_kernels
+    from gigapaxos_tpu_torch.parallel.spmd import make_step
+
+    G, W, K, R = cfg
     fn = make_step(cfg, None, 1, donate=False, io="stacked", device="cuda")
     assert fn.route == "tile"
     plan = gp_kernels.step_launch_plan(cfg, tile=True)
     assert plan["n_items"] == -(-G // plan["T"]) and 1 <= plan["grid"] <= plan["n_items"], plan
-    me = _random_state(rng, W, R, G=G)
-    states = stack_states([_dev(_random_state(rng, W, R, near=me, G=G))
-                           for _ in range(R)])
     req = np.where(rng.random((R, G, K)) < 0.6, rng.integers(1, 100, (R, G, K)), NULL)
     req = np.where(rng.random((R, G, K)) < 0.05, req | (1 << 30), req)
     req = torch.as_tensor(req.astype(np.int32), device="cuda")
@@ -320,6 +387,7 @@ def test_stacked_n1_one_launch_matches_two_launch_route(W, R, K, G):
     dropped = torch.ones((R, R), dtype=torch.bool, device="cuda")
     dropped[:, int(rng.integers(0, R))] = False
     dropped |= torch.eye(R, dtype=torch.bool, device="cuda")   # as the face forces
+    first = None
     for heard in (None, dropped):
         te.reset_launch_counts()
         k_st, k_o = fn(states, req, want, heard)
@@ -336,6 +404,8 @@ def test_stacked_n1_one_launch_matches_two_launch_route(W, R, K, G):
         for r in range(R):
             k_row = te.pack_out(te.StepOutputs(*(x[r] for x in k_o)))
             assert torch.equal(k_row, o_mat[r]), r
+        first = k_o if first is None else first
+    return first
 
 
 @pytest.mark.parametrize("field,value", [("n_sub", 2), ("gathered", 256), ("stacked", 0),
