@@ -451,20 +451,21 @@ def _step_plain(state, g, heard, req_vid, want_coord, my_id, cfg):
 
     # ---- 2+3. the peer fold: accept-winner select, learn, decision-ring
     # merge — one sequential pass over the R gathered rows with [G, W]
-    # carries, decoding one peer's compact lane planes per iteration.
+    # carries, over each peer's decoded compact lane planes.
     win_row = (in_prop == max_prop[None, :]) & (max_prop[None, :] != NULL)
 
-    def _decode_row(r):
-        return _decode_lanes(
-            g.lane_meta[r], g.bal[r], g.exec_slot[r], lanes, kbits
-        )
+    # each peer's lane planes, decoded once for this fold and the carryover
+    rows = [
+        _decode_lanes(g.lane_meta[r], g.bal[r], g.exec_slot[r], lanes, kbits)
+        for r in range(R)
+    ]
 
     nullw = torch.full((G, W), NULL, dtype=_I32, device=dev)
     p_slot = p_vid = s_c = b_c = det_vid = c1_v = nullw
     n_match = torch.zeros((G, W), dtype=_I32, device=dev)
     c1_s = torch.full((G, W), _BIG, dtype=_I32, device=dev)
     for r in range(R):
-        a_bal, a_slot, d_slot, pr_slot = _decode_row(r)
+        a_bal, a_slot, d_slot, pr_slot = rows[r]
         a_vid = g.acc_vid[r]
         d_vid = g.dec_vid[r]
         pr_vid = g.prop_vid[r]
@@ -522,30 +523,23 @@ def _step_plain(state, g, heard, req_vid, want_coord, my_id, cfg):
 
     # ---- 4. execute: advance the in-order frontier (EEC analog,
     # PaxosInstanceStateMachine.extractExecuteAndCheckpoint:1511-1593) ----
+    # Offset o of the frontier's run is slot exec_slot + o: its value is the
+    # max vid over the lanes decided at that slot, and the run takes offset
+    # o while every offset up to o was decided.
+    slot_at = state.exec_slot[:, None] + lanes[None, :]    # [G, W] by offset
+    eq = dec_slot[:, None, :] == slot_at[:, :, None]       # [G, W, W]
+    hit = eq.any(dim=2)
+    d_vid_at = torch.where(eq, dec_vid[:, None, :], NULL).amax(dim=2)
+    run = hit.to(_I32).cumprod(dim=1) > 0                  # [G, W] bool
+    real = run & (d_vid_at > 0)
+    n_adv = run.sum(dim=1).to(_I32)
+    n_execd = state.n_execd + real.sum(dim=1).to(_I32)
+    stop_seen = (run & ((d_vid_at & STOP_BIT) != 0)).any(dim=1)
+    # the app hash folds the run's real values in slot order
     h = state.app_hash
-    n_execd = state.n_execd
-    stop_seen = torch.zeros((G,), dtype=torch.bool, device=dev)
-    run_prev = torch.ones((G,), dtype=torch.bool, device=dev)
-    n_adv = torch.zeros((G,), dtype=_I32, device=dev)
-    run_cols = []
-    vid_cols = []
-    for o in range(W):
-        slot_o = state.exec_slot + o
-        eq = dec_slot == slot_o[:, None]                   # [G, W]
-        hit = eq.any(dim=1)
-        vid_o = torch.where(eq, dec_vid, NULL).amax(dim=1)  # [G]
-        take = run_prev & hit
-        real = take & (vid_o > 0)
-        h = torch.where(real, _mix(h, vid_o), h)
-        n_execd = n_execd + real.to(_I32)
-        stop_seen = stop_seen | (take & ((vid_o & STOP_BIT) != 0))
-        n_adv = n_adv + take.to(_I32)
-        run_cols.append(take)
-        vid_cols.append(vid_o)
-        run_prev = take
+    for real_o, vid_o in zip(real.unbind(dim=1), d_vid_at.unbind(dim=1)):
+        h = torch.where(real_o, _mix(h, vid_o), h)
     exec_new = state.exec_slot + n_adv
-    run = torch.stack(run_cols, dim=1)                     # [G, W] bool
-    d_vid_at = torch.stack(vid_cols, dim=1)                # [G, W]
     stopped = torch.maximum(state.stopped, stop_seen.to(_I32))
 
     # Majority-rank execute frontier (medianCheckpointedSlot analog):
@@ -585,7 +579,7 @@ def _step_plain(state, g, heard, req_vid, want_coord, my_id, cfg):
     # promisers' snapshots, then my own post-accept window.
     co_slot = co_bal = co_vid = nullw
     for r in range(R):
-        a_bal, a_slot, _d, _p = _decode_row(r)
+        a_bal, a_slot, _d, _p = rows[r]
         a_vid = g.acc_vid[r]
         ok = promised[r][:, None] & (a_slot != NULL) & (a_slot >= exec2)
         better = ok & ((a_slot > co_slot) | ((a_slot == co_slot) & (a_bal > co_bal)))
@@ -650,28 +644,30 @@ def _step_plain(state, g, heard, req_vid, want_coord, my_id, cfg):
     )
 
     # Admit new client requests: consecutive slots from c_next, bounded by
-    # the majority window and free lanes (contiguous prefix).
+    # the majority window and free lanes (contiguous prefix).  K <= W, so
+    # the K candidates take K distinct lanes and none sees another's
+    # placement: candidate k sits at lane (c_next + k) mod W.
     c_next = torch.where(is_active, torch.maximum(c_next, exec_new), c_next)
     bound = maj_exec + W
-    adm_prev = torch.ones((G,), dtype=torch.bool, device=dev)
-    n_admit = torch.zeros((G,), dtype=_I32, device=dev)
-    for k in range(K):
-        cand_slot = c_next + k
-        oh = lane_of(cand_slot)[:, None] == lanes[None, :]  # [G, W]
-        lane_busy = (oh & (c_prop_slot != NULL)).any(dim=1)
-        dec_at_cand = torch.where(oh, dec_slot, NULL).amax(dim=1)
-        can = (
-            may_admit & (no_stop_before[:, k] > 0)
-            & (req_vid[:, k] != NULL) & (cand_slot < bound)
-            & (~lane_busy)
-            & (dec_at_cand != cand_slot)  # never re-propose a decided slot
-        )
-        adm = adm_prev & can
-        place = oh & adm[:, None]
-        c_prop_vid = torch.where(place, req_vid[:, k][:, None], c_prop_vid)
-        c_prop_slot = torch.where(place, cand_slot[:, None], c_prop_slot)
-        n_admit = n_admit + adm.to(_I32)
-        adm_prev = adm
+    cand_slot = c_next[:, None] + lanes[None, :K]          # [G, K]
+    cand_lane = lane_of(cand_slot).long()
+    lane_busy = torch.gather(c_prop_slot != NULL, 1, cand_lane)
+    dec_at_cand = torch.gather(dec_slot, 1, cand_lane)
+    can = (
+        may_admit[:, None] & (no_stop_before > 0)
+        & (req_vid != NULL) & (cand_slot < bound[:, None])
+        & (~lane_busy)
+        & (dec_at_cand != cand_slot)  # never re-propose a decided slot
+    )
+    adm = can.to(_I32).cumprod(dim=1)                      # [G, K] 0/1
+    n_admit = adm.sum(dim=1).to(_I32)
+    # lane l holds candidate k = (l - c_next) mod W, if k < K
+    k_at = lane_of(lanes[None, :] - c_next[:, None])       # [G, W]
+    k_in = k_at < K
+    k_idx = torch.where(k_in, k_at, 0).long()
+    place = k_in & (torch.gather(adm, 1, k_idx) > 0)
+    c_prop_vid = torch.where(place, torch.gather(req_vid, 1, k_idx), c_prop_vid)
+    c_prop_slot = torch.where(place, c_next[:, None] + k_at, c_prop_slot)
     c_next = c_next + n_admit
 
     new_state = EngineState(
