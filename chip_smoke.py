@@ -2059,6 +2059,19 @@ def phase_headline(diff: Diff, device, bw: float, results: str) -> dict:
     tile_step = lambda: gp_kernels.step_stacked(
         states, None, hm, req, no_want, cfg, out_states=out_st, out_mat=out_mat)
     ms_tile = graph_ms(tile_step, calls=5, reps=4) / R
+    # the route as the face takes it: each launch on the state the last
+    # returned, into fresh states, without and with the quiescence flags
+    # (this steady traffic leaves no tile quiet: the flags' cost alone)
+    walk = [states, states]
+
+    def tile_walk(i, flags):
+        walk[i], _, _ = gp_kernels.step_stacked(walk[i], None, hm, req, no_want, cfg,
+                                                out_mat=out_mat, flags=flags)
+
+    tile_flags = gp_kernels.TileFlags(cfg, device)
+    ms_tile_walk = cuda_ms(lambda: tile_walk(0, None), TIMING_ITERS) / R
+    ms_tile_flags = cuda_ms(lambda: tile_walk(1, tile_flags), TIMING_ITERS) / R
+    del walk, tile_flags
     tile_step()
     member = (states.member_mask >> torch.arange(R, device=device)[:, None]) & 1 == 1
     n_comm = te.unpack_out(out_mat, cfg).n_committed
@@ -2074,7 +2087,20 @@ def phase_headline(diff: Diff, device, bw: float, results: str) -> dict:
     ms_quiet = graph_ms(lambda: gp_kernels.step_stacked(
         quiet, q_blobs, hm, no_req, no_want, cfg, out_states=out_st,
         out_mat=out_mat, out_blobs=out_bl), calls=5, reps=4) / R
-    del quiet, q_blobs
+    # the quiet state on the tile route, walked with the flags: its tiles
+    # copied through
+    q_walk, q_flags = [quiet], gp_kernels.TileFlags(cfg, device)
+
+    def quiet_walk():
+        q_walk[0], _, _ = gp_kernels.step_stacked(q_walk[0], None, hm, no_req, no_want, cfg,
+                                                  out_mat=out_mat, flags=q_flags)
+
+    quiet_walk()
+    torch.cuda.synchronize()
+    gp_kernels.reset_tile_counts()
+    ms_quiet_tile = cuda_ms(quiet_walk, TIMING_ITERS) / R
+    quiet_tiles = gp_kernels.tile_counts()
+    del quiet, q_blobs, q_walk, q_flags
     nbytes = stacked_step_bytes(G, W, K, R)
     bound = nbytes / bw * 1e3
     log(f"headline gp_step: {ms_step:.6g} ms per replica-step on the device "
@@ -2085,7 +2111,10 @@ def phase_headline(diff: Diff, device, bw: float, results: str) -> dict:
         f"{plan_str(plan)}; peak device memory {peak} B")
     log(f"headline gp_step_tile: {ms_tile:.6g} ms per replica-step on the device, "
         f"{100 * bound / ms_tile:.4g}% of the bound; mean n_committed a member "
-        f"(replica, group) step {fold_chain:.6g} (the hash fold's chain)")
+        f"(replica, group) step {fold_chain:.6g} (the hash fold's chain); walked "
+        f"into fresh states by events {ms_tile_walk:.6g} ms, with the quiescence "
+        f"flags {ms_tile_flags:.6g} ms; quiet state with the flags {ms_quiet_tile:.6g} "
+        f"ms (tiles {quiet_tiles})")
     del states, blobs, out_st, out_mat, out_bl, load, step_fn, req, no_want, no_req
     del tile_step, member, n_comm
     torch.cuda.empty_cache()
@@ -2094,6 +2123,8 @@ def phase_headline(diff: Diff, device, bw: float, results: str) -> dict:
         "ms_per_replica_step_events": ms_events, "ms_quiet": ms_quiet,
         "share": bound / ms_step, "plan": plan,
         "ms_per_replica_step_tile": ms_tile, "tile_share": bound / ms_tile,
+        "ms_tile_walk": ms_tile_walk, "ms_tile_walk_flags": ms_tile_flags,
+        "ms_quiet_tile_flags": ms_quiet_tile, "quiet_tile_counts": quiet_tiles,
         "mean_n_committed_member": fold_chain,
         "ms_per_replica_step_fresh": ms_fresh, "bound_ms": bound,
         "plain_ms": plain_ms, "make_blob_ms": ms_blob,
@@ -2408,6 +2439,24 @@ def stacked_n1_case(diff: Diff, device, cfg, states, rng, launches: dict) -> Non
         stacked, gp_kernels.make_blob_rows(stacked, R), hm, reqs, wants, cfg)
     diff.tree("gp_step", tag + ".launches_route.state", k_st, o_st)
     diff.tree("gp_step", tag + ".launches_route.out", k_o, fs._outs(o_mat))
+    # the skip: the face's own states walked with no input, each call
+    # against the plain face.  The seeded states come to rest within 7
+    # calls (the plain face on the CPU), and after the busy call above the
+    # face takes the skip build again at its next probe, within PROBE
+    # calls; the calls after it copy the resting tiles through
+    no_req = torch.full_like(reqs, -1)
+    no_want = torch.zeros_like(wants)
+    st = k_st
+    torch.cuda.synchronize()
+    gp_kernels.reset_tile_counts()
+    for i in range(gp_kernels.PROBE + 8):
+        q_st, q_o = fs(st, no_req, no_want, hm)
+        p_st, p_o = fs.plain(st, no_req, no_want, hm)
+        diff.tree("gp_step", f"{tag}.quiet{i}.state", q_st, p_st)
+        diff.tree("gp_step", f"{tag}.quiet{i}.out", q_o, p_o)
+        st = q_st
+    tiles = gp_kernels.tile_counts()
+    diff.same("gp_step", tag + ".quiet.skipped", tiles["skipped"] > 0)
 
 
 def residency_parity(diff: Diff, device) -> dict:

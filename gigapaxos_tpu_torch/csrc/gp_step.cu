@@ -90,6 +90,32 @@
 //     values it committed in a shared-memory row and its two counts come
 //     from ballots, so no warp runs the serial fold in lockstep for each
 //     replica of every group.
+//   * The skip build (mode 4) copies a quiescent tile through.  The step
+//     is a deterministic function of a tile's R states, requests, want
+//     bits and heard, so a tile whose launch gave it no input (no request
+//     word, no want bit), left every state word as it came in and wrote
+//     the idle out rows (nothing committed, admitted, accepted or
+//     preempted; exec_base the exec_slot, maj_exec and app_hash those of
+//     the state) is at a fixed point: with no input again under the same
+//     heard it steps to the same state and the same rows.  A launch stores
+//     its epoch as such a tile's flag (an int32 in a 16-byte slot a tile,
+//     which comes with the tile's stage as one more bulk copy; the
+//     threads' votes ride the barrier that ends the tile, and the
+//     comparisons run only where a member committed and admitted nothing),
+//     and a tile whose flag holds the last launch's epoch and that gets no
+//     input now (its want bytes and request words, read only then) is not
+//     stepped (skip_tile): its stage goes back out as the new state, bulk
+//     copies straight from shared memory, and its out rows are written as
+//     the idle step writes them.  It still reads its state and writes it
+//     back, and writes its out rows, because the state is written out of
+//     place and the out matrix is new every call; it issues none of the
+//     step's instructions.  The flags key on the input: the host passes
+//     quiet_valid only when st_in is the state its last launch returned,
+//     unchanged, and the kernel compares this launch's heard with the one
+//     the flags were set under (block 0 keeps each launch's in a second
+//     buffer).  The last CTA to finish writes the launch's counts to host
+//     memory, from which the host picks the next launch's build
+//     (ops/gp_kernels.py TileFlags) without waiting on the card.
 //   * Execute: each lane marks the offset of its decided slot from the
 //     frontier in a warp-wide OR; when no two lanes of a segment mark one
 //     offset (always so under the ring convention) the frontier advance is
@@ -169,10 +195,15 @@ namespace cg = cooperative_groups;
 //   1  gp_step_n: the packed face's N substeps in one launch;
 //   2  gp_step_cluster: the stacked face's N substeps over clusters;
 //   3  gp_step_tile: the stacked face's one substep, each CTA stepping
-//      every replica of its tile.
-// Mode 3 is the stacked grid of mode 0 changed only inside GP_STEP_MODE ==
+//      every replica of its tile;
+//   4  gp_step_skip: mode 3 that copies quiescent tiles through.
+// Mode 3 is the stacked grid of mode 0 changed only inside GP_STEP_MODE >=
 // 3 blocks: code shared with modes 0-2 moved their register allocation and
 // slowed gp_step_n on an H100, so keep every mode 3 change in those blocks.
+// Mode 4 is mode 3 changed only inside GP_STEP_MODE == 4 blocks, for the
+// same reason: its check of each tile cost a busy tile 3-12% on an H100 at
+// W = 32, R = 3 (the skip path's code alone 6%), so tiles that are all busy
+// take mode 3.
 #ifndef GP_STEP_MODE
 #define GP_STEP_MODE 0
 #endif
@@ -196,6 +227,26 @@ struct GpStepArgs {
   int32_t aligned;          // set by the launcher: bulk copies and 16-byte stores
   int32_t n_sub;            // substeps in this launch (>= 1; 1 on the stacked grid)
   int32_t cluster;          // stacked: one cluster of R CTAs a tile (R <= 8)
+#if GP_STEP_MODE == 4
+  // the quiescence flags (null: none kept, every tile steps): word 4 t
+  // is the epoch of the last launch that found every group of tile t at a
+  // fixed point (a launch stores its epoch there, and nothing where a
+  // group is not), so the tile is flagged for this launch where it reads
+  // quiet_epoch - 1; read only where quiet_valid.  16 bytes a tile, one
+  // bulk copy of the stage
+  int32_t* quiet;              // [4 * tiles]
+  const uint8_t* heard_prev;   // [R, R] the heard of the launch that set the flags
+  uint8_t* heard_keep;         // [R, R] receives this launch's heard
+  unsigned long long* tiles;   // [2] tiles skipped, tiles stepped, summed (or null)
+  // this launch's tiles flagged and skipped, and its CTAs done, summed by
+  // the CTAs; the last to finish copies the sums to report and zeroes them
+  unsigned long long* sums;    // [3], zero before a launch
+  // host memory the card writes (mapped): the epoch, tiles flagged,
+  // skipped and walked of the newest launch to finish
+  long long* report;           // [4]
+  int32_t quiet_valid;         // the flags describe st_in (the host's word)
+  int32_t quiet_epoch;         // this launch's epoch (> 0)
+#endif
 };
 
 struct GpBlobArgs {
@@ -247,7 +298,7 @@ struct Layout {
   int T, W, R, K, TW, o_sw, o_b1, o_bw, o_req, o_heat, stage, xbuf, xwords;
   __host__ __device__ Layout(int T_, int W_, int R_, int K_, int NQ, bool X)
       : T(T_), W(W_), R(R_), K(K_), TW(T_ * W_) {
-#if GP_STEP_MODE == 3
+#if GP_STEP_MODE >= 3
     const int rs = 0;  // the rows are encoded in the CTA
 #else
     const int rs = X ? 0 : R;  // gathered rows in the stage
@@ -260,13 +311,17 @@ struct Layout {
     stage = o_heat + T;
     xbuf = 4 * R * (T + TW);
     xwords = X ? 2 * xbuf : 0;
-#if GP_STEP_MODE == 3
+#if GP_STEP_MODE >= 3
     stage = R * o_heat + T;
     xwords = xbuf;
 #endif
   }
   __host__ __device__ long long smem_bytes() const {
-#if GP_STEP_MODE == 3
+#if GP_STEP_MODE == 4
+    // and the CTA's counts of tiles skipped and flagged after the barriers
+    return 4LL * ((long long)GP_RING * stage + 2 * GP_NOUT * T + fold_words() + xwords) +
+           8LL * GP_RING + 8;
+#elif GP_STEP_MODE == 3
     return 4LL * ((long long)GP_RING * stage + 2 * GP_NOUT * T + fold_words() + xwords) +
            8LL * GP_RING;
 #else
@@ -274,7 +329,7 @@ struct Layout {
            8LL * GP_RING;
 #endif
   }
-#if GP_STEP_MODE == 3
+#if GP_STEP_MODE >= 3
   // the tile mode's execute scratch: R * T rows of W + 1 words (the pad
   // puts the lanes of the fold, one row each, on distinct banks), then
   // the R * T counts and the R * T hashes
@@ -458,6 +513,23 @@ __device__ __forceinline__ void bulk_g2s(void* dst, const void* src, uint32_t by
       "l"(src), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
 }
+#if GP_STEP_MODE == 4
+// a bulk copy from shared to global memory, in this thread's bulk group
+__device__ __forceinline__ void bulk_s2g(void* dst, const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
+               "r"(smem_addr(src)), "r"(bytes)
+               : "memory");
+}
+// waits until this thread's bulk copies to global memory have read their
+// shared-memory source (all: also until their writes are done)
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+#endif
 
 // the cluster barrier split in two (all threads of every CTA of the
 // cluster): arrive releases this thread's earlier writes; wait returns once
@@ -490,7 +562,9 @@ struct Seg {
 // nq: the substeps of the launch (the kernel's NS, a constant 1 in mode 0)
 template <bool CL>
 __device__ __forceinline__ int n_segs(const GpStepArgs& a, int R, int nq) {
-#if GP_STEP_MODE == 3
+#if GP_STEP_MODE == 4
+  return 20 * R + (a.quiet != nullptr ? 1 : 0);
+#elif GP_STEP_MODE == 3
   return 20 * R + (a.heat_in != nullptr ? 1 : 0);
 #else
   return 19 + (CL ? 0 : 8 * R) + nq + (a.heat_in != nullptr ? 1 : 0);
@@ -501,7 +575,7 @@ template <bool CL>
 __device__ __forceinline__ Seg input_seg(const GpStepArgs& a, const Layout& L, int nq, int i,
                                          int rep, long long t0, int n) {
   const long long G = a.G, GW = G * L.W, NB = 4 * G + 4 * GW;
-#if GP_STEP_MODE == 3
+#if GP_STEP_MODE >= 3
   if (i < 20 * L.R) {
     const int r = i / 20, l = i - 20 * r;
     const int base = r * L.o_heat;  // replica r's block
@@ -511,7 +585,11 @@ __device__ __forceinline__ Seg input_seg(const GpStepArgs& a, const Layout& L, i
               n * L.W};
     return {a.req + ((long long)r * G + t0) * L.K, base + L.o_req, n * L.K};
   }
+#if GP_STEP_MODE == 4
+  return {a.quiet + 4 * (t0 / L.T), L.R * L.o_heat, 4};  // the flag, in the heat's place
+#else
   return {a.heat_in + t0, L.R * L.o_heat, n};
+#endif
 #endif
   if (i < 12) return {a.st_in[g1_leaf(i)] + rep * G + t0, i * L.T, n};
   if (i < 19)
@@ -543,13 +621,19 @@ __device__ __forceinline__ void issue_item(const GpStepArgs& a, const Layout& L,
                                            int rep, long long t0, int n, int32_t* stage,
                                            uint64_t* bar, int tid, int nthr) {
   if (tid == 0) {
-#if GP_STEP_MODE == 3
+#if GP_STEP_MODE == 4
+    // and the tile's flag, 16 bytes
+    const int per = L.R * (12 + 7 * L.W + L.K);
+    mbar_expect_tx(bar, (uint32_t)(4 * n * per + (a.quiet != nullptr ? 16 : 0)));
+#else
+#if GP_STEP_MODE >= 3
     const int per = L.R * (12 + 7 * L.W + L.K) + (a.heat_in != nullptr ? 1 : 0);
 #else
     const int per = 12 + 7 * L.W + (CL ? 0 : 4 * L.R * (1 + L.W)) + nq * L.K +
                     (a.heat_in != nullptr ? 1 : 0);
 #endif
     mbar_expect_tx(bar, (uint32_t)(4 * n * per));
+#endif
   }
   const int ns = n_segs<CL>(a, L.R, nq);
   for (int i = tid; i < ns; i += nthr) {
@@ -598,7 +682,7 @@ __device__ __forceinline__ void store_staged(const GpStepArgs& a, const int32_t*
   }
 }
 
-#if GP_STEP_MODE == 3
+#if GP_STEP_MODE >= 3
 // Tile mode: store_staged of replica rep's [G] outputs but the app hash
 // (state word 7, out word 16), which fold_hashes stores; the launch has no
 // heat, so the n_out - 2 words are 0-6, 8-15 and 17 up
@@ -649,6 +733,108 @@ __device__ __forceinline__ void fold_hashes(const GpStepArgs& a, const Layout& L
     a.out_vec[r * M + 4 * G + G * W + t0 + gi] = h;
   }
 }
+
+#if GP_STEP_MODE == 4
+// Skip build: a quiescent tile (n groups at t0, staged at st), copied
+// through: each replica's state as it came in and its idle out row, which
+// the step writes for a fixed point.  The R states' 19 segments, and the
+// exec_slot and app_hash segments as the out rows' exec_base and app_hash,
+// go from the stage to device memory (on an aligned launch one bulk copy
+// a thread a segment, else plain words); the out rows' other words are
+// constants (16 bytes a store on an aligned launch) but maj_exec, computed
+// as the step computes it, one thread a (replica, group).  Returns once
+// the bulk copies have read the stage, so it may refill.
+__device__ __forceinline__ void skip_tile(const GpStepArgs& a, const Layout& L,
+                                          const int32_t* st, int n, long long t0, bool bulk,
+                                          int tid, int nthr) {
+  const int T = L.T, W = L.W, R = L.R;
+  const long long G = a.G, GW = G * W, M = 6 * G + 3 * GW;
+  // segment i: replica i / 21's 12 [G] words, 7 planes, exec_base, app_hash
+  auto seg = [&](int i, int32_t*& dst, const int32_t*& src) -> int {
+    const int r = i / 21, l = i - 21 * r;
+    const int32_t* rs = st + r * L.o_heat;
+    if (l < 12) {
+      dst = a.st_out[g1_leaf(l)] + r * G + t0;
+      src = rs + l * T;
+      return n;
+    }
+    if (l < 19) {
+      dst = a.st_out[gw_leaf(l - 12)] + r * GW + t0 * W;
+      src = rs + L.o_sw + (l - 12) * L.TW;
+      return n * W;
+    }
+    dst = a.out_vec + r * M + (l == 19 ? G : 4 * G + GW) + t0;
+    src = rs + (l == 19 ? 6 : 7) * T;  // staged exec_slot, app_hash
+    return n;
+  };
+  if (bulk) {
+    for (int i = tid; i < 21 * R; i += nthr) {
+      int32_t* d;
+      const int32_t* s;
+      const int w = seg(i, d, s);
+      bulk_s2g(d, s, 4u * (uint32_t)w);
+    }
+  } else {
+    for (int i = 0; i < 21 * R; ++i) {
+      int32_t* d;
+      const int32_t* s;
+      const int w = seg(i, d, s);
+      for (int q = tid; q < w; q += nthr) d[q] = s[q];
+    }
+  }
+  // the constant words: the planes exec_vid (NULL), acc_new (0) and
+  // preempted_vid (NULL), and n_committed, n_admitted and bal_new (0)
+  const int u = bulk ? 4 : 1;
+  const int pw = n * W / u, p1 = n / u, per = 3 * pw + 3 * p1;
+  for (int e = tid; e < R * per; e += nthr) {
+    const int r = e / per;
+    int q = e - r * per;
+    int32_t* dst = a.out_vec + r * M;
+    int32_t v = 0;
+    if (q < 3 * pw) {
+      const int k = q / pw;
+      q -= k * pw;
+      dst += (k == 0 ? 2 * G : k == 1 ? 5 * G + GW : 6 * G + 2 * GW) + t0 * W;
+      v = k == 1 ? 0 : NULLV;
+    } else {
+      q -= 3 * pw;
+      const int k = q / p1;
+      q -= k * p1;
+      dst += (k == 0 ? 0 : k == 1 ? 2 * G + GW : 5 * G + 2 * GW) + t0;
+    }
+    if (bulk)
+      reinterpret_cast<int4*>(dst)[q] = make_int4(v, v, v, v);
+    else
+      dst[q] = v;
+  }
+  // maj_exec: the majority-rank execute frontier over the live replicas,
+  // from the staged words the step reads in the blob rows (tag, exec_slot;
+  // the [G] words in g1_leaf order)
+  for (int c = tid; c < R * n; c += nthr) {
+    const int r = c / n, gi = c - r * n;
+    const int32_t* s1 = st + r * L.o_heat + gi;
+    const int32_t member_mask = s1[0], majority = s1[T], tag = s1[4 * T];
+    unsigned live = 0;
+    for (int x = 0; x < R; ++x) {
+      const bool lv = a.heard[r * R + x] != 0 && ((member_mask >> x) & 1) &&
+                      st[x * L.o_heat + 4 * T + gi] == tag;
+      live |= (lv ? 1u : 0u) << x;
+    }
+    int32_t maj = INT32_MIN_V;
+    for (int x = 0; x < R; ++x) {
+      const int32_t ge_x = ((live >> x) & 1) ? st[x * L.o_heat + 6 * T + gi] : NULLV;
+      int rank = 0;
+      for (int y = 0; y < R; ++y) {
+        const int32_t ge_y = ((live >> y) & 1) ? st[y * L.o_heat + 6 * T + gi] : NULLV;
+        rank += ge_x <= ge_y ? 1 : 0;
+      }
+      maj = imax(maj, rank >= majority ? ge_x : NULLV);
+    }
+    a.out_vec[r * M + 3 * G + GW + t0 + gi] = ((member_mask >> r) & 1) ? imax(maj, 0) : 0;
+  }
+  if (bulk) bulk_wait_read();
+}
+#endif
 #endif
 
 // registers bounded for 3 CTAs an SM (80 a thread): at W <= 16 three ran
@@ -664,7 +850,7 @@ __global__ void __launch_bounds__(GP_MAX_THREADS, 3)
   const int R = RC > 0 ? RC : a.R;
   const int W = WC > 0 ? WC : a.W;
   const int K = a.K, T = a.T;
-#if GP_STEP_MODE == 3
+#if GP_STEP_MODE >= 3
   const int NS = 1;
 #else
   const int NS = GP_STEP_MODE == 0 ? 1 : a.n_sub;
@@ -687,7 +873,7 @@ __global__ void __launch_bounds__(GP_MAX_THREADS, 3)
   extern __shared__ __align__(16) int32_t smem[];
   int32_t* sO2 = smem + S * L.stage;
   int32_t* sV = sO2 + 2 * GP_NOUT * T;
-#if GP_STEP_MODE == 3
+#if GP_STEP_MODE >= 3
   int32_t* sX = sV + L.fold_words();  // the tile's encoded rows
 #else
   int32_t* sX = sV + TW;  // cluster mode: the 2 exchange buffers
@@ -697,7 +883,7 @@ __global__ void __launch_bounds__(GP_MAX_THREADS, 3)
   // work items fit an int (the launcher checks): a tile (packed, cluster,
   // tile mode) or a (tile, replica) pair (stacked grid)
   const int n_tiles = (int)((G + T - 1) / T);
-#if GP_STEP_MODE == 3
+#if GP_STEP_MODE >= 3
   const int n_items = n_tiles;
 #else
   const int n_items = (a.stacked && !CL) ? n_tiles * R : n_tiles;
@@ -713,6 +899,20 @@ __global__ void __launch_bounds__(GP_MAX_THREADS, 3)
   const bool bulk = a.aligned != 0;
   const int nb = a.blob != nullptr ? 4 : 0;
   const int n_out = 18 + nb + (a.heat_out != nullptr ? 1 : 0);
+#if GP_STEP_MODE == 4
+  // a tile may be skipped only where the flags describe st_in (the host's
+  // word) under this launch's heard; block 0 keeps the heard for the next
+  bool quiet_ok = a.quiet != nullptr && a.quiet_valid != 0;
+  for (int i = 0; i < R * R; ++i)
+    quiet_ok = quiet_ok && (a.heard[i] != 0) == (a.heard_prev[i] != 0);
+  if (a.quiet != nullptr && blockIdx.x == 0)
+    for (int i = tid; i < R * R; i += nthr) a.heard_keep[i] = a.heard[i];
+  // this CTA's tiles copied through and flagged (thread 0's counts, in
+  // shared memory)
+  int* const n_skipped = reinterpret_cast<int*>(bars + S);
+  int* const n_flagged = n_skipped + 1;
+  if (tid == 0) *n_skipped = *n_flagged = 0;
+#endif
 
   if (bulk && tid == 0) {
     for (int s = 0; s < S; ++s) mbar_init(&bars[s], 1);
@@ -721,7 +921,7 @@ __global__ void __launch_bounds__(GP_MAX_THREADS, 3)
   __syncthreads();
   // the tile and replica of a work item (replica fastest on the grid)
   auto item_at = [&](int item, int& rep, long long& t0, int& n) {
-#if GP_STEP_MODE == 3
+#if GP_STEP_MODE >= 3
     const int tile = item;
     rep = 0;
 #else
@@ -809,7 +1009,31 @@ __global__ void __launch_bounds__(GP_MAX_THREADS, 3)
       }
       cluster_arrive();
     }
-#if GP_STEP_MODE == 3
+#if GP_STEP_MODE >= 3
+#if GP_STEP_MODE == 4
+    // the last launch left every group of the tile at a fixed point (the
+    // flag came with the stage: a broadcast word, a uniform branch) and the
+    // tile gets no input now (its want bytes, loaded only here, and request
+    // words): by the step's determinism it would come out as it went in
+    bool skip = quiet_ok && st[R * L.o_heat] == a.quiet_epoch - 1;
+    if (skip) {
+      unsigned busy = 0;
+      if (tid < n)
+        for (int r = 0; r < R; ++r) busy |= a.want[(long long)r * G + t0 + tid];
+      for (int r = 0; r < R; ++r) {
+        const int32_t* rq = st + r * L.o_heat + L.o_req;
+        for (int q = tid; q < n * K; q += nthr) busy |= rq[q] != NULLV ? 1u : 0u;
+      }
+      skip = __syncthreads_and(busy == 0) != 0;
+    }
+    // this (group, lane) of every replica had no input, came out as it went
+    // in and wrote the idle out words (a skipped tile's are so)
+    bool fixed_mine = true;
+    if (skip) {
+      skip_tile(a, L, st, n, t0, bulk, tid, nthr);
+      if (tid == 0) ++*n_skipped;
+    } else {
+#endif
     {
       // the tile's R blob rows, each encoded once from its replica's staged
       // state as gp_make_blob encodes it, laid out as the stage's gathered
@@ -867,7 +1091,7 @@ __global__ void __launch_bounds__(GP_MAX_THREADS, 3)
     // the gathered rows: the stage's, or (cluster, tile mode) this
     // exchange's buffer
     const int32_t* xcur = sX + (xc & 1) * L.xbuf;
-#if GP_STEP_MODE == 3
+#if GP_STEP_MODE >= 3
     const int32_t* b1 = xcur + gi;                          // [R * 4][T]
     const int32_t* bw = xcur + 4 * R * T + gi * W + j;      // [R * 4][TW]
 #else
@@ -956,7 +1180,7 @@ __global__ void __launch_bounds__(GP_MAX_THREADS, 3)
                                  : dec_vid0;
     const int32_t dec_slot = have ? best : dec_slot0;
 
-#if GP_STEP_MODE == 3
+#if GP_STEP_MODE >= 3
     // ---- 4. execute: advance the in-order frontier.  Lane j < n_adv holds
     // the value at offset j, so the counts are ballots; the hash, the one
     // serial part, is folded from this replica's row after the tile's R
@@ -1184,7 +1408,7 @@ __global__ void __launch_bounds__(GP_MAX_THREADS, 3)
       const int32_t o_acc_slot = m ? acc_slot : acc_slot0;
       const int32_t o_dec_vid = m ? dec_vid : dec_vid0;
       const int32_t o_dec_slot = m ? dec_slot : dec_slot0;
-#if GP_STEP_MODE == 3
+#if GP_STEP_MODE >= 3
       const int32_t o_hash = app_hash0;  // fold_hashes stores the hash
 #else
       const int32_t o_hash = m ? h : app_hash0;
@@ -1195,6 +1419,20 @@ __global__ void __launch_bounds__(GP_MAX_THREADS, 3)
       const int32_t o_c_next = m ? c_next : c_next0;
       const int32_t o_cpv = m ? c_prop_vid : c_prop_vid0;
       const int32_t o_cps = m ? c_prop_slot : c_prop_slot0;
+#if GP_STEP_MODE == 4
+      // the comparisons only where the segment committed and admitted
+      // nothing (a member that did cannot be at a fixed point); lane j < K
+      // reads request word j of the group
+      if (want || (m && (n_adv != 0 || n_admit != 0)))
+        fixed_mine = false;
+      else if (fixed_mine)
+        fixed_mine = !(j < K && rq[j] != NULLV) && o_stopped == stopped0 && o_bal == bal0 &&
+                     o_exec == exec0 && o_n_execd == n_execd0 && o_phase == c_phase0 &&
+                     o_c_bal == c_bal0 && o_c_next == c_next0 && o_acc_bal == acc_bal0 &&
+                     o_acc_vid == acc_vid0 && o_acc_slot == acc_slot0 && o_dec_vid == dec_vid0 &&
+                     o_dec_slot == dec_slot0 && o_cpv == c_prop_vid0 && o_cps == c_prop_slot0 &&
+                     !(m && (my_run || acc_changed || preempted != NULLV));
+#endif
 
       const long long lo = g * W + j;
       if (last) {
@@ -1243,7 +1481,7 @@ __global__ void __launch_bounds__(GP_MAX_THREADS, 3)
         o[13 * T] = exec0;                  // exec_base
         o[14 * T] = n_adm;                  // n_admitted
         o[15 * T] = m ? maj_exec : 0;       // maj_exec
-#if GP_STEP_MODE == 3
+#if GP_STEP_MODE >= 3
         // the fold's count and hash; out word 16 and state word 7 are its
         sV[R * T * (W + 1) + rr * T + gi] = n_comm;
         sV[R * T * (W + 2) + rr * T + gi] = app_hash0;
@@ -1256,7 +1494,7 @@ __global__ void __launch_bounds__(GP_MAX_THREADS, 3)
         if (last) {
           o[0 * T] = member_mask;  o[1 * T] = majority;  o[2 * T] = version;
           o[3 * T] = o_stopped;    o[4 * T] = tag;       o[5 * T] = o_bal;
-#if GP_STEP_MODE == 3
+#if GP_STEP_MODE >= 3
           o[6 * T] = o_exec;       o[8 * T] = o_n_execd;
 #else
           o[6 * T] = o_exec;       o[7 * T] = o_hash;    o[8 * T] = o_n_execd;
@@ -1296,7 +1534,7 @@ __global__ void __launch_bounds__(GP_MAX_THREADS, 3)
       }
     }
     }  // substeps
-#if GP_STEP_MODE == 3
+#if GP_STEP_MODE >= 3
     if (rr < R - 1) {
       // this replica's [G] outputs are staged: store them while the next
       // replica computes into the other output stage (the last replica's
@@ -1305,20 +1543,38 @@ __global__ void __launch_bounds__(GP_MAX_THREADS, 3)
       store_unhashed(a, sO, T, n, t0, rep, bulk, n_out, tid, nthr);
     }
     }  // replicas
+#if GP_STEP_MODE == 4
+    }  // stepped
+#endif
 #endif
 
     // the stage was written by this CTA's threads (substeps): order those
     // writes before the bulk copies that refill it
     if (NS > 1 || CL) fence_proxy_async();
+#if GP_STEP_MODE == 4
+    // the stage is read, the [G] outputs are staged, and the tile is at a
+    // fixed point where every thread's (group, lane) is: the tile's flag
+    // takes this launch's epoch (else it keeps an older one)
+    if (__syncthreads_and(fixed_mine) && tid == 0 && a.quiet != nullptr) {
+      a.quiet[4 * (t0 / T)] = a.quiet_epoch;
+      ++*n_flagged;
+    }
+#else
     __syncthreads();  // the stage is read, the [G] outputs are staged
-#if GP_STEP_MODE == 3
+#endif
+#if GP_STEP_MODE >= 3
     // the tile's app hashes, folded now that every replica has stepped
     // (their inputs lie outside the stage, which refills): the generic
     // instantiation folds before the next item's copies are issued, the
     // others after them and the last replica's stores.  On an H100 the
     // generic build folding after the issue spilled 40 bytes more and ran
     // 3.6-6.5% slower; the fixed ones ran 0.6-2% faster there
+#if GP_STEP_MODE == 4
+    if constexpr (RC == 0)
+      if (!skip) fold_hashes(a, L, sV, n, t0, tid, nthr);
+#else
     if constexpr (RC == 0) fold_hashes(a, L, sV, n, t0, tid, nthr);
+#endif
 #endif
     if (bulk) {
       const long long next = item + (long long)S * stride;
@@ -1329,11 +1585,18 @@ __global__ void __launch_bounds__(GP_MAX_THREADS, 3)
         issue_item<CL>(a, L, NS, rep2, t2, n2, st, &bars[s], tid, nthr);
       }
     }
-#if GP_STEP_MODE == 3
+#if GP_STEP_MODE >= 3
     // the last replica's staged [G] outputs, then the hashes (above in
     // the generic instantiation)
+#if GP_STEP_MODE == 4
+    if (!skip) {
+      store_unhashed(a, sO, T, n, t0, rep, bulk, n_out, tid, nthr);
+      if constexpr (RC > 0) fold_hashes(a, L, sV, n, t0, tid, nthr);
+    }
+#else
     store_unhashed(a, sO, T, n, t0, rep, bulk, n_out, tid, nthr);
     if constexpr (RC > 0) fold_hashes(a, L, sV, n, t0, tid, nthr);
+#endif
 #else
     // the staged [G] outputs, one coalesced run per word
     store_staged(a, sO, T, n, t0, rep, (NS - 1) * RS + rep, bulk, 0, n_out, nb, tid, nthr);
@@ -1349,6 +1612,34 @@ __global__ void __launch_bounds__(GP_MAX_THREADS, 3)
     cluster_arrive();
     cluster_wait();
   }
+#if GP_STEP_MODE == 4
+  // the skipped tiles' bulk copies are written; k items walked
+  if (bulk) bulk_wait_all();
+  if (tid == 0 && a.tiles != nullptr) {
+    atomicAdd(&a.tiles[0], (unsigned long long)*n_skipped);
+    atomicAdd(&a.tiles[1], (unsigned long long)(k - *n_skipped));
+  }
+  if (tid == 0 && a.quiet != nullptr) {
+    // the launch's sums; the last CTA to finish reports them to the host
+    // (the counts, then the epoch that dates them) and zeroes them
+    atomicAdd(&a.sums[0], (unsigned long long)*n_flagged);
+    atomicAdd(&a.sums[1], (unsigned long long)*n_skipped);
+    __threadfence();
+    if (atomicAdd(&a.sums[2], 1ull) == gridDim.x - 1) {
+      __threadfence();
+      const long long flagged = (long long)atomicExch(&a.sums[0], 0ull);
+      const long long skipped = (long long)atomicExch(&a.sums[1], 0ull);
+      a.sums[2] = 0;
+      volatile long long* rp = a.report;
+      rp[1] = flagged;
+      rp[2] = skipped;
+      rp[3] = n_items;
+      __threadfence_system();
+      rp[0] = a.quiet_epoch;
+      __threadfence_system();
+    }
+  }
+#endif
 }
 
 #if GP_STEP_MODE == 0
@@ -1419,7 +1710,7 @@ int choose_tile(const GpStepArgs& a, int sms) {
   const int t_small = t_min > 8 ? t_min : 8;
   const int threads = a.cluster ? GP_MAX_THREADS / 2 : GP_MAX_THREADS;
   int T = threads / W > t_min ? threads / W : t_min;
-#if GP_STEP_MODE == 3
+#if GP_STEP_MODE >= 3
   const long long per_tile = 1;  // work items a tile
 #else
   const long long per_tile = a.stacked ? a.R : 1;
@@ -1479,11 +1770,18 @@ int make_plan(GpStepArgs* a, Plan* p) {
   // mode 0 runs one substep; mode 1 is the packed face; a cluster (mode 2)
   // holds the R replicas of the stacked face
   if (GP_STEP_MODE == 0 && a->n_sub != 1) return (int)cudaErrorInvalidValue;
-#if GP_STEP_MODE == 3
+#if GP_STEP_MODE >= 3
   // the tile mode: the stacked face's one substep, its rows made in the
   // CTA (no gathered matrix) and no heat (a stacked face has none)
   if (a->n_sub != 1 || !a->stacked || a->gathered || a->heat_in || a->heat_out)
     return (int)cudaErrorInvalidValue;
+#if GP_STEP_MODE == 4
+  // the flags come with the two heard buffers, one read and one written,
+  // the sums, the report and an epoch
+  if (a->quiet && (!a->heard_prev || !a->heard_keep || a->heard_prev == a->heard_keep ||
+                   !a->sums || !a->report || a->quiet_epoch < 1))
+    return (int)cudaErrorInvalidValue;
+#endif
 #endif
   if (GP_STEP_MODE == 1 && a->stacked) return (int)cudaErrorInvalidValue;
   if (cl && (!a->stacked || a->R > GP_MAX_CLUSTER)) return (int)cudaErrorInvalidValue;
@@ -1507,10 +1805,13 @@ int make_plan(GpStepArgs* a, Plan* p) {
             aligned16(a->out_vec) && aligned16(a->blob) && aligned16(a->heat_in) &&
             aligned16(a->heat_out);
   for (int l = 0; l < GP_NLEAF; ++l) al = al && aligned16(a->st_in[l]) && aligned16(a->st_out[l]);
+#if GP_STEP_MODE == 4
+  al = al && aligned16(a->quiet);
+#endif
   a->aligned = al ? 1 : 0;
   p->threads = a->T * W;
   const long long n_tiles = ((long long)a->G + a->T - 1) / a->T;
-#if GP_STEP_MODE == 3
+#if GP_STEP_MODE >= 3
   p->n_items = n_tiles;
 #else
   p->n_items = (a->stacked && !cl) ? n_tiles * a->R : n_tiles;

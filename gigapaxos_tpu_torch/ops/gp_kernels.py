@@ -7,8 +7,10 @@ each builds with ``nvcc`` in seconds:
   builds four times, one library a mode (``GP_STEP_MODE``): ``gp_step``
   (one substep, and ``gp_make_blob``), ``gp_step_n`` (the packed face's N
   substeps in one launch), ``gp_step_cluster`` (the stacked face's N
-  substeps over clusters of R CTAs) and ``gp_step_tile`` (the stacked
-  face's one substep, each CTA stepping every replica of its tile);
+  substeps over clusters of R CTAs), ``gp_step_tile`` (the stacked
+  face's one substep, each CTA stepping every replica of its tile) and
+  ``gp_step_skip`` (the same, copying through each tile its last launch
+  left at a fixed point: :class:`TileFlags`, :func:`tile_counts`);
 * ``csrc/gp_lifecycle.cu``: the group-lifecycle row ops (create, kill,
   jump, restore_paused, restore_rows, extract_rows);
 * ``csrc/gp_pack_rows.cu``: ``gp_pack_rows``, the gathered blobs' row
@@ -38,6 +40,7 @@ import shutil
 import subprocess
 import threading
 import time
+import weakref
 from typing import Dict, Optional
 
 import numpy as np
@@ -60,13 +63,14 @@ SOURCES = {
     "gp_step_n": os.path.join(_PKG, "csrc", "gp_step.cu"),
     "gp_step_cluster": os.path.join(_PKG, "csrc", "gp_step.cu"),
     "gp_step_tile": os.path.join(_PKG, "csrc", "gp_step.cu"),
+    "gp_step_skip": os.path.join(_PKG, "csrc", "gp_step.cu"),
     "gp_lifecycle": os.path.join(_PKG, "csrc", "gp_lifecycle.cu"),
     "gp_pack_rows": os.path.join(_PKG, "csrc", "gp_pack_rows.cu"),
 }
 # each library's mode of its source (csrc/gp_step.cu's GP_STEP_MODE)
 DEFINES = {"gp_step_n": ["-DGP_STEP_MODE=1"], "gp_step_cluster": ["-DGP_STEP_MODE=2"],
-           "gp_step_tile": ["-DGP_STEP_MODE=3"]}
-_STEP_LIBS = ("gp_step", "gp_step_n", "gp_step_cluster", "gp_step_tile")
+           "gp_step_tile": ["-DGP_STEP_MODE=3"], "gp_step_skip": ["-DGP_STEP_MODE=4"]}
+_STEP_LIBS = ("gp_step", "gp_step_n", "gp_step_cluster", "gp_step_tile", "gp_step_skip")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -109,6 +113,22 @@ class _StepArgs(ctypes.Structure):
         ("aligned", ctypes.c_int32),   # set by the C launcher
         ("n_sub", ctypes.c_int32),     # substeps in the launch
         ("cluster", ctypes.c_int32),   # stacked: clusters of R CTAs
+    ]
+
+
+class _SkipArgs(_StepArgs):
+    """``GpStepArgs`` of the skip build (``GP_STEP_MODE == 4``): the
+    fields above, then the quiescence flags' (:class:`TileFlags`)."""
+
+    _fields_ = [
+        ("quiet", ctypes.c_void_p),        # [4 * tiles] int32, or null
+        ("heard_prev", ctypes.c_void_p),   # [R, R] uint8
+        ("heard_keep", ctypes.c_void_p),   # [R, R] uint8
+        ("tiles", ctypes.c_void_p),        # [2] uint64: skipped, stepped
+        ("sums", ctypes.c_void_p),         # [3] uint64, zero between launches
+        ("report", ctypes.c_void_p),       # [4] int64 in mapped host memory
+        ("quiet_valid", ctypes.c_int32),
+        ("quiet_epoch", ctypes.c_int32),
     ]
 
 
@@ -221,7 +241,7 @@ def _bind(name: str, cdll: ctypes.CDLL) -> None:
         sizes = {"gp_step_args_size": _StepArgs, "gp_blob_args_size": _BlobArgs}
         launchers = ("gp_step_launch", "gp_make_blob_launch", "gp_step_launch_info")
     elif name in _STEP_LIBS:
-        sizes = {"gp_step_args_size": _StepArgs}
+        sizes = {"gp_step_args_size": _SkipArgs if name == "gp_step_skip" else _StepArgs}
         launchers = ("gp_step_launch", "gp_step_launch_info")
     elif name == "gp_lifecycle":
         sizes = {"gp_life_args_size": _LifeArgs}
@@ -531,19 +551,154 @@ def step_cluster(states: EngineState, heard: torch.Tensor, req_vid: torch.Tensor
     return out_states, out_mat
 
 
+class TileFlags:
+    """The quiescence flags of one stacked face on one stream
+    (``csrc/gp_step.cu``'s skip build), the state they describe, and which
+    build each launch takes.
+
+    ``flags``: an int32 epoch a group tile, each in a 16-byte slot (a bulk
+    copy's unit: it comes with the tile's stage), as many as the smallest
+    tile the launcher picks makes; each ``gp_step_skip`` launch stores its
+    epoch where it leaves every group of a tile at a fixed point (the
+    others keep an older one).  ``heard``: the ``[R, R]`` heard of the
+    launch that set them, in one of two buffers (a launch reads one and
+    keeps its own in the other).  Filled once with -1, an epoch no launch
+    has.
+
+    The flags describe the state the last launch returned, every leaf the
+    same tensor at the same address and version (held by weak reference:
+    the flags keep no state alive).  A write through PyTorch into a leaf,
+    a view's included, moves its version; the kernels never write a state
+    they are given (every op writes new tensors), so no write through a
+    raw pointer reaches a returned state.  :meth:`launch` and
+    :meth:`returned` bracket each launch, under ``lock``.
+
+    The skip build's busy tiles run the check that keeps the flags, which
+    the plain tile build (``gp_step_tile``) does not: a launch takes the
+    skip build where the newest skip launch to finish flagged a quarter of
+    its tiles or more, and every :data:`PROBE` th launch else.  The card
+    writes each skip launch's counts to ``report`` (host memory it maps:
+    epoch, tiles flagged, skipped, walked) as the launch ends, so the
+    choice waits on nothing; a plain launch sets no flag, and the epochs
+    tell the next launch that none is fresh."""
+
+    def __init__(self, cfg: EngineConfig, device):
+        G, W, R = cfg.n_groups, cfg.window, cfg.n_replicas
+        dev = torch.device(device)
+        t_min = max(32 // W, 4)   # csrc/gp_step.cu choose_tile's least tile
+        self.flags = torch.full((4 * -(-G // t_min),), -1, dtype=torch.int32, device=dev)
+        self.epoch = 0   # the last launch's
+        hw = 16 * -(-R * R // 16)
+        self.buf = torch.empty(2 * hw, dtype=torch.uint8, device=dev)
+        self.heard = (self.buf[:R * R], self.buf[hw:hw + R * R])
+        self.parity = 0
+        self.sums = torch.zeros(4, dtype=torch.int64, device=dev)
+        self.report = torch.zeros(4, dtype=torch.int64, pin_memory=dev.type == "cuda")
+        self._report = self.report.numpy()
+        self._seen = 0          # the epoch of the newest report read
+        self._skip = False      # what it said
+        self._marks = None
+        self.n_tiles = None     # a launch's tiles (the plan's, on the first plain launch)
+        self.lock = threading.Lock()
+
+    def holds(self, states: EngineState) -> bool:
+        """The flags describe ``states``: the state the last launch
+        returned, unchanged since."""
+        marks = self._marks
+        if marks is None or len(marks) != len(states):
+            return False
+        try:
+            return all(ref() is x and x.data_ptr() == ptr and x._version == ver
+                       for (ref, ptr, ver), x in zip(marks, states))
+        except RuntimeError:   # an inference tensor has no version
+            return False
+
+    def skip_build(self) -> bool:
+        """Whether the next launch takes the skip build."""
+        epoch, flagged, walked = (int(self._report[i]) for i in (0, 1, 3))
+        if epoch != self._seen and walked > 0:
+            self._seen = epoch
+            self._skip = 4 * flagged >= walked
+        return self._skip or self.epoch % PROBE == 0
+
+    def launch(self, states: EngineState) -> bool:
+        """Before a launch on ``states``: whether the flags describe them
+        (the launch may skip tiles).  They describe nothing more until
+        :meth:`returned`."""
+        if self.epoch >= _MAX_EPOCH:   # start the epochs again
+            self.flags.fill_(-1)
+            self.epoch, self._marks = 0, None
+        valid = self.holds(states)
+        self._marks = None
+        return valid
+
+    def returned(self, states: EngineState) -> None:
+        """After the launch that returned ``states``: the flags its epoch
+        set, under the heard it kept, describe them."""
+        self.parity ^= 1
+        self.epoch += 1
+        try:
+            self._marks = [(weakref.ref(x), x.data_ptr(), x._version) for x in states]
+        except RuntimeError:
+            self._marks = None
+
+
+# launches between two of the skip build while its newest report flagged
+# too few tiles (each costs a busy step what the skip build's check does)
+PROBE = 64
+_MAX_EPOCH = 1 << 30
+
+# tiles the stacked face's tile launches skipped and stepped, summed on
+# each card: a [2] int64 counter a device, which every gp_step_skip launch
+# adds to, and the tiles of its gp_step_tile launches, counted here
+_TILE_COUNTS: Dict[str, torch.Tensor] = {}
+_PLAIN_TILES: Dict[str, int] = {}
+
+
+def _tile_counter(dev: torch.device) -> Optional[torch.Tensor]:
+    """The card's counter; made on a launch outside a CUDA graph's capture
+    (a launch under capture before any other counts nothing)."""
+    t = _TILE_COUNTS.get(str(dev))
+    if t is None and not torch.cuda.is_current_stream_capturing():
+        t = _TILE_COUNTS[str(dev)] = torch.zeros(2, dtype=torch.int64, device=dev)
+    return t
+
+
+def tile_counts(device=None) -> dict:
+    """The tiles the launches of :func:`step_stacked` with flags on
+    ``device`` (default: the current card) skipped and stepped since the
+    first launch or :func:`reset_tile_counts`.  Reads the card's counter
+    (a sync); nothing on the step's path calls it."""
+    dev = torch.device("cuda", torch.cuda.current_device()) if device is None else torch.device(device)
+    t = _TILE_COUNTS.get(str(dev))
+    skipped, stepped = (0, 0) if t is None else (int(x) for x in t.tolist())
+    return {"skipped": skipped, "stepped": stepped + _PLAIN_TILES.get(str(dev), 0)}
+
+
+def reset_tile_counts() -> None:
+    for t in _TILE_COUNTS.values():
+        t.zero_()
+    _PLAIN_TILES.clear()
+
+
 def step_stacked(states: EngineState, blobs: Optional[torch.Tensor],
                  heard: torch.Tensor, req_vid: torch.Tensor,
                  want_coord: torch.Tensor, cfg: EngineConfig, *,
                  out_states: Optional[EngineState] = None,
                  out_blobs: Optional[torch.Tensor] = None,
                  out_mat: Optional[torch.Tensor] = None,
-                 launch_log: Optional[dict] = None):
+                 launch_log: Optional[dict] = None,
+                 flags: Optional[TileFlags] = None):
     """One ``gp_step`` launch for ALL R replicas (work items (tile,
     replica), the replica fastest): stacked ``[R, G, ...]`` states, the
     ``[R, NB]`` blob matrix as the gather, ``heard [R, R]``, ``req [R, G,
     K]``, ``want [R, G]``.  ``blobs=None`` (R up to :data:`MAX_CLUSTER`):
     no matrix; one CTA a tile steps its R replicas from blob rows it
-    encodes in shared memory, as ``gp_make_blob`` would (``gp_step_tile``).
+    encodes in shared memory, as ``gp_make_blob`` would (``gp_step_tile``),
+    and with ``flags`` (:class:`TileFlags`) takes the build they choose:
+    ``gp_step_skip`` keeps the quiescence flags and, where they describe
+    ``states``, copies through each tile the last launch left at a fixed
+    point that gets no input now.
     Returns (states', out matrix [R, M], blobs' [R, NB] or None).
     ``launch_log``: as :func:`step`'s."""
     _check_cfg(cfg)
@@ -551,7 +706,8 @@ def step_stacked(states: EngineState, blobs: Optional[torch.Tensor],
     dev = states.bal.device
     if dev.type != "cuda":
         raise ValueError(f"gp_step needs CUDA tensors, got {dev}")
-    a = _StepArgs()
+    skip = flags is not None and flags.skip_build()
+    a = _SkipArgs() if skip else _StepArgs()
     a.st_in[:] = _state_ptrs(states, (R,), G, W, dev, "states")
     if out_states is None:
         out_states = _empty_state(states)
@@ -562,7 +718,15 @@ def step_stacked(states: EngineState, blobs: Optional[torch.Tensor],
     if blobs is None:
         if R > MAX_CLUSTER:
             raise ValueError(f"gp_step_tile: R={R} replicas, at most {MAX_CLUSTER}")
+        if skip:
+            counter = _tile_counter(dev)
+            a.tiles = 0 if counter is None else counter.data_ptr()
+            a.quiet = _check(flags.flags, "flags", flags.flags.shape, torch.int32, dev)
+            a.sums = _check(flags.sums, "sums", (4,), torch.int64, dev)
+            a.report = flags.report.data_ptr()
     else:
+        if flags is not None:
+            raise ValueError("flags are the tile build's (blobs=None)")
         a.gathered = _check(blobs, "blobs", (R, NB), torch.int32, dev)
     heard = _bytes(heard)
     a.heard = _check(heard, "heard", (R, R), torch.uint8, dev)
@@ -579,7 +743,22 @@ def step_stacked(states: EngineState, blobs: Optional[torch.Tensor],
             raise ValueError("out_blobs aliases the gathered blobs")
     a.G, a.W, a.K, a.R, a.my_id, a.stacked = G, W, K, R, 0, 1
     a.n_sub, a.cluster = 1, 0
-    _launch(lib("gp_step_tile" if blobs is None else "gp_step").gp_step_launch, a)
+    if flags is None:
+        _launch(lib("gp_step_tile" if blobs is None else "gp_step").gp_step_launch, a)
+    else:
+        with flags.lock:
+            valid = flags.launch(states)
+            if skip:
+                a.quiet_valid, a.quiet_epoch = int(valid), flags.epoch + 1
+                a.heard_prev = flags.heard[flags.parity].data_ptr()
+                a.heard_keep = flags.heard[1 - flags.parity].data_ptr()
+                _launch(lib("gp_step_skip").gp_step_launch, a)
+            else:
+                _launch(lib("gp_step_tile").gp_step_launch, a)
+                if flags.n_tiles is None:
+                    flags.n_tiles = -(-G // step_launch_plan(cfg, tile=True)["T"])
+                _PLAIN_TILES[str(dev)] = _PLAIN_TILES.get(str(dev), 0) + flags.n_tiles
+            flags.returned(out_states)
     _count("gp_step", launch_log)
     return out_states, out_mat, out_blobs
 

@@ -13,10 +13,15 @@ ONE factory — :func:`make_step` — builds both execution faces of
   R CTAs per group tile, the replicas' blobs exchanged in the cluster's
   shared memory), at N = 1 a stacked ``gp_step`` with one CTA per group
   tile, which encodes the tile's R blob rows in its shared memory and
-  steps the R replicas in turn.  R above the portable cluster size of 8
-  takes a ``gp_make_blob`` and one ``gp_step`` launch per substep over an
-  (R x group-tile) grid, exchanging through a double-buffered ``[R, NB]``
-  blob matrix (:func:`gigapaxos_tpu_torch.ops.gp_kernels.stacked_route`).
+  steps the R replicas in turn (``gp_step_tile``); where most tiles rest,
+  ``gp_step_skip`` instead, which also copies through each tile its last
+  launch left at a fixed point that gets no input now (the face keeps
+  the flags a stream, valid only for the very state it returned,
+  unchanged, and the choice of build: ``gp_kernels.TileFlags``).  R above the
+  portable cluster size of 8 takes a ``gp_make_blob`` and one ``gp_step``
+  launch per substep over an (R x group-tile) grid, exchanging through a
+  double-buffered ``[R, NB]`` blob matrix
+  (:func:`gigapaxos_tpu_torch.ops.gp_kernels.stacked_route`).
 
 * ``io="packed_host"`` — the deployed-runtime face (one replica's state,
   peers' blobs arriving as the packed ``[R, NB]`` gathered matrix == the
@@ -83,6 +88,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import threading
 from typing import List, Optional
 
 import numpy as np
@@ -158,6 +164,10 @@ class _StackedStep:
         # substeps, one CTA at N = 1); else a blob launch and N step
         # launches
         self.route = gp_kernels.stacked_route(cfg, n_steps)
+        # the tile route's quiescence flags, one set a stream (two streams'
+        # launches may run at once)
+        self._flags = {}
+        self._flags_lock = threading.Lock()
         if _engine.on_card(device):
             from ..obs.gplog import get_logger
 
@@ -236,9 +246,10 @@ class _StackedStep:
             st, mat = gp_kernels.step_cluster(states, h, req, want, cfg,
                                               out_mat=mat, launch_log=launch_log)
             return st, self._outs(mat)
-        # "tile" (N = 1): the step encodes the rows itself, no matrix
-        blobs = (None if self.route == "tile" else
-                 gp_kernels.make_blob_rows(states, R, launch_log))
+        if self.route == "tile":
+            return self._tile(states, h, req[0], want, mat[0], launch_log)
+        # "launches" (R above a cluster): a blob launch and N step launches
+        blobs = gp_kernels.make_blob_rows(states, R, launch_log)
         blobs_next = torch.empty_like(blobs) if N > 1 else None
         st = states
         for i in range(N):
@@ -251,6 +262,32 @@ class _StackedStep:
             if i < N - 1:
                 blobs, blobs_next = blobs_next, blobs
         return st, self._outs(mat if N > 1 else mat[0])
+
+    def _tile(self, states, h, req, want, mat, launch_log):
+        """N = 1 as one tile launch, which encodes the tile's rows itself
+        (no matrix), with this stream's flags (not under a CUDA graph's
+        capture, whose replays would outlive them): the skip build copies
+        through the tiles its last launch on this stream left at a fixed
+        point, where ``states`` is the state that launch returned,
+        unchanged."""
+        from ..ops import gp_kernels
+
+        flags = None
+        if not (states.bal.is_cuda and torch.cuda.is_current_stream_capturing()):
+            flags = self._stream_flags(states.bal.device)
+        st, _, _ = gp_kernels.step_stacked(states, None, h, req, want, self.cfg,
+                                           out_mat=mat, launch_log=launch_log, flags=flags)
+        return st, self._outs(mat)
+
+    def _stream_flags(self, dev):
+        from ..ops import gp_kernels
+
+        key = torch.cuda.current_stream(dev).cuda_stream if dev.type == "cuda" else 0
+        with self._flags_lock:
+            flags = self._flags.get(key)
+            if flags is None:
+                flags = self._flags[key] = gp_kernels.TileFlags(self.cfg, dev)
+        return flags
 
 
 class _PackedStep:
@@ -502,7 +539,9 @@ class _MeshStep:
         outs = _grid(self.mesh, StepOutputs._fields)
         for idx in self.index:
             dev = self.mesh.devices[idx]
-            key = (Gs, str(dev))
+            # a face a shard: each keeps its shard's quiescence flags (the
+            # logical devices of a mesh may share a card and a stream)
+            key = (Gs, str(dev), idx)
             if key not in self._shard_steps:
                 self._shard_steps[key] = _StackedStep(
                     cfg._replace(n_groups=Gs), self.n_steps, dev)

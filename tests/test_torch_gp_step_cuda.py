@@ -552,3 +552,133 @@ def test_sim_cluster_on_card_matches_cpu():
                                    getattr(on_cpu.states[r], f)), (t, r, f)
     on_card.assert_rsm_invariant()
     assert on_card.checker.total_committed() > 0
+
+
+# ---- the tile build's quiescent tiles ---------------------------------------
+
+# (W, R, K, G): W = 32, 16 and 8 at R = 3, an R = 5 shape, the generic
+# build, and G % 4 != 0 (plain loads and stores, a ragged last tile)
+QUIET_CASES = [(32, 3, 16, 4100), (16, 3, 8, 4100), (8, 3, 4, 4100), (32, 5, 8, 4100),
+               (4, 7, 3, 4100), (32, 3, 16, 1001)]
+QUIET_CALLS = 220
+
+
+def _own_stream():
+    """A stream of the test's own: the face keeps its quiescence flags, and
+    its choice of build, a stream, so there they start afresh (the first
+    launch a probe of the skip build) whatever earlier tests stepped
+    through the same memoized face."""
+    return torch.cuda.stream(torch.cuda.Stream())
+
+
+def _coordinators(states):
+    active = states.c_phase == te.ACTIVE
+    R, G = active.shape
+    first = torch.arange(G, device=active.device) % R
+    return torch.where(active.any(0), active.int().argmax(0), first)
+
+
+@pytest.mark.parametrize("W,R,K,G_", QUIET_CASES)
+def test_tile_skips_quiescent_tiles_word_for_word(W, R, K, G_):
+    """The stacked face at N = 1 over 220 calls of sparse seeded traffic
+    (a hot run of groups, now and then a cold one, and stray requests at
+    replicas that do not coordinate), every state leaf and every out word
+    of every group against the plain face at every call; with want pulses
+    (calls 50-55), a proposal to the long-quiet last group (call 120),
+    heard dropping a replica (calls 100-149), a state the face did not
+    return (call 160) and a returned state changed in place (call 180).
+    The tile counter reads more than 90% of the tiles skipped: the face
+    keeps the skip build, its reports flagging most tiles."""
+    _need_card()
+    from gigapaxos_tpu_torch.ops import gp_kernels
+    from gigapaxos_tpu_torch.parallel.spmd import build_replica_states, make_step
+
+    cfg = te.EngineConfig(G_, W, K, R)
+    fn = make_step(cfg, None, 1, donate=False, io="stacked", device="cuda")
+    assert fn.route == "tile"
+    rng = np.random.default_rng(W * 131 + R * 7 + G_)
+    states = build_replica_states(cfg, device="cuda")
+    hot = np.arange(16, 40)
+    full = torch.ones((R, R), dtype=torch.bool, device="cuda")
+    dropped = full.clone()
+    dropped[:, R - 1] = False
+    dropped |= torch.eye(R, dtype=torch.bool, device="cuda")
+    torch.cuda.synchronize()
+    gp_kernels.reset_tile_counts()
+    with _own_stream():
+        _quiet_calls(fn, states, rng, hot, full, dropped, R, K, G_)
+    torch.cuda.synchronize()
+    got = gp_kernels.tile_counts()
+    n_tiles = -(-G_ // gp_kernels.step_launch_plan(cfg, tile=True)["T"])
+    assert got["skipped"] + got["stepped"] == QUIET_CALLS * n_tiles, got
+    assert got["skipped"] > 0.9 * QUIET_CALLS * n_tiles, got
+
+
+def _quiet_calls(fn, states, rng, hot, full, dropped, R, K, G_):
+    """The calls of :func:`test_tile_skips_quiescent_tiles_word_for_word`."""
+    for t in range(QUIET_CALLS):
+        req = torch.full((R, G_, K), NULL, dtype=torch.int32, device="cuda")
+        want = torch.zeros((R, G_), dtype=torch.bool, device="cuda")
+        coord = _coordinators(states).cpu().numpy()
+        groups = list(rng.choice(hot, size=4, replace=False))
+        if rng.random() < 0.3:
+            groups.append(int(rng.integers(hot[-1] + 1, G_ - 1)))
+        if t == 120:
+            groups.append(G_ - 1)
+        if rng.random() < 0.3:   # a request at a replica that does not coordinate
+            g = int(rng.integers(0, G_))
+            req[(int(coord[g]) + 1) % R, g, 0] = 99
+        for g in groups:
+            req[int(coord[g]), int(g)] = torch.as_tensor(
+                rng.integers(1, 1 << 20, size=K).astype(np.int32), device="cuda")
+        if 50 <= t < 56:
+            pick = rng.integers(0, G_, size=3)
+            want[torch.as_tensor(rng.integers(0, R, size=3), device="cuda"),
+                 torch.as_tensor(pick, device="cuda")] = True
+        heard = dropped if 100 <= t < 150 else None
+        if t == 160:
+            states = te.EngineState(*(x.clone() for x in states))
+        if t == 180:
+            g = int(rng.integers(hot[-1] + 1, G_ - 1))
+            states.c_bal[:, g] += 32
+            states.bal[:, g] += 32
+        k_st, k_o = fn(states, req, want, heard)
+        p_st, p_o = fn.plain(states, req, want, heard)
+        _eq(k_st, p_st, f"call {t}: states'")
+        _eq(k_o, p_o, f"call {t}: outs")
+        states = k_st
+
+
+def test_tile_skips_nothing_under_steady_traffic():
+    """Every coordinator offered K fresh values every call (the node
+    cells' traffic): no tile is skipped, every call is the plain face's,
+    and after the first (a probe of the skip build, whose report flags no
+    tile) the face takes the plain tile build."""
+    _need_card()
+    from gigapaxos_tpu_torch.ops import gp_kernels
+    from gigapaxos_tpu_torch.parallel.spmd import build_replica_states, make_step
+
+    W, R, K, G_ = 32, 3, 16, 4100
+    cfg = te.EngineConfig(G_, W, K, R)
+    fn = make_step(cfg, None, 1, donate=False, io="stacked", device="cuda")
+    states = build_replica_states(cfg, device="cuda")
+    base = torch.randint(1, 1 << 20, (R, G_, K), dtype=torch.int32, device="cuda")
+    want = torch.zeros((R, G_), dtype=torch.bool, device="cuda")
+    torch.cuda.synchronize()
+    gp_kernels.reset_tile_counts()
+    stream = torch.cuda.Stream()
+    with torch.cuda.stream(stream):
+        for t in range(24):
+            req = base + t * 40503
+            k_st, k_o = fn(states, req, want)
+            p_st, p_o = fn.plain(states, req, want)
+            _eq(k_st, p_st, f"call {t}: states'")
+            _eq(k_o, p_o, f"call {t}: outs")
+            states = k_st
+    torch.cuda.synchronize()
+    got = gp_kernels.tile_counts()
+    n_tiles = -(-G_ // gp_kernels.step_launch_plan(cfg, tile=True)["T"])
+    assert got == {"skipped": 0, "stepped": 24 * n_tiles}, got
+    # one launch of the skip build, the probe
+    assert int(gp_kernels._TILE_COUNTS[str(states.bal.device)][1]) == n_tiles
+    assert fn._flags[stream.cuda_stream].report.tolist() == [1, 0, 0, n_tiles]

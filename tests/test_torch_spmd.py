@@ -179,7 +179,9 @@ def _emulate_kernels(monkeypatch):
 
     def step_stacked(states, blobs, heard, req_vid, want_coord, cfg, *,
                      out_states=None, out_blobs=None, out_mat=None,
-                     launch_log=None):
+                     launch_log=None, flags=None):
+        # flags (the tile route's quiescence flags) only let a launch skip
+        # work whose result it would write all the same: the plain step
         if blobs is None:
             # no matrix: the launch encodes its tiles' rows itself
             assert cfg.n_replicas <= gp_kernels.MAX_CLUSTER
